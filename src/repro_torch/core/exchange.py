@@ -1,0 +1,106 @@
+"""Halo exchange primitives: boundary gather + the exchange entry points.
+
+All GNN runtime code operates on *stacked* tensors with a leading partition
+axis ``P`` — e.g. node features ``(P, n_local, d)``. Which collective moves the
+halo buffers is the backend's decision (``repro_torch.dist.backend``); this
+module is the seam. Two buffer layouts exist (see ``graph/partition.py``):
+
+* dense pairwise blocks ``(P, P*h_pad, ...)`` — the exchange is a transpose,
+  its own inverse;
+* compact ring buckets ``(P, R, ...)`` with ``R = sum(bucket_sizes)`` — bucket
+  ``k`` moves ``p -> (p+k) % P``; ``reverse=True`` runs the inverted rings.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from ..dist.backend import SimulatedBackend
+from .quantization import QuantizedTensor, comm_bytes
+
+
+@dataclasses.dataclass(frozen=True)
+class PlanArrays:
+    """Device-side halo plan (stacked, leading axis P). See graph/partition.py.
+
+    ``bucket_sizes`` is ``None`` for the dense layout and the per-ring-offset
+    row counts for the compact layout. ``wire_rows`` / ``real_rows`` are
+    exchange-accounting constants (totals across partitions): rows the layout
+    ships vs. true unpadded off-diagonal halo rows."""
+
+    send_idx: torch.Tensor   # (P, rows) int64 — local rows to send
+    send_mask: torch.Tensor  # (P, rows) bool
+    recv_mask: torch.Tensor  # (P, rows) bool
+    n_local: int
+    h_pad: int
+    n_parts: int
+    bucket_sizes: Optional[tuple[int, ...]] = None
+    wire_rows: int = 0
+    real_rows: int = 0
+
+    @property
+    def halo_rows(self) -> int:
+        """Rows of one partition's halo buffer (dense: P*h_pad; compact: R)."""
+        return int(self.send_idx.shape[1])
+
+    @staticmethod
+    def from_plan(plan, device=None) -> "PlanArrays":
+        p = plan
+        buckets = None
+        if getattr(p, "layout", "dense") == "compact":
+            buckets = tuple(int(b) for b in p.bucket_sizes)
+        return PlanArrays(
+            send_idx=torch.as_tensor(p.send_idx.reshape(p.n_parts, -1),
+                                     dtype=torch.int64, device=device),
+            send_mask=torch.as_tensor(p.send_mask.reshape(p.n_parts, -1),
+                                      device=device),
+            recv_mask=torch.as_tensor(p.recv_mask, device=device),
+            n_local=int(p.n_local), h_pad=int(p.h_pad), n_parts=int(p.n_parts),
+            bucket_sizes=buckets, wire_rows=int(p.wire_rows()),
+            real_rows=int(p.real_rows()))
+
+
+def gather_boundary(h: torch.Tensor, plan: PlanArrays) -> torch.Tensor:
+    """(P, n_local, d) -> (P, rows, d) packed send buffer (masked rows zero)."""
+    idx = plan.send_idx[..., None].expand(-1, -1, h.shape[-1])
+    buf = torch.gather(h, 1, idx)
+    return torch.where(plan.send_mask[..., None], buf, 0.0)
+
+
+def exchange_halo(x: torch.Tensor, plan: PlanArrays, backend=None,
+                  reverse: bool = False) -> torch.Tensor:
+    """Layout-dispatching halo exchange. Dense plans use the transpose
+    (``reverse`` ignored); compact plans run the ring buckets, reversed for
+    the backward communication."""
+    be = backend if backend is not None else SimulatedBackend()
+    if plan.bucket_sizes is None:
+        return be.exchange(x)
+    return be.exchange_compact(x, plan.bucket_sizes, reverse=reverse)
+
+
+def exchange_quantized_halo(qt: QuantizedTensor, plan: PlanArrays,
+                            backend=None,
+                            reverse: bool = False) -> QuantizedTensor:
+    """Layout-dispatching quantized exchange (payload + scale/zero together)."""
+    be = backend if backend is not None else SimulatedBackend()
+    if plan.bucket_sizes is None:
+        return be.exchange_quantized(qt)
+    return be.exchange_quantized_compact(qt, plan.bucket_sizes,
+                                         reverse=reverse)
+
+
+def exchange_bytes(plan: PlanArrays, d: int, bits: int,
+                   scale_dtype=torch.bfloat16) -> tuple[int, int]:
+    """(payload, error-compensation) *true wire* bytes per exchange, totaled
+    across partitions: diagonal self-blocks and padding rows excluded."""
+    return comm_bytes(plan.real_rows, d, bits, scale_dtype)
+
+
+def wire_bytes(plan: PlanArrays, d: int, bits: int,
+               scale_dtype=torch.bfloat16) -> tuple[int, int]:
+    """(payload, error-compensation) bytes this plan's layout actually ships
+    per exchange, totaled across partitions (alignment tails or pairwise
+    padding included, the diagonal never)."""
+    return comm_bytes(plan.wire_rows, d, bits, scale_dtype)

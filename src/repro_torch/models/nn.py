@@ -1,0 +1,50 @@
+"""Minimal layer library with the JAX reference's parameter layout.
+
+A linear layer is ``x @ w + b`` with ``w`` shaped ``(d_in, d_out)`` — not
+``torch.nn.Linear``'s ``(out, in)`` — so a parameter tree
+``{"layer0": {"w": ..., "b": ...}}`` and a checkpoint carry over between the
+two packages unchanged (``models/convert.py``).
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+from torch import nn
+
+
+def glorot(shape, generator: Optional[torch.Generator] = None
+           ) -> torch.Tensor:
+    """Glorot-uniform in [-lim, lim), lim = sqrt(6 / (fan_in + fan_out)),
+    drawn on the CPU from ``generator``."""
+    fan_in, fan_out = shape[-2], shape[-1]
+    lim = math.sqrt(6.0 / (fan_in + fan_out))
+    u = torch.rand(tuple(shape), generator=generator, dtype=torch.float32)
+    return (u * 2.0 - 1.0) * lim
+
+
+def linear_init(d_in: int, d_out: int, bias: bool = True,
+                generator: Optional[torch.Generator] = None) -> dict:
+    p = {"w": glorot((d_in, d_out), generator)}
+    if bias:
+        p["b"] = torch.zeros((d_out,), dtype=torch.float32)
+    return p
+
+
+def linear(p: dict, x: torch.Tensor) -> torch.Tensor:
+    y = x @ p["w"]
+    return y + p["b"] if "b" in p else y
+
+
+class Linear(nn.Module):
+    """:func:`linear` with its parameters ``w`` (d_in, d_out) and ``b``."""
+
+    def __init__(self, d_in: int, d_out: int, bias: bool = True,
+                 generator: Optional[torch.Generator] = None, device=None):
+        super().__init__()
+        for name, t in linear_init(d_in, d_out, bias, generator).items():
+            self.register_parameter(name, nn.Parameter(t.to(device)))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return linear(dict(self.named_parameters()), x)
