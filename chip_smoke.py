@@ -8,7 +8,8 @@ Phases, each of which raises (and exits non-zero) on failure:
 1. card   — needs ``torch.cuda.is_available()``; prints ``nvidia-smi``'s name
             and power limit.
 2. build  — compiles the CUDA kernels from ``src/repro_torch/kernels/csrc``
-            into ``build/kernels/`` (cached by a hash of the sources).
+            into ``build/kernels/`` (cached by a hash of the sources), one
+            ``nvcc`` per source, all started together.
 3. slice  — serves GCN (d_hidden 256, 2 layers, the paper configuration) on
             ``reddit_like@paper`` (25,000 nodes, 602 features, 41 classes) in
             4 partitions stacked on the card, 1-bit deterministic halos, random
@@ -21,14 +22,39 @@ Phases, each of which raises (and exits non-zero) on failure:
             (the plain PyTorch versions, which the CPU tests hold to the JAX
             reference): logits agree at 32 bits, site-0 halos agree exactly
             at 1 bit.
-5. kernels — each kernel against its plain PyTorch version on the tensors the
-            slice's sweep produced: quantize (bits 1/2/4/8, stochastic and
+5. kernels — each GCN kernel against its plain PyTorch version on the tensors
+            the slice's sweep produced: quantize (bits 1/2/4/8, stochastic and
             deterministic) bit-equal, dequantize equal, SpMM within rtol/atol
             1e-5 (both sum in CSR order, so in practice bit-equal). CUDA-event
-            times beside the
-            bytes-or-operations bound and, for SpMM, ``torch.sparse.mm``.
-6. summary — a ``{"kernels": [...]}`` line, the card line, and the last
+            times beside the bytes-or-operations bound and, for SpMM,
+            ``torch.sparse.mm``. The GCN's tensors are freed after this phase.
+6. lm     — serves granite-3-2b at its full published config (40 layers,
+            2,533,531,648 parameters, float32 from a seeded generator, as the
+            reference's ``serve_lm``) through the port's ``generate``: batch 8,
+            prompt 2,016 + 32 new tokens, i.e. one prefill over 2,048 positions
+            and 31 greedy decode steps. Cut from the ``prefill_32k`` /
+            ``decode_32k`` shapes (seq 32,768, batch 32 / 128) to fit this
+            script's time. The flash kernel's count is zeroed just before and
+            must read 40 just after (one launch per prefill layer; decode
+            attention is plain PyTorch and launches none). Prints prefill ms,
+            decode tokens/s, peak memory, the first tokens and a profiled
+            prefill and decode step split by kernel.
+7. lm-small — reduced granite-3-2b and yi-34b (untied unembedding) on the
+            card and on the CPU from the same numpy weights: prefill logits
+            within rtol/atol 1e-4, greedy tokens equal.
+8. flash  — the flash kernel against its plain versions on the slice's own
+            layer-0 q/k/v: ``flash_fwd`` over (8*32, 2048, 64) with KV heads
+            repeated 4:1, in float32 and from bfloat16 inputs, the model's
+            ``attention_bshd`` (GQA through strides), and a ragged windowed
+            case (Sq = Skv = 2,080, window 100). Tolerance on the attention
+            (acc / l): 1e-4 absolute in float32, 2e-2 from bfloat16 inputs.
+            CUDA-event times beside the operations bound, the plain version
+            and ``scaled_dot_product_attention`` (timed here only; the port
+            never calls it).
+9. summary — a ``{"kernels": [...]}`` line, the card line, and the last
             line ``{"ok": true, "device": {...}}``.
+
+Run time on an H100: about two minutes, the kernels' build included.
 """
 from __future__ import annotations
 
@@ -79,6 +105,238 @@ def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def profile_device(fn, label: str):
+    """Run ``fn`` once under ``torch.profiler``; print its device time by
+    kernel and return (fn's result, host ms, device-busy ms, {group: ms}) with
+    the groups flash kernel / matrix products (cuBLAS) / everything else."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    on_dev = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in on_dev) / 1e3
+    groups = {"flash": 0.0, "gemm": 0.0, "other": 0.0}
+    for e in on_dev:
+        name = e.key.lower()
+        g = "flash" if "flash_fwd_kernel" in name else \
+            "gemm" if any(w in name for w in ("gemm", "gemv", "cutlass",
+                                              "xmma", "cublas")) else "other"
+        groups[g] += e.self_device_time_total / 1e3
+    log(f"[profile] {label}: host {wall:.3f} ms, device busy {busy:.3f} ms "
+        f"({100 * busy / wall:.1f}% of the host time); by group "
+        f"{json.dumps({k: round(v, 3) for k, v in groups.items()})}")
+    for e in sorted(on_dev, key=lambda e: -e.self_device_time_total)[:8]:
+        log(f"[profile]   {e.self_device_time_total / 1e3:9.3f} ms "
+            f"{e.count:5d}x  {e.key[:100]}")
+    return out, wall, busy, groups
+
+
+def lm_phase(all_kernels: dict) -> dict:
+    """granite-3-2b at full width served through ``generate``; returns the
+    path's launch counts and layer 0's q/k/v for the kernel checks."""
+    from repro_torch import configs
+    from repro_torch.dist.runtime import resolve_device
+    from repro_torch.launch.train import generate
+    from repro_torch.models.lm import model as LM
+
+    dev = resolve_device()
+    cfg = configs.get("granite-3-2b").config()
+    check(cfg.n_layers == 40 and cfg.param_count() == 2_533_531_648,
+          "granite-3-2b full config: 40 layers, 2,533,531,648 parameters")
+    t0 = time.perf_counter()
+    params = LM.init_params(cfg, torch.Generator(dev).manual_seed(SEED),
+                            dtype=torch.float32)
+    torch.cuda.synchronize()
+    n_alloc = sum(t.numel() for _, t in LM.tree_leaves(params))
+    log(f"[lm] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.segments[0].layers[0].attn.n_heads} heads / "
+        f"{cfg.segments[0].layers[0].attn.n_kv_heads} KV heads, "
+        f"{cfg.param_count()} parameters ({n_alloc} allocated with the "
+        f"padded vocab), float32 {n_alloc * 4 / 1e9:.2f} GB, drawn in "
+        f"{time.perf_counter() - t0:.1f} s")
+    b, s_ctx, new = 8, 2016, 32
+    log(f"[lm] batch {b}, prompt {s_ctx} + {new} new tokens: one prefill over "
+        f"{s_ctx + new} positions, {new - 1} decode steps (cut from "
+        f"prefill_32k/decode_32k: seq 32768, batch 32/128)")
+    prompts = np.random.default_rng(SEED).integers(0, cfg.vocab, (b, s_ctx))
+    torch.cuda.reset_peak_memory_stats()
+    for meta in all_kernels.values():
+        meta["k"].launches = 0
+    res = generate(params, cfg, prompts, new)
+    torch.cuda.synchronize()
+    launches = {name: meta["k"].launches for name, meta in all_kernels.items()}
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[lm] generate (first): prefill {res.prefill_s * 1e3:.1f} ms, "
+        f"{new - 1} decode steps {res.decode_s * 1e3:.1f} ms; launches "
+        f"{launches}; peak memory {peak / 1e9:.2f} GB")
+    check(launches["flash_fwd"] == cfg.n_layers,
+          f"flash_fwd launched {launches['flash_fwd']} times in one generate,"
+          f" expected {cfg.n_layers} (one per prefill layer, none in decode)")
+    check(all(n == 0 for name, n in launches.items() if name != "flash_fwd"),
+          "the LM path launches no GCN kernel")
+    check(res.tokens.shape == (b, new) and res.tokens.min() >= 0
+          and res.tokens.max() < cfg.vocab, "greedy tokens in the vocab")
+    warm = generate(params, cfg, prompts, new)
+    check(np.array_equal(warm.tokens, res.tokens), "greedy tokens repeat")
+    log(f"[lm] generate (second): prefill {warm.prefill_s * 1e3:.1f} ms "
+        f"({b * (s_ctx + new) / warm.prefill_s:.0f} tokens/s), decode "
+        f"{b * (new - 1) / warm.decode_s:.1f} tokens/s "
+        f"({warm.decode_s / (new - 1) * 1e3:.2f} ms a step); first tokens of "
+        f"each row: {res.tokens[:, :8].tolist()}")
+
+    tokens = torch.zeros((b, s_ctx + new), dtype=torch.long, device=dev)
+    tokens[:, :s_ctx] = torch.as_tensor(prompts)
+    prefill = LM.make_prefill_step(cfg, b, s_ctx + new)
+    (last, caches), *prof_p = profile_device(
+        lambda: prefill(params, tokens), f"one prefill ({b}x{s_ctx + new})")
+    check(tuple(last.shape) == (b, cfg.vocab)
+          and bool(torch.isfinite(last).all()), "prefill logits finite")
+    check(np.array_equal(last.argmax(-1).cpu().numpy(), res.tokens[:, 0]),
+          "prefill argmax == first generated token")
+    decode = LM.make_decode_step(cfg)
+    _, *prof_d = profile_device(
+        lambda: decode(params, caches, last.argmax(-1)[:, None], s_ctx),
+        "one decode step")
+
+    a = cfg.segments[0].layers[0].attn
+    w = sum(t.numel() for _, t in LM.tree_leaves(params["seg0"])
+            if t.dim() == 3)                  # the layers' weight matrices
+    gemm_tflop = 2 * w * b * (s_ctx + new) / 1e12
+    gemm_ms = prof_p[2]["gemm"]
+    log(f"[lm] prefill matrix products: {gemm_tflop:.3f} TFLOP in "
+        f"{gemm_ms:.1f} ms of cuBLAS = {gemm_tflop / gemm_ms * 1e3:.1f} "
+        f"TFLOP/s (float32, not on the tensor cores: 67 TFLOP/s peak)")
+    step_bytes = 4 * (w + params["embed"].numel()) + sum(
+        c.numel() * c.element_size() for _, c in LM.tree_leaves(caches))
+    step_bound, _ = bound(step_bytes, 0)
+    log(f"[lm] one decode step reads at least {step_bytes / 1e9:.3f} GB "
+        f"(float32 weights, bf16 caches) = {step_bound:.3f} ms at 3.35 TB/s;"
+        f" device busy {prof_d[1]:.3f} ms, host {prof_d[0]:.3f} ms")
+    p0 = LM.index_layer(params["seg0"], 0)["sub0"]
+    h = LM.rms_norm(params["embed"][tokens], p0["ln_attn"], cfg.norm_eps)
+    qkv = LM.project_qkv(p0["attn"], h, a,
+                          torch.arange(s_ctx + new, device=dev))
+    return dict(launches=launches, qkv=qkv)
+
+
+def lm_small_phase() -> None:
+    """Reduced granite-3-2b and yi-34b: card vs the CPU's plain versions."""
+    from repro_torch import configs
+    from repro_torch.launch.train import generate
+    from repro_torch.models.convert import (lm_params_from_numpy,
+                                            lm_params_to_numpy)
+    from repro_torch.models.lm import model as LM
+
+    for arch in ("granite-3-2b", "yi-34b"):
+        cfg = configs.get(arch).reduced()
+        tree = lm_params_to_numpy(LM.init_params(
+            cfg, torch.Generator().manual_seed(SEED), dtype=torch.float32))
+        b, s_ctx, new = 4, 56, 8
+        prompts = np.random.default_rng(SEED).integers(0, cfg.vocab,
+                                                       (b, s_ctx))
+        out = {}
+        for dev in ("cuda", "cpu"):
+            params = lm_params_from_numpy(tree, cfg, device=dev)
+            tok = torch.zeros((b, s_ctx + new), dtype=torch.long, device=dev)
+            tok[:, :s_ctx] = torch.as_tensor(prompts)
+            last, _ = LM.make_prefill_step(cfg, b, s_ctx + new)(params, tok)
+            out[dev] = (last.cpu(),
+                        generate(params, cfg, prompts, new, dev).tokens)
+        err = float((out["cuda"][0] - out["cpu"][0]).abs().max())
+        check(torch.allclose(out["cuda"][0], out["cpu"][0], rtol=1e-4,
+                             atol=1e-4),
+              f"{arch} reduced: prefill logits card vs CPU (max abs err {err})")
+        check(np.array_equal(out["cuda"][1], out["cpu"][1]),
+              f"{arch} reduced: greedy tokens card == CPU")
+        log(f"[lm-small] {cfg.name}: prefill logits card vs CPU max abs err "
+            f"{err:.3g} (rtol/atol 1e-4); {b}x{new} greedy tokens equal")
+
+
+def flash_phase(q, k, v) -> dict:
+    """The flash kernel against its plain versions on layer 0's q/k/v."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash import ops as fops
+    from repro_torch.kernels.flash import ref as fref
+
+    b, s, h, d = q.shape
+    g = h // k.shape[2]
+    scale = d ** -0.5
+
+    def heads(x, rep=1):            # (B, S, Hx, D) -> (B*H, S, D)
+        x = x.repeat_interleave(rep, dim=2) if rep > 1 else x
+        return x.transpose(1, 2).reshape(b * h, s, d).contiguous()
+
+    qf, kf, vf = heads(q), heads(k, g), heads(v, g)
+
+    def compare(tag, qq, kk, vv, tol, window=None):
+        acc, m, l = fops.flash_fwd(qq, kk, vv, scale=scale, window=window)
+        torch.cuda.synchronize()
+        acc_r, m_r, l_r = fref.flash_fwd_ref(qq, kk, vv, scale=scale,
+                                             window=window)
+        err = float((acc / l[..., None] - acc_r / l_r[..., None]).abs().max())
+        check(err <= tol, f"flash {tag}: attention within {tol} of the plain "
+              f"version (max abs err {err})")
+        check(torch.allclose(m, m_r, rtol=1e-5, atol=1e-5)
+              and torch.allclose(l, l_r, rtol=1e-4), f"flash {tag}: m and l")
+        log(f"[flash] {tag} {tuple(qq.shape)} {qq.dtype}: attention max abs "
+            f"err {err:.3g} (tol {tol}); raw acc "
+            f"{float((acc - acc_r).abs().max()):.3g}, "
+            f"m {float((m - m_r).abs().max()):.3g}, l relative "
+            f"{float(((l - l_r).abs() / l_r).max()):.3g}")
+        return err
+
+    errs = [compare("f32", qf, kf, vf, 1e-4),
+            compare("bf16 inputs", qf.bfloat16(), kf.bfloat16(),
+                    vf.bfloat16(), 2e-2)]
+    gen = torch.Generator("cuda").manual_seed(SEED)
+    rag = [torch.randn(64, 2080, d, generator=gen, device="cuda")
+           for _ in range(3)]
+    errs.append(compare("ragged, window 100", *rag, 1e-4, window=100))
+
+    kw = dict(causal=True, window=None, softcap=None, q_offset=0, kv_len=s,
+              scale=scale)
+    out = fops.attention_bshd(q, k, v, **kw)
+    ref = fref.attention_bshd_ref(q, k, v, **kw)
+    bshd_err = float((out - ref).abs().max())
+    check(bshd_err <= 1e-4, f"attention_bshd (GQA {g}:1) within 1e-4 of "
+          f"blockwise_attention's plain version (max abs err {bshd_err})")
+    errs.append(bshd_err)
+    log(f"[flash] attention_bshd {tuple(q.shape)} / {tuple(k.shape)} (the "
+        f"model's call): max abs err {bshd_err:.3g} (tol 1e-4)")
+
+    pairs = s * (s + 1) // 2                   # causal: keys seen per head
+    ops = 4 * d * pairs * b * h
+    f_bytes = 4 * (qf.numel() + kf.numel() + vf.numel() + qf.numel()) \
+        + 4 * 2 * b * h * s
+    fb, fo = bound(f_bytes, ops)
+    bb, bo = bound(4 * (q.numel() + k.numel() + v.numel() + q.numel()), ops)
+    qs, ks, vs = (x.view(b, h, s, d) for x in (qf, kf, vf))
+    res = dict(
+        shape=[b * h, s, d], max_abs_err=max(errs),
+        ms=cuda_ms(lambda: fops.flash_fwd(qf, kf, vf, scale=scale)),
+        plain_ms=cuda_ms(lambda: fref.flash_fwd_ref(qf, kf, vf, scale=scale),
+                         iters=2, warmup=1),
+        library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+            qs, ks, vs, is_causal=True, scale=scale)),
+        bound_ms=fb, bound_by=fo,
+        bf16_ms=cuda_ms(lambda: fops.flash_fwd(
+            qf.bfloat16(), kf.bfloat16(), vf.bfloat16(), scale=scale)),
+        bshd_ms=cuda_ms(lambda: fops.attention_bshd(q, k, v, **kw)),
+        bshd_plain_ms=cuda_ms(lambda: fref.attention_bshd_ref(q, k, v, **kw),
+                              iters=2, warmup=1),
+        bshd_bound_ms=bb, bshd_bound_by=bo, gflop=ops / 1e9,
+        gbytes=f_bytes / 1e9, bytes_ms=bound(f_bytes, 0)[0])
+    log(f"[flash] times: {json.dumps(res)}")
+    return res
+
+
 def main() -> int:
     # -- 1. card -------------------------------------------------------------
     if not torch.cuda.is_available():
@@ -96,6 +354,7 @@ def main() -> int:
     from repro_torch.core.exchange import gather_boundary
     from repro_torch.dist.runtime import Runtime
     from repro_torch.kernels import build
+    from repro_torch.kernels.flash import ops as fops
     from repro_torch.kernels.quant import ops as qops
     from repro_torch.kernels.quant import ref as qref
     from repro_torch.kernels.spmm import ops as sops
@@ -117,6 +376,12 @@ def main() -> int:
             k=sops.SPMM, source="src/repro_torch/kernels/csrc/spmm.cu",
             replaces="src/repro/kernels/spmm/spmm.py:37"),
     }
+    lm_kernels = {
+        fops.FLASH_FWD.name: dict(
+            k=fops.FLASH_FWD, source="src/repro_torch/kernels/csrc/flash.cu",
+            replaces="src/repro/kernels/flash/flash.py:32"),
+    }
+    all_kernels = {**kernels, **lm_kernels}
 
     # -- 2. build ------------------------------------------------------------
     secs = build.build_all()
@@ -139,11 +404,12 @@ def main() -> int:
     log(f"[slice] engine ready: csr nnz {eng.block.csr.nnz}, max in-degree "
         f"{int(torch.diff(eng.block.csr.row_ptr).max())}")
 
-    for meta in kernels.values():
+    for meta in all_kernels.values():
         meta["k"].launches = 0
     rep = eng.full_sweep()
     torch.cuda.synchronize()
     launches = {name: meta["k"].launches for name, meta in kernels.items()}
+    check(fops.FLASH_FWD.launches == 0, "the GCN path launches no flash")
     log(f"[slice] full sweep {rep.seconds * 1e3:.3f} ms (first, host clock), "
         f"launches {launches}, wire bytes {rep.wire_bytes}")
     for name, n in launches.items():
@@ -307,8 +573,20 @@ def main() -> int:
             spmm_bound_ms=sb, spmm_bound_by=so)
         log(f"[kernels] site {site}: {json.dumps(detail[-1])}")
     log(f"[kernels] max abs err vs plain versions: {errs}")
+    del eng, eng_s, pg, model, runtime, plan, csr, table, out_k, out_r, buf
+    del sparse, prof, out, e, spg, small
+    torch.cuda.empty_cache()
 
-    # -- 6. summary -----------------------------------------------------------
+    # -- 6. the LM: granite-3-2b at full width, prefill + greedy decode -------
+    lm = lm_phase(all_kernels)
+
+    # -- 7. small LMs: card vs the CPU's plain versions ------------------------
+    lm_small_phase()
+
+    # -- 8. the flash kernel vs its plain versions on layer 0's q/k/v ----------
+    fl = flash_phase(*lm.pop("qkv"))
+
+    # -- 9. summary -----------------------------------------------------------
     s0 = detail[0]
     times = {
         "quantize_pack": ("quantize", None),
@@ -326,6 +604,14 @@ def main() -> int:
             bound_by=s0[f"{key}_bound_by"],
             library_ms=s0[lib] if lib else None,
             shape=s0["spmm_shape" if key == "spmm" else "shape"]))
+    meta = lm_kernels["flash_fwd"]
+    summary.append(dict(
+        name="flash_fwd", route="cuda", source=meta["source"],
+        replaces=meta["replaces"], launches=lm["launches"]["flash_fwd"],
+        max_abs_err=fl["max_abs_err"], ms=fl["ms"], plain_ms=fl["plain_ms"],
+        bound_ms=fl["bound_ms"], bound_by=fl["bound_by"],
+        library_ms=fl["library_ms"], shape=fl["shape"],
+        model_call_ms=fl["bshd_ms"], model_call_bound_ms=fl["bshd_bound_ms"]))
     print(json.dumps({"kernels": summary}))
     print(card_line)
     print(json.dumps({"ok": True, "device": {

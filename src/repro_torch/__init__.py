@@ -2,12 +2,19 @@
 
 A second package beside the JAX reference ``repro``: same sub-package and
 module names, PyTorch inside. It imports ``torch`` and ``numpy`` only — never
-``jax`` and nothing of ``repro`` (the numpy-only graph and dataset modules are
-kept as copies here). Only the parity tests import both packages.
+``jax`` and nothing of ``repro`` (the graph, dataset and config modules that
+need no JAX are kept as copies here). Only the parity tests import both packages.
 
-The device is fixed in one place, :meth:`repro_torch.dist.runtime.Runtime.simulated`:
-CUDA unless the caller asks for the CPU. The Low-bit Module (quantize + pack,
-unpack + dequantize) and the GCN aggregation (CSR SpMM) run as hand-written
-CUDA kernels on a CUDA tensor and as their plain PyTorch versions on a CPU
-tensor (``repro_torch/kernels``).
+The device is fixed in one place, :func:`repro_torch.dist.runtime.resolve_device`
+(used by ``Runtime.simulated`` and the LM entry point): CUDA unless the caller
+asks for the CPU. Two slices are ported:
+
+* GCN serving through ``serve.InferenceEngine``: the Low-bit Module
+  (quantize + pack, unpack + dequantize) and the aggregation (CSR SpMM);
+* batched LM serving (prefill + greedy decode,
+  ``python -m repro_torch.launch.train --arch granite-3-2b --serve``): every
+  prefill layer's attention is the flash-attention kernel.
+
+Each kernel runs as hand-written CUDA on a CUDA tensor and as its plain
+PyTorch version on a CPU tensor (``repro_torch/kernels``).
 """

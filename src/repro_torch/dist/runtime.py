@@ -3,9 +3,10 @@
     Runtime.simulated(n_parts=4)                 # whole stack on the CUDA card
     Runtime.simulated(n_parts=4, device="cpu")   # plain PyTorch versions, CPU
 
-The device is decided here and nowhere else: ``device=None`` means
-``torch.device("cuda")``, and asking for CUDA without a card raises — nothing
-falls back to the CPU quietly.
+The device is decided here and nowhere else (:func:`resolve_device`, which
+the LM entry point uses too): ``device=None`` means ``torch.device("cuda")``,
+and asking for CUDA without a card raises — nothing falls back to the CPU
+quietly.
 """
 from __future__ import annotations
 
@@ -15,6 +16,24 @@ from typing import Callable, Optional
 import torch
 
 from .backend import SimulatedBackend
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: ``None`` means CUDA; without a card
+    that raises unless the caller asks for ``"cpu"``. On CUDA, float32
+    products run in full float32 (the JAX reference's precision): TF32 is
+    turned off for matmul and cuDNN."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device is available; pass device='cpu' to run the "
+                "plain PyTorch versions on the CPU")
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    elif dev.type != "cpu":
+        raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu'")
+    return dev
 
 
 @dataclasses.dataclass(frozen=True)
@@ -30,17 +49,7 @@ class Runtime:
 
         ``Runtime.simulated(4)`` commits to 4 partitions on the CUDA card;
         ``Runtime.simulated()`` accepts any partitioned graph."""
-        dev = torch.device("cuda" if device is None else device)
-        if dev.type == "cuda":
-            if not torch.cuda.is_available():
-                raise RuntimeError(
-                    "Runtime.simulated: no CUDA device is available; pass "
-                    "device='cpu' to run the plain PyTorch versions on the CPU")
-            # float32 products in full float32 (the JAX reference's precision)
-            torch.backends.cuda.matmul.allow_tf32 = False
-            torch.backends.cudnn.allow_tf32 = False
-        elif dev.type != "cpu":
-            raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu'")
+        dev = resolve_device(device)
         return Runtime(SimulatedBackend(n_parts), dev)
 
     @property

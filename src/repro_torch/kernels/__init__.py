@@ -6,6 +6,7 @@ PyTorch version (``ref.py``) and its wrapper (``ops.py``).
 | ``quantize_pack`` | ``quant.ops.quantize_pack_rows`` | ``repro/kernels/quant/quant.py::_quantize_kernel`` |
 | ``unpack_dequantize`` | ``quant.ops.dequantize_rows`` | ``repro/kernels/quant/quant.py::_dequantize_kernel`` |
 | ``spmm_csr`` | ``spmm.ops.spmm`` | ``repro/kernels/spmm/spmm.py::_spmm_kernel`` |
+| ``flash_fwd`` | ``flash.ops.flash_fwd``, ``flash.ops.attention_bshd`` | ``repro/kernels/flash/flash.py::_flash_kernel`` |
 
 The wrappers dispatch on the tensor's device: the plain version on the CPU,
 the kernel on CUDA, nothing else, no fallback.

@@ -2,8 +2,11 @@
 
 * No module under ``src/repro_torch/`` and no line of ``chip_smoke.py``
   imports ``jax`` or the JAX package ``repro`` (``repro_torch`` is fine).
-* The device is fixed by ``Runtime.simulated``: CUDA by default, and without
-  a card that raises unless the caller asks for the CPU.
+* The device is fixed by ``resolve_device`` (``Runtime.simulated`` and the
+  LM entry point use it): CUDA by default, and without a card that raises
+  unless the caller asks for the CPU; on CUDA, TF32 is off.
+* No module of the port calls a library attention
+  (``scaled_dot_product_attention``): the flash kernel is the port's own.
 * A kernel wrapper runs the plain version only for a CPU tensor; any other
   device that is not CUDA is refused, never served by a fallback.
 * ``Kernel`` counts a launch only when the C side reports success.
@@ -19,7 +22,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.dist.runtime import Runtime
+from repro_torch.dist.runtime import Runtime, resolve_device
 from repro_torch.kernels import build
 from repro_torch.kernels.quant import ops as qops
 from repro_torch.kernels.spmm import ops as sops
@@ -60,6 +63,29 @@ def test_runtime_defaults_to_cuda_and_raises_without_a_card(monkeypatch):
     assert rt.device == torch.device("cpu") and rt.n_parts == 4
     with pytest.raises(ValueError):
         Runtime.simulated(4, device="meta")
+
+
+def test_resolve_device_is_the_one_device_seam(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for asked in (None, "cuda", torch.device("cuda")):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            resolve_device(asked)
+    assert resolve_device("cpu") == torch.device("cpu")
+    with pytest.raises(ValueError):
+        resolve_device("meta")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    assert resolve_device() == torch.device("cuda")
+    assert not torch.backends.cuda.matmul.allow_tf32
+    assert not torch.backends.cudnn.allow_tf32
+
+
+def test_port_calls_no_library_attention():
+    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+    bad = [str(f.relative_to(ROOT)) for f in files
+           if "scaled_dot_product_attention" in f.read_text()]
+    assert not bad, bad
 
 
 def test_wrappers_refuse_devices_other_than_cpu_and_cuda():
