@@ -24,10 +24,13 @@ Phases, each of which raises (and exits non-zero) on failure:
             at 1 bit.
 5. kernels — each GCN kernel against its plain PyTorch version on the tensors
             the slice's sweep produced: quantize (bits 1/2/4/8, stochastic and
-            deterministic) bit-equal, dequantize equal, SpMM within rtol/atol
-            1e-5 (both sum in CSR order, so in practice bit-equal). CUDA-event
+            deterministic) bit-equal, dequantize equal, SpMM bit-equal and
+            the same bits on a second run (the split of hub rows into
+            ``SEGMENT``-edge segments is fixed by the CSR). CUDA-event
             times beside the bytes-or-operations bound and, for SpMM,
-            ``torch.sparse.mm``. The GCN's tensors are freed after this phase.
+            ``torch.sparse.mm`` and the kernel under other plans (segments
+            of 64 or 256 edges, units heaviest first).
+            The GCN's tensors are freed after this phase.
 6. lm     — serves granite-3-2b at its full published config (40 layers,
             2,533,531,648 parameters, float32 from a seeded generator, as the
             reference's ``serve_lm``) through the port's ``generate``: batch 8,
@@ -45,11 +48,14 @@ Phases, each of which raises (and exits non-zero) on failure:
 8. flash  — the flash kernel against its plain versions on the slice's own
             layer-0 q/k/v: ``flash_fwd`` over (8*32, 2048, 64) with KV heads
             repeated 4:1, in float32 and from bfloat16 inputs, the model's
-            ``attention_bshd`` (GQA through strides), and a ragged windowed
-            case (Sq = Skv = 2,080, window 100). Tolerance on the attention
-            (acc / l): 1e-4 absolute in float32, 2e-2 from bfloat16 inputs.
-            CUDA-event times beside the operations bound, the plain version
-            and ``scaled_dot_product_attention`` (timed here only; the port
+            ``attention_bshd`` (GQA through strides), a ragged windowed
+            case (Sq = Skv = 2,080, window 100), head widths 1, 75, 200 and
+            256 (window 37), and d = 128 (yi-34b's head width) at
+            (8*32, 2048). Tolerance on the attention (acc / l): 1e-4
+            absolute in float32, 2e-2 from bfloat16 inputs. CUDA-event times
+            beside the operations bound (3xTF32: three TF32 tensor-core
+            products per multiply-add), the plain version and
+            ``scaled_dot_product_attention`` (timed here only; the port
             never calls it).
 9. summary — a ``{"kernels": [...]}`` line, the card line, and the last
             line ``{"ok": true, "device": {...}}``.
@@ -58,6 +64,7 @@ Run time on an H100: about two minutes, the kernels' build included.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -71,6 +78,7 @@ import torch
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM HBM3 (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
+TF32_OPS_PER_S = 495e12      # H100 SXM TF32 on the tensor cores, dense
 SEED = 0
 
 
@@ -98,10 +106,11 @@ def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     return start.elapsed_time(stop) / iters
 
 
-def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
+def bound(n_bytes: float, n_ops: float,
+          ops_per_s: float = F32_OPS_PER_S) -> tuple[float, str]:
     """(least ms, "bytes" | "operations") on the card for the same work."""
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / F32_OPS_PER_S * 1e3
+    t_ops = n_ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -275,7 +284,7 @@ def flash_phase(q, k, v) -> dict:
 
     qf, kf, vf = heads(q), heads(k, g), heads(v, g)
 
-    def compare(tag, qq, kk, vv, tol, window=None):
+    def compare(tag, qq, kk, vv, tol, window=None, scale=scale):
         acc, m, l = fops.flash_fwd(qq, kk, vv, scale=scale, window=window)
         torch.cuda.synchronize()
         acc_r, m_r, l_r = fref.flash_fwd_ref(qq, kk, vv, scale=scale,
@@ -299,6 +308,15 @@ def flash_phase(q, k, v) -> dict:
     rag = [torch.randn(64, 2080, d, generator=gen, device="cuda")
            for _ in range(3)]
     errs.append(compare("ragged, window 100", *rag, 1e-4, window=100))
+    for dd in (1, 75, 200, 256):    # other head widths, other tile shapes
+        small = [torch.randn(4, 300, dd, generator=gen, device="cuda")
+                 for _ in range(3)]
+        errs.append(compare(f"d {dd}, window 37", *small, 1e-4, window=37))
+    # d = 128 (yi-34b's head width) at the slice's batch and length
+    q128, k128, v128 = (torch.randn(b * h, s, 128, generator=gen,
+                                    device="cuda") for _ in range(3))
+    errs.append(compare("d 128", q128, k128, v128, 1e-4,
+                        scale=128 ** -0.5))
 
     kw = dict(causal=True, window=None, softcap=None, q_offset=0, kv_len=s,
               scale=scale)
@@ -315,9 +333,11 @@ def flash_phase(q, k, v) -> dict:
     ops = 4 * d * pairs * b * h
     f_bytes = 4 * (qf.numel() + kf.numel() + vf.numel() + qf.numel()) \
         + 4 * 2 * b * h * s
-    fb, fo = bound(f_bytes, ops)
-    bb, bo = bound(4 * (q.numel() + k.numel() + v.numel() + q.numel()), ops)
+    fb, fo = bound(f_bytes, 3 * ops, TF32_OPS_PER_S)
+    bb, bo = bound(4 * (q.numel() + k.numel() + v.numel() + q.numel()),
+                   3 * ops, TF32_OPS_PER_S)
     qs, ks, vs = (x.view(b, h, s, d) for x in (qf, kf, vf))
+    q128s, k128s, v128s = (x.view(b, h, s, 128) for x in (q128, k128, v128))
     res = dict(
         shape=[b * h, s, d], max_abs_err=max(errs),
         ms=cuda_ms(lambda: fops.flash_fwd(qf, kf, vf, scale=scale)),
@@ -332,7 +352,14 @@ def flash_phase(q, k, v) -> dict:
         bshd_plain_ms=cuda_ms(lambda: fref.attention_bshd_ref(q, k, v, **kw),
                               iters=2, warmup=1),
         bshd_bound_ms=bb, bshd_bound_by=bo, gflop=ops / 1e9,
-        gbytes=f_bytes / 1e9, bytes_ms=bound(f_bytes, 0)[0])
+        gbytes=f_bytes / 1e9, bytes_ms=bound(f_bytes, 0)[0],
+        cuda_core_ms=bound(0, ops)[0],
+        d128_ms=cuda_ms(lambda: fops.flash_fwd(q128, k128, v128,
+                                               scale=128 ** -0.5)),
+        d128_library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+            q128s, k128s, v128s, is_causal=True, scale=128 ** -0.5)),
+        d128_bound_ms=bound(4 * 4 * b * h * s * 128 + 4 * 2 * b * h * s,
+                            6 * ops, TF32_OPS_PER_S)[0])
     log(f"[flash] times: {json.dumps(res)}")
     return res
 
@@ -500,6 +527,17 @@ def main() -> int:
 
     # -- 5. kernels vs plain versions on the slice's own tensors ---------------
     plan, csr = eng.block.plan, eng.block.csr
+    # the same CSR under other plans, timed only: other segment lengths, and
+    # the units sorted heaviest first instead of in CSR order
+    alt_plans = {}
+    for seg in (64, 256):
+        alt_plans[f"segment {seg}"] = sref.CSR(
+            csr.row_ptr, csr.col, csr.w, csr.n_cols,
+            *(x.to(csr.col.device) if torch.is_tensor(x) else x
+              for x in sref.split_plan(csr.row_ptr.cpu().numpy(), seg)))
+    length = csr.units[:, 1] - csr.units[:, 0]
+    alt_plans["heaviest first"] = dataclasses.replace(csr, units=csr.units[
+        torch.argsort(length, descending=True, stable=True)].contiguous())
     errs = {name: 0.0 for name in kernels}
     detail = []
     for site, h in enumerate(eng._layers):
@@ -550,12 +588,14 @@ def main() -> int:
         out_k = sops.spmm(table, csr)
         out_r = sref.spmm_ref(table, csr)
         err = float((out_k - out_r).abs().max())
-        check(torch.allclose(out_k, out_r, rtol=1e-5, atol=1e-5),
-              f"spmm site {site}: within rtol/atol 1e-5 (max abs err {err})")
+        check(torch.equal(out_k, out_r), f"spmm site {site}: bit-equal to the "
+              f"plain version (max abs err {err})")
         check(torch.equal(out_k, sops.spmm(table, csr)),
               f"spmm site {site}: same bits on a second run")
-        log(f"[kernels] spmm site {site}: max abs err {err:.3g}, bit-equal to "
-            f"the plain version: {torch.equal(out_k, out_r)}")
+        log(f"[kernels] spmm site {site}: bit-equal to the plain version and "
+            f"on a second run; {csr.long_rows.numel()} of {csr.n_rows} rows "
+            f"split at SEGMENT {sref.SEGMENT} into {csr.n_partials} segments, "
+            f"{csr.units.shape[0]} work units")
         errs["spmm_csr"] = max(errs["spmm_csr"], err)
         with warnings.catch_warnings():   # sparse CSR is "beta" in PyTorch
             warnings.simplefilter("ignore")
@@ -570,10 +610,14 @@ def main() -> int:
             spmm_plain_ms=cuda_ms(lambda: sref.spmm_ref(table, csr),
                                   iters=2, warmup=1),
             spmm_library_ms=cuda_ms(lambda: torch.sparse.mm(sparse, table)),
-            spmm_bound_ms=sb, spmm_bound_by=so)
+            spmm_bound_ms=sb, spmm_bound_by=so,
+            spmm_other_plans_ms={
+                name: cuda_ms(lambda: sops.spmm(table, alt))
+                for name, alt in alt_plans.items()})
         log(f"[kernels] site {site}: {json.dumps(detail[-1])}")
     log(f"[kernels] max abs err vs plain versions: {errs}")
     del eng, eng_s, pg, model, runtime, plan, csr, table, out_k, out_r, buf
+    del alt_plans
     del sparse, prof, out, e, spg, small
     torch.cuda.empty_cache()
 
@@ -611,7 +655,8 @@ def main() -> int:
         max_abs_err=fl["max_abs_err"], ms=fl["ms"], plain_ms=fl["plain_ms"],
         bound_ms=fl["bound_ms"], bound_by=fl["bound_by"],
         library_ms=fl["library_ms"], shape=fl["shape"],
-        model_call_ms=fl["bshd_ms"], model_call_bound_ms=fl["bshd_bound_ms"]))
+        model_call_ms=fl["bshd_ms"], model_call_bound_ms=fl["bshd_bound_ms"],
+        d128_ms=fl["d128_ms"], d128_library_ms=fl["d128_library_ms"]))
     print(json.dumps({"kernels": summary}))
     print(card_line)
     print(json.dumps({"ok": True, "device": {

@@ -6,9 +6,12 @@ first time a kernel of that file is launched. The hash covers the source and
 the flags, so an edited source rebuilds and an unchanged one is reused. All
 sources are compiled together, one ``nvcc`` process each, started at once.
 
-Flags: ``sm_90a`` (Hopper), ``-O3``, and ``-fmad=false`` with no
-``--use_fast_math``: the kernels promise the same bits as their plain PyTorch
+Flags, per source (:func:`nvcc_flags`): every source gets ``sm_90a``
+(Hopper), ``-O3`` and no ``--use_fast_math``. ``quant.cu`` and ``spmm.cu``
+also get ``-fmad=false``: they promise the same bits as their plain PyTorch
 versions, so a multiply followed by an add must stay two IEEE roundings.
+``flash.cu`` does not: it is held to a tolerance, not to bits, and lets the
+compiler contract to FMA.
 
 Nothing here runs at import time; a CPU-only machine imports this module and
 never calls it.
@@ -28,7 +31,9 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("quant.cu", "spmm.cu", "flash.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC")
+# the sources whose kernels are bit-equal to their plain versions
+BIT_EXACT = ("quant.cu", "spmm.cu")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 
@@ -41,9 +46,15 @@ def nvcc_path() -> str:
     return found
 
 
+def nvcc_flags(source: str) -> tuple[str, ...]:
+    """The flags ``source`` is compiled with."""
+    return NVCC_FLAGS + (("-fmad=false",) if source in BIT_EXACT else ())
+
+
 def library_path(source: str) -> Path:
     digest = hashlib.sha256((CSRC / source).read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+                            + " ".join(nvcc_flags(source)).encode()
+                            ).hexdigest()[:16]
     return BUILD_DIR / f"{Path(source).stem}-{digest}.so"
 
 
@@ -58,7 +69,7 @@ def build_all(sources: Sequence[str] = SOURCES) -> float:
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / src)]
+        cmd = [nvcc_path(), *nvcc_flags(src), "-o", str(tmp), str(CSRC / src)]
         procs.append((src, out, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     failed = []

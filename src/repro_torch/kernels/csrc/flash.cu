@@ -14,33 +14,41 @@
 // What bounds it on an H100: operations. Per visible (query, key) pair it
 // does 2*D flops for the score and 2*D for the value product; at the serving
 // slice's shape (B*H = 256 heads, S = 2048, D = 64, causal) that is 137 GFLOP
-// against 0.34 GB of q/k/v/out, far above the 20 flop/byte where float32 on
-// the CUDA cores (67 TFLOP/s) stops being the limit. Tensor cores, TMA and
-// wgmma are left for a later version; this one is simple and right.
+// against 0.34 GB of q/k/v/out. The LM serves in float32, so both products
+// run on the tensor cores as 3xTF32: each float32 operand x is split into
+// big = tf32(x) and small = tf32(x - big), and small*big + big*small +
+// big*big accumulate in float32 (m16n8k8 TF32 mma.sync), close to float32
+// accuracy at three TF32 products per multiply-add.
 //
 // Design:
-//   * grid (query tiles, batch*heads); one block of 256 threads owns a
-//     64-row query tile and loops over 64-key tiles itself, in place of the
+//   * grid (query tiles, batch*heads); a block of NW warps owns NW*16 query
+//     rows, 16 per warp, and loops over BK-key tiles itself, in place of the
 //     TPU's sequential grid axis. Blocks are independent: no atomics, no
 //     second pass. Query tiles run heaviest-first (the last, longest causal
 //     rows get the lowest block index).
-//   * q (scaled in float32, as the Pallas kernel does), the K/V tile and the
-//     probability tile live in shared memory as float32, rows padded to an
-//     odd stride so the 16 threads that read 16 different rows hit 16 banks.
-//     Thread (ty, tx) of a 16x16 grid keeps scores for rows ty+16i and keys
-//     tx+16j (i, j < 4) and the output columns tx+16c of the same rows, so
-//     the running max, sum and accumulator stay in its registers; row max
-//     and row sum are reduced over the 16 tx lanes of a half-warp.
+//   * q is scaled once in float32 by scale * log2(e) (exp2 then gives
+//     exp), zero-padded to DP (a multiple of 8) columns and kept in shared
+//     memory. K/V tiles are double-buffered in shared memory: the tile after
+//     the current one is copied with 16-byte cp.async (float32 inputs whose
+//     rows are 16-byte aligned) or loaded and converted by the threads
+//     (bf16 / f16 inputs, other strides) while the current one is computed.
+//     Rows are padded to LD = 4 (mod 32) floats, so every fragment load of
+//     a warp hits 32 distinct banks.
+//   * the scores of a warp's 16 rows x BK keys live in mma accumulator
+//     fragments (rows g, g+8; keys 2t, 2t+1 of each 8-key group, g = lane/4,
+//     t = lane%4); the row max and sum reduce over the 4 lanes of a quad, as
+//     FlashAttention-2 does. The probabilities feed the PV product straight
+//     from those registers: the PV mma's reduction index k = t stands for
+//     key 2t and k = t+4 for key 2t+1, and V's B fragment reads the same
+//     keys, so no shuffle or shared-memory trip is needed.
 //   * tiles wholly above the causal diagonal, wholly below every row's
-//     window, or past kv_len are skipped; inside a tile a masked score
-//     contributes exactly 0 (so a window smaller than a tile cannot leave
-//     exp(NEG - NEG) = 1 terms behind). For every row that sees a key this
-//     is the Pallas kernel's result; rows beyond Sq are never written.
+//     window, or past kv_len are skipped (per block, and per warp for its
+//     16 rows); inside a tile a masked score is -inf and contributes
+//     exactly 0 (the running max starts at a finite -2e38, so a row that
+//     sees no key keeps acc = 0, l = 0). Rows beyond Sq are never written.
 //   * GQA without copies: query head h reads KV head h / (H / Hkv) through
 //     strides, in the model's own (B, S, H, D) layout.
-//   * inputs float32, bfloat16 or float16 (templated), math in float32;
-//     expf (never __expf), IEEE division; dot products use explicit fmaf.
-//     The library builds with -fmad=false and without fast math.
+//   * inputs float32, bfloat16 or float16 (templated), math in float32.
 // The kernel allocates nothing.
 
 #include <cuda_bf16.h>
@@ -51,11 +59,9 @@
 
 namespace {
 
-constexpr int kBQ = 64;        // query rows per block
-constexpr int kBK = 64;        // keys per tile
-constexpr int kThreads = 256;  // 16 x 16
-constexpr int kPS = kBK + 1;   // row stride of the probability tile
 constexpr float kNeg = -2.0e38f;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 struct Params {
   const void* q;
@@ -70,6 +76,7 @@ struct Params {
   int64_t sq, kv_end;  // kv_end = min(skv, kv_len)
   int64_t window;      // <= 0: none
   int heads, group, d, causal, normalize;
+  int async_kv;        // K/V rows may be copied as 16-byte cp.async chunks
   float scale;
 };
 
@@ -79,182 +86,330 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
 }
 __device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
 
-// 64 rows [row0, row0 + 64) of a (seq, d) slice with row stride `rs`, times
-// `mul`, into a float32 tile with row stride `ts`; rows past `valid` are 0.
-template <typename T>
-__device__ __forceinline__ void load_tile(float* tile, const T* base,
+__device__ __forceinline__ void cp_async16(float* smem, const void* gmem,
+                                           int src_bytes) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// x = big + small, both TF32 (round to nearest, ties away).
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big,
+                                           uint32_t& small) {
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(big) : "f"(x));
+  const float rest = x - __uint_as_float(big);
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(small) : "f"(rest));
+}
+
+// c += a * b, one m16n8k8 TF32 product with float32 accumulation.
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+template <int N>
+__device__ __forceinline__ void split_tf32(const float (&x)[N],
+                                           uint32_t (&big)[N],
+                                           uint32_t (&small)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) split_tf32(x[i], big[i], small[i]);
+}
+
+// c += a * b in 3xTF32: small*big + big*small + big*big, with a split once
+// by the caller (it is shared by a row of products).
+__device__ __forceinline__ void mma_3xtf32(float (&c)[4],
+                                           const uint32_t (&a_big)[4],
+                                           const uint32_t (&a_small)[4],
+                                           const float (&b)[2]) {
+  uint32_t b_big[2], b_small[2];
+  split_tf32(b, b_big, b_small);
+  mma_tf32(c, a_small, b_big);
+  mma_tf32(c, a_big, b_small);
+  mma_tf32(c, a_big, b_big);
+}
+
+// Rows [row0, row0 + ROWS) of a (seq, d) slice with row stride `rs`, times
+// `mul`, into a float32 tile with row stride LD and DP columns; rows past
+// `valid` and columns past d are 0. Plain loads, converted by the threads.
+template <typename T, int ROWS, int DP, int LD, int NT>
+__device__ __forceinline__ void load_rows(float* tile, const T* base,
                                           int64_t rs, int64_t row0,
-                                          int64_t valid, int d, int ts,
-                                          float mul) {
-  for (int idx = threadIdx.x; idx < kBK * d; idx += kThreads) {
-    const int r = idx / d;
-    const int c = idx - r * d;
+                                          int64_t valid, int d, float mul) {
+  for (int idx = threadIdx.x; idx < ROWS * DP; idx += NT) {
+    const int r = idx / DP;  // DP is a power of two
+    const int c = idx % DP;
     const int64_t row = row0 + r;
-    tile[r * ts + c] =
-        row < valid ? __fmul_rn(to_f32(base[row * rs + c]), mul) : 0.f;
+    tile[r * LD + c] =
+        (row < valid && c < d) ? to_f32(base[row * rs + c]) * mul : 0.f;
   }
 }
 
-template <typename T, int DMAX>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const Params p) {
-  constexpr int NC = DMAX / 16;  // output columns per thread
-  extern __shared__ float smem[];
-  const int d = p.d;
-  const int ds = d | 1;  // odd row stride
-  float* sQ = smem;
-  float* sK = sQ + kBQ * ds;
-  float* sV = sK + kBK * ds;
-  float* sP = sV + kBK * ds;
+// The same for float32 rows that are 16-byte aligned, as cp.async copies:
+// 16-byte chunks, zero-filled past `valid` and past d (d % 4 == 0).
+template <int ROWS, int DP, int LD, int NT>
+__device__ __forceinline__ void copy_rows_async(float* tile, const float* base,
+                                                int64_t rs, int64_t row0,
+                                                int64_t valid, int d) {
+  constexpr int kChunks = DP / 4;
+  for (int idx = threadIdx.x; idx < ROWS * kChunks; idx += NT) {
+    const int r = idx / kChunks;
+    const int c = (idx % kChunks) * 4;
+    const int64_t row = row0 + r;
+    const bool ok = row < valid && c < d;
+    cp_async16(tile + r * LD + c, ok ? base + row * rs + c : base,
+               ok ? 16 : 0);
+  }
+}
 
-  const int tx = threadIdx.x & 15;
-  const int ty = threadIdx.x >> 4;
+template <typename T, int DP, int NW, int BK>
+struct Cfg {
+  static constexpr int kThreads = NW * 32;
+  static constexpr int BQ = NW * 16;
+  static constexpr int LD = (DP + 31) / 32 * 32 + 4;  // = 4 (mod 32)
+  static constexpr size_t kSmem = (size_t)(BQ + 4 * BK) * LD * sizeof(float);
+  static constexpr int kMinBlocks = kSmem * 2 <= 227 * 1024 ? 2 : 1;
+};
+
+template <typename T, int DP, int NW, int BK>
+__global__ void __launch_bounds__(Cfg<T, DP, NW, BK>::kThreads,
+                                  Cfg<T, DP, NW, BK>::kMinBlocks)
+flash_fwd_kernel(const Params p) {
+  using C = Cfg<T, DP, NW, BK>;
+  constexpr int NT = C::kThreads;
+  constexpr int BQ = C::BQ;
+  constexpr int LD = C::LD;
+  constexpr int KS = DP / 8;  // k-steps of the score product
+  constexpr int NKT = BK / 8; // 8-key groups of a tile
+  constexpr int NDT = DP / 8; // 8-column groups of the output
+  extern __shared__ float4 smem4[];
+  float* sQ = reinterpret_cast<float*>(smem4);
+  float* sK = sQ + BQ * LD;       // 2 buffers
+  float* sV = sK + 2 * BK * LD;   // 2 buffers
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int g = lane >> 2;
+  const int t = lane & 3;
   const int64_t qt = (int64_t)gridDim.x - 1 - blockIdx.x;
   const int bh = blockIdx.y;
   const int b = bh / p.heads;
   const int h = bh - b * p.heads;
   const int hk = h / p.group;
-  const int64_t q_lo = qt * kBQ;
-  const int64_t q_last = (q_lo + kBQ < p.sq ? q_lo + kBQ : p.sq) - 1;
+  const int64_t q_lo = qt * BQ;
+  const int64_t q_last = (q_lo + BQ < p.sq ? q_lo + BQ : p.sq) - 1;
+  const int64_t wq_lo = q_lo + warp * 16;  // this warp's first row
 
   const T* qb = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
   const T* kb = static_cast<const T*>(p.k) + b * p.k_sb + hk * p.k_sh;
   const T* vb = static_cast<const T*>(p.v) + b * p.v_sb + hk * p.v_sh;
-  load_tile(sQ, qb, p.q_ss, q_lo, p.sq, d, ds, p.scale);
+  // q in float32, times scale (as the Pallas kernel does), times log2(e)
+  load_rows<T, BQ, DP, LD, NT>(sQ, qb, p.q_ss, q_lo, p.sq, p.d,
+                               p.scale * kLog2e);
 
-  // the key range any row of this tile can see
+  // the key range any row of this block can see
   int64_t k_stop = p.kv_end;
   if (p.causal && q_last + 1 < k_stop) k_stop = q_last + 1;
   int64_t k_first = 0;
   if (p.window > 0 && q_lo - p.window + 1 > 0) k_first = q_lo - p.window + 1;
+  const int64_t k_lo0 = k_first / BK * BK;
+  const int n_tiles = k_lo0 < k_stop ? (int)((k_stop - k_lo0 + BK - 1) / BK) : 0;
 
-  float m[4], l[4], acc[4][NC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kNeg;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) acc[i][c] = 0.f;
-  }
-
-  for (int64_t k_lo = k_first / kBK * kBK; k_lo < k_stop; k_lo += kBK) {
-    __syncthreads();  // the previous tile's sK/sV/sP reads are done
-    load_tile(sK, kb, p.k_ss, k_lo, p.kv_end, d, ds, 1.f);
-    load_tile(sV, vb, p.v_ss, k_lo, p.kv_end, d, ds, 1.f);
-    __syncthreads();
-
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int c = 0; c < d; ++c) {
-      float qv[4], kv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = sQ[(ty + 16 * i) * ds + c];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) kv[j] = sK[(tx + 16 * j) * ds + c];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+  auto load_kv = [&](int buf, int64_t k_lo) {
+    float* k_dst = sK + buf * BK * LD;
+    float* v_dst = sV + buf * BK * LD;
+    if constexpr (sizeof(T) == 4) {
+      if (p.async_kv) {
+        copy_rows_async<BK, DP, LD, NT>(k_dst, reinterpret_cast<const float*>(kb),
+                                        p.k_ss, k_lo, p.kv_end, p.d);
+        copy_rows_async<BK, DP, LD, NT>(v_dst, reinterpret_cast<const float*>(vb),
+                                        p.v_ss, k_lo, p.kv_end, p.d);
+        return;
+      }
     }
+    load_rows<T, BK, DP, LD, NT>(k_dst, kb, p.k_ss, k_lo, p.kv_end, p.d, 1.f);
+    load_rows<T, BK, DP, LD, NT>(v_dst, vb, p.v_ss, k_lo, p.kv_end, p.d, 1.f);
+  };
 
+  float o[NDT][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int64_t qp = q_lo + ty + 16 * i;
-      bool ok[4];
-      float mx = kNeg;
+  for (int j = 0; j < NDT; ++j)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int64_t kp = k_lo + tx + 16 * j;
-        ok[j] = kp < p.kv_end && (!p.causal || kp <= qp) &&
-                (p.window <= 0 || qp - kp < p.window);
-        s[i][j] = ok[j] ? s[i][j] : kNeg;
-        mx = fmaxf(mx, s[i][j]);
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m[i], mx);
-      const float corr = expf(m[i] - m_new);
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float pj = ok[j] ? expf(s[i][j] - m_new) : 0.f;
-        sP[(ty + 16 * i) * kPS + tx + 16 * j] = pj;
-        sum += pj;
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      l[i] = __fadd_rn(__fmul_rn(l[i], corr), sum);
-#pragma unroll
-      for (int c = 0; c < NC; ++c) acc[i][c] = __fmul_rn(acc[i][c], corr);
-      m[i] = m_new;
+    for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
+  float m_run[2] = {kNeg, kNeg};  // log2 units
+  float l_run[2] = {0.f, 0.f};    // this lane's part of the row sums
+
+  if (n_tiles > 0) load_kv(0, k_lo0);
+  cp_async_commit();
+  for (int i = 0; i < n_tiles; ++i) {
+    const int64_t k_lo = k_lo0 + (int64_t)i * BK;
+    if (i + 1 < n_tiles) {
+      load_kv((i + 1) & 1, k_lo + BK);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
     __syncthreads();
 
-    const int nk = k_stop - k_lo < kBK ? (int)(k_stop - k_lo) : kBK;
-#pragma unroll 4
-    for (int kk = 0; kk < nk; ++kk) {
-      float pv[4], vv[NC];
+    // skip a tile that none of this warp's rows sees
+    const bool active =
+        wq_lo < p.sq && !(p.causal && k_lo > wq_lo + 15) &&
+        !(p.window > 0 && k_lo + BK - 1 < wq_lo - p.window + 1);
+    if (active) {
+      const float* Kt = sK + (i & 1) * BK * LD;
+      const float* Vt = sV + (i & 1) * BK * LD;
+
+      // scores: (16 rows) x (BK keys), s[j] holds keys 8j + 2t, 8j + 2t + 1
+      float s[NKT][4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) pv[i] = sP[(ty + 16 * i) * kPS + kk];
+      for (int j = 0; j < NKT; ++j)
 #pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        const int col = tx + 16 * c;
-        vv[c] = col < d ? sV[kk * ds + col] : 0.f;
+        for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) {
+        const float* qa = sQ + (warp * 16 + g) * LD + ks * 8 + t;
+        const float a[4] = {qa[0], qa[8 * LD], qa[4], qa[8 * LD + 4]};
+        uint32_t a_big[4], a_small[4];
+        split_tf32(a, a_big, a_small);
+#pragma unroll
+        for (int j = 0; j < NKT; ++j) {
+          const float* kr = Kt + (j * 8 + g) * LD + ks * 8 + t;
+          const float bk[2] = {kr[0], kr[4]};
+          mma_3xtf32(s[j], a_big, a_small, bk);
+        }
       }
+
+      // masks, where some score of this warp's rows is not visible
+      const bool full =
+          k_lo + BK <= p.kv_end && (!p.causal || k_lo + BK - 1 <= wq_lo) &&
+          (p.window <= 0 || wq_lo + 15 - k_lo < p.window);
+      if (!full) {
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+        for (int j = 0; j < NKT; ++j)
 #pragma unroll
-        for (int c = 0; c < NC; ++c) acc[i][c] = fmaf(pv[i], vv[c], acc[i][c]);
+          for (int e = 0; e < 4; ++e) {
+            const int64_t qp = wq_lo + g + (e >> 1) * 8;
+            const int64_t kp = k_lo + j * 8 + 2 * t + (e & 1);
+            const bool ok = kp < p.kv_end && (!p.causal || kp <= qp) &&
+                            (p.window <= 0 || qp - kp < p.window);
+            if (!ok) s[j][e] = -INFINITY;
+          }
+      }
+
+      // online softmax for rows g (e = 0, 1) and g + 8 (e = 2, 3)
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        float mx = -INFINITY;
+#pragma unroll
+        for (int j = 0; j < NKT; ++j)
+          mx = fmaxf(mx, fmaxf(s[j][2 * rr], s[j][2 * rr + 1]));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float m_new = fmaxf(m_run[rr], mx);  // finite
+        const float corr = exp2f(m_run[rr] - m_new);
+        float sum = 0.f;
+#pragma unroll
+        for (int j = 0; j < NKT; ++j)
+#pragma unroll
+          for (int e = 2 * rr; e < 2 * rr + 2; ++e) {
+            s[j][e] = exp2f(s[j][e] - m_new);  // -inf -> 0
+            sum += s[j][e];
+          }
+        l_run[rr] = l_run[rr] * corr + sum;
+        m_run[rr] = m_new;
+#pragma unroll
+        for (int j = 0; j < NDT; ++j) {
+          o[j][2 * rr] *= corr;
+          o[j][2 * rr + 1] *= corr;
+        }
+      }
+
+      // o += P V. The A fragment's k = t is key 2t of the group and k = t+4
+      // is key 2t+1, which is how s[] holds them; V's B fragment reads the
+      // same keys.
+#pragma unroll
+      for (int kk = 0; kk < NKT; ++kk) {
+        const float a[4] = {s[kk][0], s[kk][2], s[kk][1], s[kk][3]};
+        uint32_t a_big[4], a_small[4];
+        split_tf32(a, a_big, a_small);
+        const float* vr = Vt + (kk * 8 + 2 * t) * LD + g;
+#pragma unroll
+        for (int j = 0; j < NDT; ++j) {
+          const float bv[2] = {vr[j * 8], vr[LD + j * 8]};
+          mma_3xtf32(o[j], a_big, a_small, bv);
+        }
+      }
     }
+    __syncthreads();  // this buffer's reads are done before it is refilled
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int64_t qp = q_lo + ty + 16 * i;
+  for (int rr = 0; rr < 2; ++rr) {
+    float l = l_run[rr];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    const int64_t qp = wq_lo + g + rr * 8;
     if (qp >= p.sq) continue;
     float* orow = p.out + b * p.o_sb + qp * p.o_ss + h * p.o_sh;
-    const float den = fmaxf(l[i], 1e-30f);
+    const float den = fmaxf(l, 1e-30f);
 #pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      const int col = tx + 16 * c;
-      if (col < d) orow[col] = p.normalize ? __fdiv_rn(acc[i][c], den) : acc[i][c];
-    }
-    if (tx == 0 && p.m != nullptr) {
-      p.m[(int64_t)bh * p.sq + qp] = m[i];
-      p.l[(int64_t)bh * p.sq + qp] = l[i];
+    for (int j = 0; j < NDT; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = j * 8 + 2 * t + e;
+        const float x = o[j][2 * rr + e];
+        if (col < p.d) orow[col] = p.normalize ? __fdiv_rn(x, den) : x;
+      }
+    if (t == 0 && p.m != nullptr) {
+      p.m[(int64_t)bh * p.sq + qp] =
+          m_run[rr] == kNeg ? kNeg : m_run[rr] * kLn2;
+      p.l[(int64_t)bh * p.sq + qp] = l;
     }
   }
 }
 
-template <typename T, int DMAX>
+template <typename T, int DP, int NW, int BK>
 cudaError_t launch(const Params& p, int64_t batch, cudaStream_t stream) {
-  const int ds = p.d | 1;
-  const size_t smem = ((size_t)(kBQ + 2 * kBK) * ds + (size_t)kBQ * kPS) *
-                      sizeof(float);
+  using C = Cfg<T, DP, NW, BK>;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, DMAX>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      flash_fwd_kernel<T, DP, NW, BK>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::kSmem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((unsigned)((p.sq + kBQ - 1) / kBQ),
+  const dim3 grid((unsigned)((p.sq + C::BQ - 1) / C::BQ),
                   (unsigned)(batch * p.heads));
-  flash_fwd_kernel<T, DMAX><<<grid, kThreads, smem, stream>>>(p);
+  flash_fwd_kernel<T, DP, NW, BK><<<grid, C::kThreads, C::kSmem, stream>>>(p);
   return cudaGetLastError();
 }
 
+// DP: the head width padded to the template's; blocks of 8 warps (128 query
+// rows) and 64-key tiles up to DP = 64, 32-key tiles at DP = 128 (half the
+// score registers, the faster of the two on an H100), and 4 warps with
+// 32-key tiles at DP = 256 to stay in shared memory.
 template <typename T>
 cudaError_t dispatch_d(const Params& p, int64_t batch, cudaStream_t stream) {
-  if (p.d <= 16) return launch<T, 16>(p, batch, stream);
-  if (p.d <= 32) return launch<T, 32>(p, batch, stream);
-  if (p.d <= 64) return launch<T, 64>(p, batch, stream);
-  if (p.d <= 128) return launch<T, 128>(p, batch, stream);
-  if (p.d <= 256) return launch<T, 256>(p, batch, stream);
+  if (p.d <= 16) return launch<T, 16, 8, 64>(p, batch, stream);
+  if (p.d <= 32) return launch<T, 32, 8, 64>(p, batch, stream);
+  if (p.d <= 64) return launch<T, 64, 8, 64>(p, batch, stream);
+  if (p.d <= 128) return launch<T, 128, 8, 32>(p, batch, stream);
+  if (p.d <= 256) return launch<T, 256, 4, 32>(p, batch, stream);
   return cudaErrorInvalidValue;
+}
+
+bool aligned16(const void* ptr, const int64_t* strides, int d) {
+  if ((uintptr_t)ptr % 16 != 0 || d % 4 != 0) return false;
+  for (int i = 0; i < 3; ++i)
+    if (strides[i] % 4 != 0) return false;
+  return true;
 }
 
 }  // namespace
@@ -288,6 +443,8 @@ int flash_fwd(const void* q, const void* k, const void* v, float* out,
   p.window = window;
   p.heads = heads; p.group = heads / kv_heads; p.d = d;
   p.causal = causal; p.normalize = normalize; p.scale = scale;
+  p.async_kv = dtype == 0 && aligned16(k, strides + 3, d) &&
+               aligned16(v, strides + 6, d);
   if (sq == 0 || batch == 0) return (int)cudaSuccess;
   cudaStream_t s = (cudaStream_t)stream;
   cudaError_t err;

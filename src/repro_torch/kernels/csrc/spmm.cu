@@ -9,25 +9,40 @@
 // padding.
 //
 // What bounds it on an H100: bytes. Each nonzero costs 2*d flops against a
-// gathered d-wide f32 table row (4*d bytes), 0.5 flop/byte; the table of the
-// stacked partitions (hundreds of MB) does not fit in the 50 MB L2, so the
-// gathers stream from HBM. The least traffic is one read of the table, the
-// CSR and one write of the output; the gathers as written here move
-// nnz * d * 4 bytes, with reuse only where L2 happens to hold a row.
-// Design, kept simple and deterministic:
-//   * one warp per destination row; lane l owns columns l, l+32, ... of a
-//     column chunk of up to 32*kMaxVec, so every gathered table row is read
-//     as coalesced 128-byte lines and the sums live in registers;
-//   * the neighbor loop is unrolled so several rows' loads are in flight at
-//     once (the loads are independent; only the adds are ordered);
-//   * neighbors are visited in CSR order and each sum is acc = acc + w*t with
-//     separately rounded multiply and add: no atomics, the same bits on
-//     every run (the serving engine's delta-refresh == full-sweep guarantee
-//     rests on it) and the same arithmetic as the plain PyTorch version
-//     (repro_torch/kernels/spmm/ref.py), bit for bit;
-//   * one write per output value.
-// Known imbalance: a hub row's whole neighbor list runs on one warp (the
-// first thing a faster version should split). The kernel allocates nothing.
+// gathered d-wide f32 table row (4*d bytes), 0.5 flop/byte. The least traffic
+// is one read of the table, the CSR and one write of the output; the gathers
+// move nnz * d * 4 bytes, and only what L2 (50 MB) holds is read once. The
+// stacked partitions' table (hundreds of MB) does not fit, but a column slice
+// of it nearly does, and neighbouring rows share neighbours.
+//
+// Design. The order of every sum is fixed by the CSR alone (see
+// repro_torch/kernels/spmm/ref.py, whose plain version follows it bit for
+// bit): a row of at most SEGMENT edges sums from 0 edge by edge in CSR order;
+// a longer row (a hub) is cut into SEGMENT-edge segments that sum the same
+// way, and their partials combine left to right. The host builds the work
+// plan once with the CSR (ref.py::split_plan): units of (edge range, target)
+// in CSR order, none longer than SEGMENT edges, so a hub no longer runs
+// serially on one warp.
+//   * pass 1: grid (units / 8, column chunks); one warp per (unit, chunk of
+//     kChunkFloats columns). Lane l owns vectors l, l+32, ... of the chunk,
+//     as float4 / float2 / float where the row stride and the pointers allow
+//     (d = 256 takes float4, d = 602 float2), so every gathered table row is
+//     read as coalesced lines. The chunk is the slow grid axis: the card
+//     works through one column slice of the table at a time, which L2 can
+//     hold, and through the units in row order, so rows that share
+//     neighbours run together. The sums live in registers, few per lane, so
+//     many warps fit on an SM;
+//   * the lanes first load 32 edges' (col, w) at once and share them by
+//     shuffles; then kBatch edges' table vectors are loaded into registers
+//     before any of them is added, so several gathered rows per warp are in
+//     flight; the adds stay in CSR order, acc = acc + w*t with the multiply
+//     and the add rounded separately (__fmul_rn, __fadd_rn; the library is
+//     built with -fmad=false);
+//   * whole rows write `out`, segments write their partial slot;
+//   * pass 2, one thread per (split row, column): p0 + p1 + ... left to right.
+// No atomics: the same CSR gives the same bits on every run (the serving
+// engine's delta-refresh == full-sweep guarantee rests on it). The kernel
+// allocates nothing; the wrapper passes the partials' workspace.
 
 #include <cuda_runtime.h>
 
@@ -36,47 +51,134 @@
 namespace {
 
 constexpr int kWarpsPerBlock = 8;
-constexpr int kMaxVec = 24;  // columns per lane per chunk: chunks of 768
+constexpr int kBatch = 4;         // gathered table rows in flight per warp
+constexpr int kChunkFloats = 128; // columns of a row one warp sums
 
-template <int NV>
+template <int VEC> struct VecT;
+template <> struct VecT<1> { using T = float; };
+template <> struct VecT<2> { using T = float2; };
+template <> struct VecT<4> { using T = float4; };
+
+__device__ __forceinline__ float zero_of(float) { return 0.f; }
+__device__ __forceinline__ float2 zero_of(float2) { return make_float2(0.f, 0.f); }
+__device__ __forceinline__ float4 zero_of(float4) {
+  return make_float4(0.f, 0.f, 0.f, 0.f);
+}
+
+__device__ __forceinline__ float madd(float acc, float w, float t) {
+  return __fadd_rn(acc, __fmul_rn(w, t));
+}
+__device__ __forceinline__ float2 madd(float2 acc, float w, float2 t) {
+  return make_float2(madd(acc.x, w, t.x), madd(acc.y, w, t.y));
+}
+__device__ __forceinline__ float4 madd(float4 acc, float w, float4 t) {
+  return make_float4(madd(acc.x, w, t.x), madd(acc.y, w, t.y),
+                     madd(acc.z, w, t.z), madd(acc.w, w, t.w));
+}
+
+// units: (n_units, 3) int32 rows (e_begin, e_end, target); target < n_rows is
+// an output row, otherwise partial slot target - n_rows. Warp w of the grid's
+// row x sums unit x * kWarpsPerBlock + w over column chunk blockIdx.y.
+template <int VEC, int NV>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
-spmm_csr_kernel(const float* __restrict__ table, const int* __restrict__ row_ptr,
-                const int* __restrict__ col, const float* __restrict__ w,
-                float* __restrict__ out, int64_t n_rows, int d, int c_begin) {
+spmm_units_kernel(const float* __restrict__ table, const int* __restrict__ col,
+                  const float* __restrict__ w, const int* __restrict__ units,
+                  int n_units, float* __restrict__ part,
+                  float* __restrict__ out, int n_rows, int d) {
+  using V = typename VecT<VEC>::T;
   const int lane = threadIdx.x & 31;
-  const int64_t row = (int64_t)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (row >= n_rows) return;
-  const int e0 = row_ptr[row];
-  const int e1 = row_ptr[row + 1];
-  const int cb = c_begin + lane;
-  float acc[NV];
+  const int unit = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  if (unit >= n_units) return;
+  const int e0 = __ldg(units + 3 * unit);
+  const int e1 = __ldg(units + 3 * unit + 1);
+  const int target = __ldg(units + 3 * unit + 2);
+  float* dst = target < n_rows ? out + (int64_t)target * d
+                               : part + (int64_t)(target - n_rows) * d;
+  const int dv = d / VEC;  // vectors per row
+  const int v0 = blockIdx.y * 32 * NV + lane;
+  V acc[NV];
 #pragma unroll
-  for (int v = 0; v < NV; ++v) acc[v] = 0.f;
-#pragma unroll 4
-  for (int e = e0; e < e1; ++e) {
-    const float we = __ldg(w + e);
-    const float* tr = table + (int64_t)__ldg(col + e) * d;
+  for (int v = 0; v < NV; ++v) acc[v] = zero_of(V());
+  for (int eb = e0; eb < e1; eb += 32) {
+    const int n = e1 - eb < 32 ? e1 - eb : 32;
+    int my_c = 0;
+    float my_w = 0.f;
+    if (lane < n) {
+      my_c = __ldg(col + eb + lane);
+      my_w = __ldg(w + eb + lane);
+    }
+    for (int j = 0; j < n; j += kBatch) {
+      V t[kBatch][NV];
+      float wu[kBatch];
 #pragma unroll
-    for (int v = 0; v < NV; ++v) {
-      const int c = cb + 32 * v;
-      if (c < d) acc[v] = __fadd_rn(acc[v], __fmul_rn(we, __ldg(tr + c)));
+      for (int u = 0; u < kBatch; ++u) {
+        const int c = __shfl_sync(0xffffffffu, my_c, j + u);
+        wu[u] = __shfl_sync(0xffffffffu, my_w, j + u);
+        const V* tr = reinterpret_cast<const V*>(table + (int64_t)c * d);
+#pragma unroll
+        for (int v = 0; v < NV; ++v) {
+          const int idx = v0 + 32 * v;
+          t[u][v] = (j + u < n && idx < dv) ? __ldg(tr + idx) : zero_of(V());
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        if (j + u < n) {
+#pragma unroll
+          for (int v = 0; v < NV; ++v) acc[v] = madd(acc[v], wu[u], t[u][v]);
+        }
+      }
     }
   }
-  float* orow = out + row * d;
+  V* drow = reinterpret_cast<V*>(dst);
 #pragma unroll
   for (int v = 0; v < NV; ++v) {
-    const int c = cb + 32 * v;
-    if (c < d) orow[c] = acc[v];
+    const int idx = v0 + 32 * v;
+    if (idx < dv) drow[idx] = acc[v];
   }
 }
 
-template <int NV>
-void launch_chunk(const float* table, const int* row_ptr, const int* col,
-                  const float* w, float* out, int64_t n_rows, int d,
-                  int c_begin, cudaStream_t stream) {
-  const int64_t blocks = (n_rows + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  spmm_csr_kernel<NV><<<(unsigned)blocks, kWarpsPerBlock * 32, 0, stream>>>(
-      table, row_ptr, col, w, out, n_rows, d, c_begin);
+// Split row long_rows[i] = part[long_ptr[i]] + part[long_ptr[i] + 1] + ...,
+// left to right.
+__global__ void __launch_bounds__(256)
+spmm_combine_kernel(const float* __restrict__ part,
+                    const int* __restrict__ long_rows,
+                    const int* __restrict__ long_ptr, float* __restrict__ out,
+                    int d) {
+  const int i = blockIdx.x;
+  const int c = blockIdx.y * 256 + threadIdx.x;
+  if (c >= d) return;
+  const int s0 = __ldg(long_ptr + i);
+  const int s1 = __ldg(long_ptr + i + 1);
+  float acc = part[(int64_t)s0 * d + c];
+  for (int s = s0 + 1; s < s1; ++s) acc = __fadd_rn(acc, part[(int64_t)s * d + c]);
+  out[(int64_t)__ldg(long_rows + i) * d + c] = acc;
+}
+
+// Vectors of VEC floats; NV of them per lane, so a warp sums a column chunk
+// of 32 * NV * VEC <= kChunkFloats floats (fewer where the row is narrower).
+template <int VEC>
+void launch_units(const float* table, const int* col, const float* w,
+                  const int* units, int n_units, float* part, float* out,
+                  int n_rows, int d, cudaStream_t s) {
+  static_assert(kChunkFloats <= 128, "NV goes up to 4");
+  constexpr int kMaxNV = kChunkFloats / (32 * VEC);
+  const int dv = d / VEC;
+  int nv = 1;
+  while (nv < kMaxNV && 32 * nv < dv) nv *= 2;
+  const dim3 grid((unsigned)((n_units + kWarpsPerBlock - 1) / kWarpsPerBlock),
+                  (unsigned)((dv + 32 * nv - 1) / (32 * nv)));
+  const dim3 block(kWarpsPerBlock * 32);
+  if (nv == 1) {
+    spmm_units_kernel<VEC, 1><<<grid, block, 0, s>>>(
+        table, col, w, units, n_units, part, out, n_rows, d);
+  } else if (nv == 2) {
+    spmm_units_kernel<VEC, (kMaxNV >= 2 ? 2 : 1)><<<grid, block, 0, s>>>(
+        table, col, w, units, n_units, part, out, n_rows, d);
+  } else {
+    spmm_units_kernel<VEC, (kMaxNV >= 4 ? 4 : 1)><<<grid, block, 0, s>>>(
+        table, col, w, units, n_units, part, out, n_rows, d);
+  }
 }
 
 }  // namespace
@@ -87,25 +189,28 @@ const char* repro_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
-// table: (n_src, d) float32 row-major; row_ptr: (n_rows+1,) int32;
-// col: (nnz,) int32 in [0, n_src); w: (nnz,) float32; out: (n_rows, d) float32.
-int spmm_csr(const float* table, const int* row_ptr, const int* col,
-             const float* w, float* out, int64_t n_rows, int d, void* stream) {
+// table: (n_src, d) float32 row-major; col: (nnz,) int32 in [0, n_src);
+// w: (nnz,) float32; units: (n_units, 3) int32 and long_rows (n_long,) /
+// long_ptr (n_long+1,) int32, the plan of ref.py::split_plan; part:
+// (long_ptr[n_long], d) float32 workspace; out: (n_rows, d) float32.
+int spmm_csr(const float* table, const int* col, const float* w,
+             const int* units, int n_units, const int* long_rows,
+             const int* long_ptr, int n_long, float* part, float* out,
+             int n_rows, int d, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  for (int c0 = 0; c0 < d; c0 += 32 * kMaxVec) {
-    const int cols = d - c0 < 32 * kMaxVec ? d - c0 : 32 * kMaxVec;
-    const int nv = (cols + 31) / 32;
-    if (nv <= 1) launch_chunk<1>(table, row_ptr, col, w, out, n_rows, d, c0, s);
-    else if (nv <= 2) launch_chunk<2>(table, row_ptr, col, w, out, n_rows, d, c0, s);
-    else if (nv <= 4) launch_chunk<4>(table, row_ptr, col, w, out, n_rows, d, c0, s);
-    else if (nv <= 8) launch_chunk<8>(table, row_ptr, col, w, out, n_rows, d, c0, s);
-    else if (nv <= 12) launch_chunk<12>(table, row_ptr, col, w, out, n_rows, d, c0, s);
-    else if (nv <= 16) launch_chunk<16>(table, row_ptr, col, w, out, n_rows, d, c0, s);
-    else if (nv <= 20) launch_chunk<20>(table, row_ptr, col, w, out, n_rows, d, c0, s);
-    else launch_chunk<kMaxVec>(table, row_ptr, col, w, out, n_rows, d, c0, s);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
+  if (n_units <= 0 || d <= 0) return (int)cudaSuccess;
+  const uintptr_t ptrs = (uintptr_t)table | (uintptr_t)out | (uintptr_t)part;
+  if (d % 4 == 0 && ptrs % 16 == 0) {
+    launch_units<4>(table, col, w, units, n_units, part, out, n_rows, d, s);
+  } else if (d % 2 == 0 && ptrs % 8 == 0) {
+    launch_units<2>(table, col, w, units, n_units, part, out, n_rows, d, s);
+  } else {
+    launch_units<1>(table, col, w, units, n_units, part, out, n_rows, d, s);
   }
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || n_long <= 0) return (int)err;
+  const dim3 grid((unsigned)n_long, (unsigned)((d + 255) / 256));
+  spmm_combine_kernel<<<grid, 256, 0, s>>>(part, long_rows, long_ptr, out, d);
   return (int)cudaGetLastError();
 }
 

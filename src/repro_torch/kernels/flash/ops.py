@@ -18,8 +18,9 @@ to the kernel: the wrapper first refuses what the kernel does not compute
 the launches.
 
 Block sizes (``blk_q``, ``blk_k``, ``block``) are the plain version's, as in
-the JAX package; the kernel tiles by 64 x 64 whatever they are. A block size
-changes only the order of the float32 sums, not the function.
+the JAX package; the kernel tiles by its own (128 query rows x 64 keys up to
+D = 128) whatever they are. A block size changes only the order of the
+float32 sums, not the function.
 """
 from __future__ import annotations
 

@@ -139,6 +139,25 @@ def test_build_needs_nvcc_and_hashes_sources(monkeypatch):
         build.nvcc_path()
 
 
+def test_nvcc_flags_differ_only_where_the_docstring_says():
+    """Every source: sm_90a, -O3, no fast math. The bit-exact sources (quant,
+    spmm) add -fmad=false and nothing else; flash has exactly the common
+    flags. Each source's flags go into its library hash."""
+    common = build.nvcc_flags("flash.cu")
+    assert common == build.NVCC_FLAGS
+    assert "arch=compute_90a,code=sm_90a" in common and "-O3" in common
+    for src in build.SOURCES:
+        flags = build.nvcc_flags(src)
+        assert "--use_fast_math" not in flags
+        extra = [f for f in flags if f not in common]
+        assert extra == (["-fmad=false"] if src in ("quant.cu", "spmm.cu")
+                         else []), src
+        assert set(common) <= set(flags)
+    assert set(build.BIT_EXACT) == {"quant.cu", "spmm.cu"}
+    doc = build.__doc__
+    assert "-fmad=false" in doc and "flash.cu" in doc
+
+
 def test_chip_smoke_fails_without_a_card(monkeypatch, capsys):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     monkeypatch.syspath_prepend(str(ROOT))

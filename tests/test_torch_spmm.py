@@ -5,8 +5,11 @@ The port's kernel takes a true CSR; the JAX Pallas kernel a padded one.
 so both compute ``out[r] = sum_s w[r, s] * table[idx[r, s]]`` on the same
 numpy inputs. Tolerance ``rtol 2e-4, atol 1e-4``: the two sum in different
 orders (the Pallas kernel per source tile, ``segment_sum`` per edge list,
-the port per CSR row).
+the port per CSR row, with rows longer than ``SEGMENT`` edges split into
+segments whose partials add left to right).
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -21,7 +24,8 @@ from repro.kernels.spmm.spmm import spmm as jax_spmm
 from repro.models.gnn import blocks as JB
 from repro_torch.graph import formats, partition, synthetic
 from repro_torch.kernels.spmm.ops import spmm
-from repro_torch.kernels.spmm.ref import csr_from_edges, csr_from_padded
+from repro_torch.kernels.spmm.ref import (SEGMENT, csr_from_edges,
+                                          csr_from_padded, split_plan)
 from repro_torch.models.gnn import blocks as TB
 
 RTOL, ATOL = 2e-4, 1e-4
@@ -29,7 +33,8 @@ RTOL, ATOL = 2e-4, 1e-4
 
 @pytest.mark.parametrize("n_src,n_rows,max_deg,d",
                          [(50, 40, 6, 16), (1000, 300, 12, 200),
-                          (700, 700, 32, 75), (4000, 128, 64, 288)])
+                          (700, 700, 32, 75), (4000, 128, 64, 288),
+                          (3000, 6, 20 * SEGMENT + 7, 24)])
 def test_spmm_matches_pallas_kernel(n_src, n_rows, max_deg, d):
     rng = np.random.default_rng(n_src)
     table = rng.normal(0, 1, (n_src, d)).astype(np.float32)
@@ -82,6 +87,108 @@ def test_spmm_plain_version_sums_in_csr_order():
     # rows keep their edge-list order
     order = np.argsort(dst, kind="stable")
     np.testing.assert_array_equal(col, src[order])
+
+
+def _hub_graph(seed=3, n_src=400, d=9):
+    """Rows of 0, 1, SEGMENT, SEGMENT + 1 and ~20 * SEGMENT edges, and a
+    tail of short random rows, in a shuffled edge list."""
+    rng = np.random.default_rng(seed)
+    degs = [0, 1, SEGMENT, SEGMENT + 1, 20 * SEGMENT + 13, 2 * SEGMENT, 5]
+    degs += list(rng.integers(0, 40, 30))
+    dst = np.repeat(np.arange(len(degs)), degs)
+    perm = rng.permutation(dst.size)
+    dst = dst[perm]
+    src = rng.integers(0, n_src, dst.size)
+    w = rng.normal(0, 1, dst.size).astype(np.float32)
+    table = rng.normal(0, 1, (n_src, d)).astype(np.float32)
+    return table, src, dst, w, len(degs)
+
+
+def test_spmm_plain_version_splits_long_rows():
+    """Rows of at most SEGMENT edges sum from 0 in CSR order; longer rows sum
+    each SEGMENT-edge segment from 0 in CSR order and add the partials left
+    to right. Compare with an explicit float32 loop, bit for bit."""
+    table, src, dst, w, n_rows = _hub_graph()
+    csr = csr_from_edges(src, dst, w, n_rows, table.shape[0])
+    out = spmm(torch.from_numpy(table), csr).numpy()
+    rp, col, cw = csr.row_ptr.numpy(), csr.col.numpy(), csr.w.numpy()
+    want = np.zeros((n_rows, table.shape[1]), np.float32)
+    for r in range(n_rows):
+        parts = []
+        for s0 in range(rp[r], max(rp[r + 1], rp[r] + 1), SEGMENT):
+            acc = np.zeros(table.shape[1], np.float32)
+            for e in range(s0, min(s0 + SEGMENT, rp[r + 1])):
+                acc = acc + cw[e] * table[col[e]]
+            parts.append(acc)
+        acc = parts[0]
+        for p in parts[1:]:
+            acc = acc + p
+        want[r] = acc
+    np.testing.assert_array_equal(out, want)
+    assert int(np.diff(rp).max()) > 20 * SEGMENT
+
+
+def test_spmm_hub_rows_match_segment_sum_and_pallas_kernel():
+    """With hub rows split into segments the port still computes the JAX
+    package's aggregation (``segment_sum``, and the Pallas kernel on the
+    same rows padded to the largest degree)."""
+    table, src, dst, w, n_rows = _hub_graph(seed=7, n_src=600, d=40)
+    csr = csr_from_edges(src, dst, w, n_rows, table.shape[0])
+    out = spmm(torch.from_numpy(table), csr).numpy()
+    ref = jax.ops.segment_sum(jnp.asarray(table)[src] * w[:, None],
+                              jnp.asarray(dst), num_segments=n_rows)
+    np.testing.assert_allclose(out, np.asarray(ref), rtol=RTOL, atol=ATOL)
+    rp, col, cw = csr.row_ptr.numpy(), csr.col.numpy(), csr.w.numpy()
+    deg = np.diff(rp)
+    idx = np.zeros((n_rows, deg.max()), np.int32)
+    pw = np.zeros((n_rows, deg.max()), np.float32)
+    for r in range(n_rows):
+        idx[r, :deg[r]] = col[rp[r]:rp[r + 1]]
+        pw[r, :deg[r]] = cw[rp[r]:rp[r + 1]]
+    out_j = jax_spmm(jnp.asarray(table), jnp.asarray(idx), jnp.asarray(pw),
+                     interpret=True, src_tile=256)
+    np.testing.assert_allclose(out, np.asarray(out_j), rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("segment", [SEGMENT, 4, 1])
+def test_split_plan_covers_every_edge_once_in_csr_order(segment):
+    """The host plan: no unit longer than the segment, units in CSR order
+    (every edge in exactly one unit, in order), every row written once
+    (whole or through its partials), and a split row's partials in segment
+    order."""
+    _, src, dst, w, n_rows = _hub_graph()
+    csr = csr_from_edges(src, dst, w, n_rows, 400)
+    rp = csr.row_ptr.numpy().astype(np.int64)
+    units, long_rows, long_ptr, n_partials = split_plan(rp, segment)
+    units, long_rows = units.numpy(), long_rows.numpy()
+    long_ptr = long_ptr.numpy()
+    length = units[:, 1] - units[:, 0]
+    assert length.max() <= segment and (length >= 0).all()
+    covered = np.concatenate([np.arange(a, b) for a, b, _ in units])
+    np.testing.assert_array_equal(covered, np.arange(rp[-1]))
+    deg = np.diff(rp)
+    whole = units[units[:, 2] < n_rows, 2]
+    assert sorted(whole.tolist() + long_rows.tolist()) == list(range(n_rows))
+    np.testing.assert_array_equal(long_rows, np.nonzero(deg > segment)[0])
+    assert n_partials == long_ptr[-1] == int(
+        np.ceil(deg[long_rows] / segment).sum())
+    seg = units[units[:, 2] >= n_rows]
+    slot_start = dict(zip((seg[:, 2] - n_rows).tolist(), seg[:, 0].tolist()))
+    for i, r in enumerate(long_rows):
+        starts = [slot_start[s] for s in range(long_ptr[i], long_ptr[i + 1])]
+        assert starts == list(range(rp[r], rp[r + 1], segment))
+
+
+def test_plain_version_does_not_depend_on_the_unit_order():
+    """The sums' order is the CSR's, not the plan's: the same plan with its
+    units shuffled gives the same bits."""
+    table, src, dst, w, n_rows = _hub_graph(seed=11)
+    csr = csr_from_edges(src, dst, w, n_rows, table.shape[0])
+    perm = torch.from_numpy(np.random.default_rng(0).permutation(
+        csr.units.shape[0]))
+    shuffled = dataclasses.replace(csr, units=csr.units[perm].contiguous())
+    t = torch.from_numpy(table)
+    assert torch.equal(spmm(t, csr), spmm(t, shuffled))
 
 
 def test_csr_from_edges_rejects_out_of_range():
