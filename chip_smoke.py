@@ -24,10 +24,19 @@ Phases, each of which raises (and exits non-zero) on failure:
             at 1 bit.
 5. kernels — each GCN kernel against its plain PyTorch version on the tensors
             the slice's sweep produced: quantize (bits 1/2/4/8, stochastic and
-            deterministic) bit-equal, dequantize equal, SpMM bit-equal and
+            deterministic; scale/zero in float32 and in bfloat16, the wire's
+            type, which must equal the float32 ones cast by torch) bit-equal,
+            dequantize bit-equal from either, SpMM bit-equal and
             the same bits on a second run (the split of hub rows into
-            ``SEGMENT``-edge segments is fixed by the CSR). CUDA-event
-            times beside the bytes-or-operations bound and, for SpMM,
+            ``SEGMENT``-edge segments is fixed by the CSR). Then a shape
+            sweep of quantize and dequantize against their plain versions,
+            bit for bit: bits 1/2/4/8, stochastic and deterministic, d in
+            ``SWEEP_D``, rows 1/7/1,000, contiguous, a view one element into
+            its buffer (4-byte aligned h and u, 1-byte aligned payload) and
+            constant rows. Times beside the bytes-or-operations bound: the
+            Low-bit Module's as device time per launch from
+            ``torch.profiler`` (the CUDA-event time of back-to-back wrapper
+            calls beside it), the rest by CUDA events; for SpMM also
             ``torch.sparse.mm`` and the kernel under other plans (segments
             of 64 or 256 edges, units heaviest first).
             The GCN's tensors are freed after this phase.
@@ -80,6 +89,7 @@ HBM_BYTES_PER_S = 3.35e12    # H100 SXM HBM3 (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
 TF32_OPS_PER_S = 495e12      # H100 SXM TF32 on the tensor cores, dense
 SEED = 0
+SWEEP_D = (1, 3, 31, 32, 33, 75, 255, 256, 600, 602, 1433, 4099)
 
 
 def log(msg: str) -> None:
@@ -104,6 +114,106 @@ def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / iters
+
+
+def device_ms(fn, kernel: str, iters: int = 20) -> float:
+    """Device milliseconds per launch of the CUDA kernel whose name contains
+    ``kernel``: its self device time over the launches the trace holds, by
+    ``torch.profiler`` over ``iters`` calls of ``fn``, traced in a second
+    cycle after a first, warm-up one. No host time is in it, which CUDA
+    events around back-to-back calls of a short kernel cannot promise. The
+    trace may miss some launches of a kernel launched from a library of its
+    own (seen on the card: 8 of 20), so the count only has to be nonzero."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1)) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        prof.step()                      # the warm-up cycle ends here
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.key_averages()
+          if e.device_type == DeviceType.CUDA and kernel in e.key]
+    n = sum(e.count for e in ev)
+    check(0 < n <= iters, f"the profiler saw {n} launches of {kernel} in "
+          f"{iters} calls")
+    return sum(e.self_device_time_total for e in ev) / n / 1e3
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal dtype, shape and bits (a signed zero or a NaN included)."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    as_int = {1: torch.uint8, 2: torch.int16, 4: torch.int32}[a.element_size()]
+    return torch.equal(a.view(as_int), b.view(as_int))
+
+
+def shifted(x: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of ``x`` that starts one element into its buffer."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    return buf[1:].view(x.shape).copy_(x)
+
+
+def check_quant(qops, qref, h, u, bits: int, tag: str,
+                shift_payload: bool = False) -> tuple[float, float]:
+    """Quantize ``h`` (noise ``u`` or ``None``) with the kernel, scale/zero
+    in float32 and in bfloat16, and dequantize each result: all bit-equal to
+    the plain versions (bfloat16 to the float32 ones cast by torch). Returns
+    the largest differences seen by quantize and by dequantize (0 and 0 when
+    the checks pass)."""
+    d = h.shape[1]
+    pk, sk, zk = qops.quantize_pack_rows(h, u, bits)
+    pr, sr, zr = qref.quantize_pack_ref(h, u, bits)
+    for what, a, b in (("payload", pk, pr), ("scale", sk, sr), ("zero", zk, zr)):
+        check(same_bits(a, b), f"quantize {tag} bits {bits} stochastic "
+              f"{u is not None}: {what} bit-equal")
+    pb, sb, zb = qops.quantize_pack_rows(h, u, bits, torch.bfloat16)
+    for what, a, b in (("payload", pb, pk), ("scale", sb, sk.bfloat16()),
+                       ("zero", zb, zk.bfloat16())):
+        check(same_bits(a, b), f"quantize {tag} bits {bits} bf16 scale: "
+              f"{what} equals the float32 result cast by torch")
+    src = shifted(pk) if shift_payload else pk
+    deq_err = 0.0
+    for s_, z_ in ((sk, zk), (sb, zb)):
+        ok = qops.dequantize_rows(src, s_, z_, bits, d)
+        orf = qref.unpack_dequantize_ref(pk, s_.float(), z_.float(), bits, d)
+        check(same_bits(ok, orf), f"dequantize {tag} bits {bits} "
+              f"{s_.dtype}: bit-equal")
+        deq_err = max(deq_err, float((ok - orf).abs().max()))
+    return max(float((pk.int() - pr.int()).abs().max()),
+               float((sk - sr).abs().max()),
+               float((zk - zr).abs().max())), deq_err
+
+
+def quant_shape_sweep(qops, qref) -> int:
+    """Both Low-bit Module kernels against their plain versions over edge
+    shapes: d in ``SWEEP_D`` (one value; one past a 32-lane chunk; rows
+    whose packed width is not a multiple of 4; rows wider than the kernel
+    stages through shared memory), rows 1/7/1,000, bits 1/2/4/8, stochastic and
+    deterministic, for a contiguous h, a view one element into its buffer,
+    and half the rows constant (rng = 0). Returns the cases checked."""
+    gen = torch.Generator("cuda").manual_seed(SEED)
+    n = 0
+    for rows in (1, 7, 1000):
+        for d in SWEEP_D:
+            x = torch.randn(rows * d + 1, generator=gen, device="cuda")
+            r = torch.rand(rows * d + 1, generator=gen, device="cuda")
+            flat = x[:-1].view(rows, d).clone()
+            flat[::2] = 0.37
+            cases = (("contiguous", x[:-1].view(rows, d), r[:-1].view(rows, d)),
+                     ("offset", x[1:].view(rows, d), r[1:].view(rows, d)),
+                     ("constant rows", flat, r[:-1].view(rows, d)))
+            for tag, h, u in cases:
+                for bits in (1, 2, 4, 8):
+                    for stochastic in (False, True):
+                        check_quant(qops, qref, h, u if stochastic else None,
+                                    bits, f"{tag} ({rows} x {d})",
+                                    shift_payload=tag == "offset")
+                        n += 1
+    return n
 
 
 def bound(n_bytes: float, n_ops: float,
@@ -440,8 +550,10 @@ def main() -> int:
     log(f"[slice] full sweep {rep.seconds * 1e3:.3f} ms (first, host clock), "
         f"launches {launches}, wire bytes {rep.wire_bytes}")
     for name, n in launches.items():
-        check(n >= eng.n_sites, f"{name} launched {n} times in one sweep, "
-              f"expected at least {eng.n_sites}")
+        exact = name != sops.SPMM.name
+        check(n == eng.n_sites if exact else n >= eng.n_sites,
+              f"{name} launched {n} times in one sweep, expected "
+              f"{'' if exact else 'at least '}{eng.n_sites}")
     logits = eng.logits
     check(logits.shape == (pg.part_of.size, n_cls), "logits shape")
     check(bool(np.isfinite(logits).all()), "logits finite")
@@ -489,7 +601,8 @@ def main() -> int:
               if e.device_type == DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in on_dev) / 1e3
     log(f"[profile] one full sweep: host {wall:.3f} ms, device busy "
-        f"{busy:.3f} ms ({100 * busy / wall:.1f}% of the host time)")
+        f"{busy:.3f} ms ({100 * busy / wall:.1f}% of the host time), "
+        f"{sum(e.count for e in on_dev)} device launches")
     for e in sorted(on_dev, key=lambda e: -e.self_device_time_total)[:12]:
         log(f"[profile]   {e.self_device_time_total / 1e3:9.3f} ms "
             f"{e.count:5d}x  {e.key[:100]}")
@@ -548,41 +661,38 @@ def main() -> int:
                 u = torch.rand(buf.shape, device=buf.device,
                                generator=torch.Generator("cuda").manual_seed(
                                    site * 100 + bits)) if stochastic else None
-                pk, sk, zk = qops.quantize_pack_rows(buf, u, bits)
-                pr, sr, zr = qref.quantize_pack_ref(buf, u, bits)
-                for what, a, b in (("payload", pk, pr), ("scale", sk, sr),
-                                   ("zero", zk, zr)):
-                    check(torch.equal(a, b),
-                          f"quantize site {site} bits {bits} stochastic "
-                          f"{stochastic}: {what} equal")
-                errs["quantize_pack"] = max(
-                    errs["quantize_pack"],
-                    float((pk.int() - pr.int()).abs().max()),
-                    float((sk - sr).abs().max()), float((zk - zr).abs().max()))
-                ok = qops.dequantize_rows(pk, sk, zk, bits, d)
-                orf = qref.unpack_dequantize_ref(pk, sk, zk, bits, d)
-                check(torch.equal(ok, orf),
-                      f"dequantize site {site} bits {bits}: equal")
-                errs["unpack_dequantize"] = max(
-                    errs["unpack_dequantize"], float((ok - orf).abs().max()))
-                if bits == 1 and not stochastic:
-                    w = qref.packed_width(d, bits)
-                    qb, qo = bound(rows_ * d * 4 + rows_ * (w + 8),
-                                   rows_ * d * 8)
-                    db, do = bound(rows_ * (w + 8) + rows_ * d * 4,
-                                   rows_ * d * 2)
-                    detail.append(dict(
-                        site=site, shape=[rows_, d], bits=bits,
-                        quantize_ms=cuda_ms(lambda: qops.quantize_pack_rows(
-                            buf, None, 1)),
-                        quantize_plain_ms=cuda_ms(lambda: qref.quantize_pack_ref(
-                            buf, None, 1)),
-                        quantize_bound_ms=qb, quantize_bound_by=qo,
-                        dequantize_ms=cuda_ms(lambda: qops.dequantize_rows(
-                            pk, sk, zk, 1, d)),
-                        dequantize_plain_ms=cuda_ms(
-                            lambda: qref.unpack_dequantize_ref(pk, sk, zk, 1, d)),
-                        dequantize_bound_ms=db, dequantize_bound_by=do))
+                q_err, d_err = check_quant(qops, qref, buf, u, bits,
+                                           f"site {site}")
+                errs["quantize_pack"] = max(errs["quantize_pack"], q_err)
+                errs["unpack_dequantize"] = max(errs["unpack_dequantize"],
+                                                d_err)
+        # the sweep's own call: 1 bit, deterministic, bf16 scale/zero
+        w, ec = qref.packed_width(d, 1), 2 * 2
+        u = torch.rand(buf.shape, device=buf.device,
+                       generator=torch.Generator("cuda").manual_seed(site))
+        pk, sk, zk = qops.quantize_pack_rows(buf, None, 1, torch.bfloat16)
+        quant = lambda: qops.quantize_pack_rows(buf, None, 1, torch.bfloat16)
+        squant = lambda: qops.quantize_pack_rows(buf, u, 1, torch.bfloat16)
+        deq = lambda: qops.dequantize_rows(pk, sk, zk, 1, d)
+        qb, qo = bound(rows_ * d * 4 + rows_ * (w + ec), rows_ * d * 8)
+        qsb, qso = bound(2 * rows_ * d * 4 + rows_ * (w + ec), rows_ * d * 10)
+        db, do = bound(rows_ * (w + ec) + rows_ * d * 4, rows_ * d * 2)
+        detail.append(dict(
+            site=site, shape=[rows_, d], bits=1, scale_dtype="bfloat16",
+            quantize_ms=device_ms(quant, "quantize_pack"),
+            quantize_event_ms=cuda_ms(quant),
+            quantize_plain_ms=cuda_ms(lambda: [
+                t.bfloat16() for t in qref.quantize_pack_ref(buf, None, 1)]),
+            quantize_bound_ms=qb, quantize_bound_by=qo,
+            quantize_stochastic_ms=device_ms(squant, "quantize_pack"),
+            quantize_stochastic_event_ms=cuda_ms(squant),
+            quantize_stochastic_bound_ms=qsb,
+            quantize_stochastic_bound_by=qso,
+            dequantize_ms=device_ms(deq, "unpack_dequantize_kernel"),
+            dequantize_event_ms=cuda_ms(deq),
+            dequantize_plain_ms=cuda_ms(lambda: qref.unpack_dequantize_ref(
+                pk, sk.float(), zk.float(), 1, d)),
+            dequantize_bound_ms=db, dequantize_bound_by=do))
         table = B.halo_table(h, eng._halos[site])
         table = table.reshape(-1, table.shape[-1]).contiguous()
         out_k = sops.spmm(table, csr)
@@ -616,7 +726,14 @@ def main() -> int:
                 for name, alt in alt_plans.items()})
         log(f"[kernels] site {site}: {json.dumps(detail[-1])}")
     log(f"[kernels] max abs err vs plain versions: {errs}")
+    n_cases = quant_shape_sweep(qops, qref)
+    log(f"[kernels] quantize/dequantize shape sweep: {n_cases} cases (bits "
+        f"1/2/4/8, stochastic and deterministic, d {list(SWEEP_D)}, rows "
+        f"1/7/1000, contiguous / offset by one element / constant rows), "
+        f"scale/zero float32 and bfloat16: all bit-equal to the plain "
+        f"versions")
     del eng, eng_s, pg, model, runtime, plan, csr, table, out_k, out_r, buf
+    del pk, sk, zk, u
     del alt_plans
     del sparse, prof, out, e, spg, small
     torch.cuda.empty_cache()
@@ -637,6 +754,13 @@ def main() -> int:
         "unpack_dequantize": ("dequantize", None),
         "spmm_csr": ("spmm", "spmm_library_ms"),
     }
+    # the Low-bit Module's further times: event time, stochastic rounding
+    extra = {
+        "quantize_pack": ("event_ms", "stochastic_ms", "stochastic_event_ms",
+                          "stochastic_bound_ms"),
+        "unpack_dequantize": ("event_ms",),
+        "spmm_csr": (),
+    }
     summary = []
     for name, meta in kernels.items():
         key, lib = times[name]
@@ -647,7 +771,8 @@ def main() -> int:
             plain_ms=s0[f"{key}_plain_ms"], bound_ms=s0[f"{key}_bound_ms"],
             bound_by=s0[f"{key}_bound_by"],
             library_ms=s0[lib] if lib else None,
-            shape=s0["spmm_shape" if key == "spmm" else "shape"]))
+            shape=s0["spmm_shape" if key == "spmm" else "shape"],
+            **{k: s0[f"{key}_{k}"] for k in extra[name]}))
     meta = lm_kernels["flash_fwd"]
     summary.append(dict(
         name="flash_fwd", route="cuda", source=meta["source"],

@@ -17,7 +17,9 @@ One (scale, zero) pair per feature vector (last axis), carried in
 Widths {1, 2, 4, 8} go through the fused kernels of
 ``repro_torch.kernels.quant`` (the CUDA kernel on a CUDA tensor, its plain
 version on the CPU); 3/5/6/7 and the passthroughs are plain PyTorch. Which
-runs is decided by the tensor's device alone.
+runs is decided by the tensor's device alone. The kernels write and read
+scale/zero in float32 or bfloat16 directly, so a bf16 exchange launches no
+casts around them.
 
 The stochastic noise is a uniform ``u`` at ``h.shape``, drawn from the
 caller's ``torch.Generator`` or passed in by the caller (the parity tests pass
@@ -128,10 +130,13 @@ def quantize(h: torch.Tensor, bits: int,
                          f"{tuple(u.shape)}")
     lead = h.shape[:-1]
     if bits in KERNEL_BITS:
+        # the kernel writes the wire's scale dtype itself where it can
+        kdt = scale_dtype if scale_dtype in kops.SCALE_DTYPES else \
+            torch.float32
         packed, scale, zero = kops.quantize_pack_rows(
             h.reshape(-1, d).contiguous(),
             None if u is None else u.to(torch.float32).reshape(-1, d)
-            .contiguous(), bits)
+            .contiguous(), bits, kdt)
         return QuantizedTensor(packed.reshape(lead + (packed.shape[-1],)),
                                scale.reshape(lead).to(scale_dtype),
                                zero.reshape(lead).to(scale_dtype), bits, d)
@@ -161,10 +166,12 @@ def dequantize(qt: QuantizedTensor,
     if qt.bits in KERNEL_BITS:
         w = qt.data.shape[-1]
         lead = qt.data.shape[:-1]
+        kdt = qt.scale.dtype if qt.scale.dtype in kops.SCALE_DTYPES else \
+            torch.float32
         out = kops.dequantize_rows(
             qt.data.reshape(-1, w).contiguous(),
-            qt.scale.reshape(-1).to(torch.float32).contiguous(),
-            qt.zero.reshape(-1).to(torch.float32).contiguous(),
+            qt.scale.reshape(-1).to(kdt).contiguous(),
+            qt.zero.reshape(-1).to(kdt).contiguous(),
             qt.bits, qt.feat_dim)
         return out.reshape(lead + (qt.feat_dim,)).to(out_dtype)
     vals = unpack_bits(qt.data, qt.bits, qt.feat_dim).to(torch.float32)

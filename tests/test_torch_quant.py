@@ -127,3 +127,82 @@ def test_core_quantize_draws_from_generator():
     assert not torch.equal(q(1), q(2))
     with pytest.raises(ValueError):
         tq.quantize(h, 1, stochastic=True)
+
+
+@pytest.mark.parametrize("bits", [1, 2, 4, 8])
+@pytest.mark.parametrize("rows,d,constant", [(1, 1, False), (1, 33, False),
+                                             (1, 4099, False), (7, 33, True)])
+def test_quantize_pack_matches_pallas_kernel_at_edges(bits, rows, d, constant):
+    """The edge shapes of the CUDA kernel's layout: one value, one value past
+    a 32-lane chunk, a row longer than the values a lane keeps in registers,
+    a single row, and constant rows (rng = 0, so scale = 0)."""
+    h, u = _inputs(rows, d, 11 * d + bits)
+    if constant:
+        h[::2] = np.float32(0.37)
+    pj, sj, zj = quantize_pack(jnp.asarray(h), jnp.asarray(u), bits=bits,
+                               interpret=True)
+    pt, st, zt = tops.quantize_pack_rows(torch.from_numpy(h),
+                                         torch.from_numpy(u), bits)
+    np.testing.assert_array_equal(pt.numpy(), np.asarray(pj))
+    np.testing.assert_array_equal(_bits_of(st), _bits_of(sj))
+    np.testing.assert_array_equal(_bits_of(zt), _bits_of(zj))
+    if constant:
+        assert (st[::2] == 0).all() and (pt[::2] == 0).all()
+    oj = unpack_dequantize(pj, sj, zj, bits, d, interpret=True)
+    ot = tops.dequantize_rows(pt, st, zt, bits, d)
+    np.testing.assert_allclose(ot.numpy(), np.asarray(oj), rtol=0,
+                               atol=DEQ_ATOL)
+
+
+@pytest.mark.parametrize("bits", [1, 2, 4, 8])
+@pytest.mark.parametrize("stochastic", [True, False])
+def test_bf16_scale_path_equals_f32_path_cast(bits, stochastic):
+    """The wrappers' bf16 scale/zero (what the CUDA kernel writes and reads
+    directly) are the float32 ones rounded by ``.to(bfloat16)``, and dequantize
+    from them as from their float32 widening."""
+    h, u = _inputs(33, 75, 5 * bits + stochastic)
+    ht = torch.from_numpy(h)
+    ut = torch.from_numpy(u) if stochastic else None
+    p32, s32, z32 = tops.quantize_pack_rows(ht, ut, bits)
+    pb, sb, zb = tops.quantize_pack_rows(ht, ut, bits, torch.bfloat16)
+    assert (sb.dtype, zb.dtype) == (torch.bfloat16, torch.bfloat16)
+    assert torch.equal(pb, p32)
+    np.testing.assert_array_equal(_bits_of(sb), _bits_of(s32.bfloat16()))
+    np.testing.assert_array_equal(_bits_of(zb), _bits_of(z32.bfloat16()))
+    assert torch.equal(tops.dequantize_rows(pb, sb, zb, bits, 75),
+                       tops.dequantize_rows(p32, sb.float(), zb.float(),
+                                            bits, 75))
+
+
+@pytest.mark.parametrize("bits", [1, 8])
+@pytest.mark.parametrize("scale_dtype", ["bfloat16", "float16"])
+def test_core_scale_dtype_matches_jax(bits, scale_dtype):
+    """``core.quantization`` hands the kernel wrappers the wire's scale dtype
+    where they take it (bf16) and casts float32 where they do not (f16); both
+    equal ``repro.core.quantization`` bit for bit."""
+    shape = (3, 40, 33)
+    h = np.random.default_rng(bits).normal(0, 2, shape).astype(np.float32)
+    key = jax.random.PRNGKey(bits + 1)
+    qj = jq.quantize(jnp.asarray(h), bits, key, scale_dtype=getattr(
+        jnp, scale_dtype), impl="jnp")
+    u = np.array(jax.random.uniform(key, shape, dtype=jnp.float32))
+    qt = tq.quantize(torch.from_numpy(h), bits, u=torch.from_numpy(u),
+                     scale_dtype=getattr(torch, scale_dtype))
+    assert qt.scale.dtype == getattr(torch, scale_dtype)
+    np.testing.assert_array_equal(_bits_of(qt.data), _bits_of(qj.data))
+    np.testing.assert_array_equal(_bits_of(qt.scale), _bits_of(qj.scale))
+    np.testing.assert_array_equal(_bits_of(qt.zero), _bits_of(qj.zero))
+    np.testing.assert_allclose(tq.dequantize(qt).numpy(),
+                               np.asarray(jq.dequantize(qj, impl="jnp")),
+                               rtol=1e-6, atol=DEQ_ATOL)
+
+
+def test_kernel_wrappers_reject_other_scale_dtypes():
+    h = torch.from_numpy(_inputs(4, 8, 0)[0])
+    with pytest.raises(ValueError):
+        tops.quantize_pack_rows(h, None, 1, torch.float16)
+    p, s, z = tops.quantize_pack_rows(h, None, 1, torch.bfloat16)
+    with pytest.raises(ValueError):
+        tops.dequantize_rows(p, s.half(), z.half(), 1, 8)
+    with pytest.raises(ValueError):
+        tops.dequantize_rows(p, s, z.float(), 1, 8)
