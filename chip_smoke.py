@@ -66,13 +66,40 @@ Phases, each of which raises (and exits non-zero) on failure:
             products per multiply-add), the plain version and
             ``scaled_dot_product_attention`` (timed here only; the port
             never calls it).
-9. summary — a ``{"kernels": [...]}`` line, the card line, and the last
-            line ``{"ok": true, "device": {...}}``.
+9. summary — a ``{"kernels": [...]}`` line (each kernel's launches on
+            every path: a serving sweep, each kind of training step, an LM
+            ``generate``), the card line, and the last line ``{"ok": true,
+            "device": {...}}``.
+
+Between phases 5 and 6 (``lm``) three training phases run:
+
+train     — GCN 256x2 trained full-graph on ``reddit_like@paper``, P=4, at
+            full width, ``TRAIN_EPOCHS`` epochs each of vanilla (32 bits),
+            Sylvie-S (``Uniform(1)``, stochastic) and Sylvie-A
+            (``BoundedStaleness(eps_s=4)``, 1 bit, stochastic), random weights
+            from a seeded generator. Every kernel's count is zeroed before
+            each epoch and read after it: the counts must equal
+            ``TRAIN_LAUNCHES`` exactly. Prints the median epoch ms of sync and
+            async epochs (epoch 0 left out), the first and last loss (finite,
+            the last below the first), validation accuracy, payload and
+            error-compensation MB per epoch, peak memory, and a profiled sync
+            and async epoch of Sylvie-A split by kernel.
+train-kernels — the tensors of one recorded Sylvie-S step: the SpMM over the
+            transposed CSR (d = 256) and over the scatter CSR, and quantize /
+            dequantize of the site-1 gradient (bits 1/2/4/8, stochastic and
+            deterministic, f32 and bf16 scale/zero), each bit-equal to its
+            plain version run on the card; the transposed SpMM timed beside
+            its bytes bound, its plain version and ``torch.sparse.mm`` of Aᵀ.
+train-parity — deterministic 6-epoch Sylvie-S and Sylvie-A (eps_s=2) on
+            ``yelp_like@small`` on the card and on the CPU: losses allclose
+            at rtol 1e-4, halo caches and gradients allclose but for at most
+            1% of their rows, counted (``train_parity_phase``).
 
 Run time on an H100: about two minutes, the kernels' build included.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import subprocess
@@ -90,6 +117,18 @@ F32_OPS_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
 TF32_OPS_PER_S = 495e12      # H100 SXM TF32 on the tensor cores, dense
 SEED = 0
 SWEEP_D = (1, 3, 31, 32, 33, 75, 255, 256, 600, 602, 1433, 4099)
+TRAIN_EPOCHS = 20
+TRAIN_KERNELS = ("quantize_pack", "unpack_dequantize", "spmm_csr")
+# kernel launches per training step (GCN, 2 layers), by run and step:
+# forward 2 SpMM; backward 1 SpMM over the transposed CSR (2 in an async
+# step, whose gslot gradient at site 0 needs layer 0's table gradient) and
+# 1 over the scatter CSR; quantize/dequantize once per exchange: the forward
+# at both sites, the backward at site 1 (sync: site 0's h is the input) or
+# at both sites (async: the gslots), none at 32 bits.
+TRAIN_LAUNCHES = {("vanilla", "sync"): (0, 0, 4),
+                  ("sylvie_s", "sync"): (3, 3, 4),
+                  ("sylvie_a", "sync"): (3, 3, 4),
+                  ("sylvie_a", "async"): (4, 4, 5)}
 
 
 def log(msg: str) -> None:
@@ -227,7 +266,8 @@ def bound(n_bytes: float, n_ops: float,
 def profile_device(fn, label: str):
     """Run ``fn`` once under ``torch.profiler``; print its device time by
     kernel and return (fn's result, host ms, device-busy ms, {group: ms}) with
-    the groups flash kernel / matrix products (cuBLAS) / everything else."""
+    the groups flash kernel / SpMM / quantize / dequantize / matrix products
+    (cuBLAS) / everything else."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -240,10 +280,14 @@ def profile_device(fn, label: str):
     on_dev = [e for e in prof.key_averages()
               if e.device_type == DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in on_dev) / 1e3
-    groups = {"flash": 0.0, "gemm": 0.0, "other": 0.0}
+    groups = {"flash": 0.0, "spmm": 0.0, "quantize": 0.0, "dequantize": 0.0,
+              "gemm": 0.0, "other": 0.0}
     for e in on_dev:
         name = e.key.lower()
         g = "flash" if "flash_fwd_kernel" in name else \
+            "spmm" if "spmm_" in name else \
+            "quantize" if "quantize_pack_" in name else \
+            "dequantize" if "unpack_dequantize" in name else \
             "gemm" if any(w in name for w in ("gemm", "gemv", "cutlass",
                                               "xmma", "cublas")) else "other"
         groups[g] += e.self_device_time_total / 1e3
@@ -474,6 +518,218 @@ def flash_phase(q, k, v) -> dict:
     return res
 
 
+@contextlib.contextmanager
+def recording(owner, name: str, calls: list):
+    """Wrap ``owner.name`` so that each call appends its arguments to
+    ``calls``; restored on exit."""
+    real = getattr(owner, name)
+
+    def wrapper(*args):
+        calls.append(args)
+        return real(*args)
+    setattr(owner, name, wrapper)
+    try:
+        yield
+    finally:
+        setattr(owner, name, real)
+
+
+def train_phase(all_kernels: dict) -> dict:
+    """GCN 256x2 trained full-graph on reddit_like@paper, P=4: vanilla,
+    Sylvie-S and Sylvie-A, ``TRAIN_EPOCHS`` epochs each. Kernel counts are
+    zeroed before each epoch and read after it; they must equal
+    ``TRAIN_LAUNCHES``. Returns the launches per step, the last Sylvie-S
+    step's backward tensors (recorded) and its block."""
+    from repro_torch import datasets
+    from repro_torch.core import exchange as X
+    from repro_torch.core.sylvie import SylvieConfig
+    from repro_torch.models.gnn import blocks as B
+    from repro_torch.models.gnn.models import GCN
+    from repro_torch.policy import BoundedStaleness, Uniform
+    from repro_torch.train.trainer import GNNTrainer
+
+    pg = datasets.load_partitioned("reddit_like@paper", n_parts=4)
+    d_in, n_cls = pg.x.shape[-1], pg.n_classes
+    runs = {"vanilla": (SylvieConfig(mode="vanilla"), None),
+            "sylvie_s": (SylvieConfig(mode="sync", bits=1), Uniform(bits=1)),
+            "sylvie_a": (SylvieConfig(mode="async", bits=1),
+                         BoundedStaleness(eps_s=4, bits=1))}
+    out = dict(launches={})
+    for name, (cfg, pol) in runs.items():
+        model = GCN(d_in, 256, n_cls, n_layers=2,
+                    generator=torch.Generator().manual_seed(SEED))
+        tr = GNNTrainer(model, pg, cfg, policy=pol, seed=SEED)
+        torch.cuda.reset_peak_memory_stats()
+        hist = []
+        for _ in range(TRAIN_EPOCHS):
+            for meta in all_kernels.values():
+                meta["k"].launches = 0
+            m = tr.train_epoch()                 # ends in float(loss)
+            got = tuple(all_kernels[k]["k"].launches for k in TRAIN_KERNELS)
+            want = TRAIN_LAUNCHES[(name, m.mode)]
+            check(got == want and all_kernels["flash_fwd"]["k"].launches == 0,
+                  f"[train] {name} {m.mode} epoch {m.epoch}: launches "
+                  f"{dict(zip(TRAIN_KERNELS, got))}, expected "
+                  f"{dict(zip(TRAIN_KERNELS, want))} and no flash")
+            out["launches"][f"{name}_{m.mode}"] = {
+                k: meta["k"].launches for k, meta in all_kernels.items()}
+            hist.append(m)
+        peak = torch.cuda.max_memory_allocated()
+        acc = tr.evaluate("val")
+        losses = [m.loss for m in hist]
+        check(all(np.isfinite(losses)), f"[train] {name}: losses finite")
+        check(losses[-1] < losses[0], f"[train] {name}: last loss "
+              f"{losses[-1]} below the first {losses[0]}")
+        ms = {mode: sorted(m.seconds * 1e3 for m in hist[1:]
+                           if m.mode == mode) for mode in ("sync", "async")}
+        med = {mode: v[len(v) // 2] if v else None for mode, v in ms.items()}
+        out[name] = dict(median_epoch_ms=med, n_epochs=TRAIN_EPOCHS,
+                         loss_first=losses[0], loss_last=losses[-1],
+                         val_acc=acc, payload_mb=hist[-1].comm_payload_mb,
+                         ec_mb=hist[-1].comm_ec_mb, peak_gb=peak / 1e9,
+                         modes="".join(m.mode[0] for m in hist))
+        log(f"[train] {name} ({tr.policy.name}): {json.dumps(out[name])}")
+        if name == "sylvie_a":
+            for mode in ("sync", "async"):      # epochs 20 (sync), 21
+                profile_device(tr.train_epoch,
+                               f"one {mode} epoch of Sylvie-A (epoch "
+                               f"{tr.epoch})")
+        if name == "sylvie_s":
+            # one more step with its backward tensors recorded
+            rec = dict(aggregate=[], scatter=[], quantize=[])
+            with recording(B, "spmm", rec["aggregate"]), \
+                    recording(X, "spmm", rec["scatter"]), \
+                    recording(sys.modules["repro_torch.kernels.quant.ops"],
+                              "quantize_pack_rows", rec["quantize"]):
+                tr.train_epoch()
+            out["recorded"], out["block"] = rec, tr.block
+        del tr, model
+        torch.cuda.empty_cache()
+    log(f"[train] kernel launches per step: {json.dumps(out['launches'])}")
+    return out
+
+
+def train_kernels_phase(rec: dict, block) -> dict:
+    """The SpMM over the transposed CSR, the scatter CSR and the Low-bit
+    Module on the site-1 gradient, on the tensors one Sylvie-S step gave
+    them, each bit-equal to its plain version run on the card."""
+    from repro_torch.kernels.quant import ops as qops
+    from repro_torch.kernels.quant import ref as qref
+    from repro_torch.kernels.spmm import ops as sops
+    from repro_torch.kernels.spmm import ref as sref
+
+    res = dict(spmm_csr=0.0, quantize_pack=0.0, unpack_dequantize=0.0)
+    csr_t, scatter = block.csr_t, block.plan.scatter
+    back = [a for a in rec["aggregate"] if a[1] is csr_t]
+    check(len(back) == 1 and back[0][0].shape[1] == 256,
+          "one transposed SpMM at d = 256 in a sync step")
+    for tag, (g, csr) in (("transposed CSR", back[0]),
+                          ("scatter CSR", rec["scatter"][0])):
+        check(csr is (csr_t if tag == "transposed CSR" else scatter),
+              f"{tag}: the step's own CSR")
+        out_k, out_r = sops.spmm(g, csr), sref.spmm_ref(g, csr)
+        err = float((out_k - out_r).abs().max())
+        check(same_bits(out_k, out_r), f"[train-kernels] spmm over the {tag}"
+              f": bit-equal to the plain version (max abs err {err})")
+        check(same_bits(out_k, sops.spmm(g, csr)),
+              f"[train-kernels] spmm over the {tag}: same bits twice")
+        res["spmm_csr"] = max(res["spmm_csr"], err)
+        log(f"[train-kernels] spmm over the {tag} {tuple(g.shape)} -> "
+            f"{tuple(out_k.shape)}, nnz {csr.nnz}, {csr.long_rows.numel()} "
+            f"split rows: bit-equal to the plain version, twice")
+    g, csr = back[0]
+    with warnings.catch_warnings():       # sparse CSR is "beta" in PyTorch
+        warnings.simplefilter("ignore")
+        sparse_t = torch.sparse_csr_tensor(csr.row_ptr, csr.col, csr.w,
+                                           size=(csr.n_rows, csr.n_cols))
+    d = g.shape[1]
+    tb, to = bound(g.numel() * 4 + (csr.n_rows + 1) * 4 + csr.nnz * 8
+                   + csr.n_rows * d * 4, 2 * csr.nnz * d)
+    res.update(
+        transposed_shape=[csr.n_rows, csr.n_cols, d, csr.nnz],
+        transposed_ms=cuda_ms(lambda: sops.spmm(g, csr)),
+        transposed_plain_ms=cuda_ms(lambda: sref.spmm_ref(g, csr), iters=2,
+                                    warmup=1),
+        transposed_library_ms=cuda_ms(lambda: torch.sparse.mm(sparse_t, g)),
+        transposed_bound_ms=tb, transposed_bound_by=to,
+        scatter_ms=cuda_ms(lambda: sops.spmm(*rec["scatter"][0])))
+    check(len(rec["quantize"]) == 3, "three quantize calls in a Sylvie-S step")
+    h = rec["quantize"][-1][0]               # the site-1 gradient buffer
+    check(h.shape[1] == 256, "the backward quantizes the site-1 gradient")
+    for bits in (1, 2, 4, 8):
+        for stochastic in (False, True):
+            u = torch.rand(h.shape, device=h.device, generator=torch.Generator(
+                "cuda").manual_seed(bits)) if stochastic else None
+            q_err, d_err = check_quant(qops, qref, h, u, bits,
+                                       "site-1 gradient")
+            res["quantize_pack"] = max(res["quantize_pack"], q_err)
+            res["unpack_dequantize"] = max(res["unpack_dequantize"], d_err)
+    log(f"[train-kernels] quantize/dequantize of the site-1 gradient "
+        f"{tuple(h.shape)}: bits 1/2/4/8, stochastic and deterministic, f32 "
+        f"and bf16 scale/zero, bit-equal to the plain versions")
+    log(f"[train-kernels] {json.dumps(res)}")
+    return res
+
+
+def halo_rows_apart(a: torch.Tensor, b: torch.Tensor, atol_frac: float) -> int:
+    """Rows of two (P, rows, d) halo buffers that are not allclose at rtol
+    1e-4 and atol ``atol_frac`` times b's largest value."""
+    a, b = a.cpu(), b.cpu()
+    atol = atol_frac * float(b.abs().max())
+    close = torch.isclose(a, b, rtol=1e-4, atol=atol).all(-1)
+    return int((~close).sum())
+
+
+def train_parity_phase() -> dict:
+    """Deterministic 6-epoch Sylvie-S and Sylvie-A (eps_s=2) on
+    yelp_like@small from the same numpy weights, on the card and on the CPU
+    (the plain versions the CPU tests hold to JAX): losses allclose at rtol
+    1e-4; halo caches and gradients allclose (rtol 1e-4; atol 1e-6 of the
+    site's largest feature, 1e-3 of its largest gradient: rows of gradient
+    that are cancellation noise may take other 1-bit codes) but for at most
+    1% of the rows, counted — the products run in another order on the
+    card, and a row's bf16 scale can round to its neighbour."""
+    from repro_torch import datasets
+    from repro_torch.core.sylvie import SylvieConfig
+    from repro_torch.dist.runtime import Runtime
+    from repro_torch.models.convert import params_to_numpy
+    from repro_torch.models.gnn.models import GCN
+    from repro_torch.policy import BoundedStaleness, Uniform
+    from repro_torch.train.trainer import GNNTrainer
+
+    pg = datasets.load_partitioned("yelp_like@small", n_parts=4)
+    dims = (pg.x.shape[-1], 16, pg.n_classes)
+    params = params_to_numpy(GCN(*dims,
+                                 generator=torch.Generator().manual_seed(SEED)))
+    res = {}
+    for name, cfg, pol in (
+            ("sylvie_s", SylvieConfig(mode="sync", bits=1, stochastic=False),
+             Uniform(bits=1, stochastic=False)),
+            ("sylvie_a", SylvieConfig(mode="async", bits=1, stochastic=False),
+             BoundedStaleness(eps_s=2, bits=1, stochastic=False))):
+        tr = {dev: GNNTrainer(GCN(*dims), pg, cfg, policy=pol, params=params,
+                              runtime=Runtime.simulated(4, device=dev))
+              for dev in ("cuda", "cpu")}
+        losses = {dev: [m.loss for m in t.fit(6)] for dev, t in tr.items()}
+        err = max(abs(a - b) / abs(b) for a, b in zip(losses["cuda"],
+                                                        losses["cpu"]))
+        check(np.allclose(losses["cuda"], losses["cpu"], rtol=1e-4, atol=0),
+              f"[train-parity] {name}: losses card vs CPU (max rel {err})")
+        halo = {dev: t.state.halo for dev, t in tr.items()}
+        n_rows = pg.plan.n_parts * tr["cpu"].block.plan.halo_rows
+        apart = dict(
+            feats=[halo_rows_apart(a, b, 1e-6) for a, b in zip(
+                halo["cuda"].feats, halo["cpu"].feats)],
+            grads=[halo_rows_apart(a, b, 1e-3) for a, b in zip(
+                halo["cuda"].grads, halo["cpu"].grads)])
+        check(max(apart["feats"] + apart["grads"]) <= 0.01 * n_rows,
+              f"[train-parity] {name}: halo rows apart {apart} of {n_rows}")
+        res[name] = dict(loss_max_rel=err, rows_apart=apart, rows=n_rows,
+                         modes="".join(m.mode[0] for m in tr["cpu"].history))
+        log(f"[train-parity] {name}: {json.dumps(res[name])}")
+    return res
+
+
 def main() -> int:
     # -- 1. card -------------------------------------------------------------
     if not torch.cuda.is_available():
@@ -545,8 +801,10 @@ def main() -> int:
         meta["k"].launches = 0
     rep = eng.full_sweep()
     torch.cuda.synchronize()
-    launches = {name: meta["k"].launches for name, meta in kernels.items()}
-    check(fops.FLASH_FWD.launches == 0, "the GCN path launches no flash")
+    serve_launches = {name: meta["k"].launches
+                      for name, meta in all_kernels.items()}
+    launches = {name: serve_launches[name] for name in kernels}
+    check(serve_launches["flash_fwd"] == 0, "the GCN path launches no flash")
     log(f"[slice] full sweep {rep.seconds * 1e3:.3f} ms (first, host clock), "
         f"launches {launches}, wire bytes {rep.wire_bytes}")
     for name, n in launches.items():
@@ -738,16 +996,28 @@ def main() -> int:
     del sparse, prof, out, e, spg, small
     torch.cuda.empty_cache()
 
-    # -- 6. the LM: granite-3-2b at full width, prefill + greedy decode -------
+    # -- 6. GCN training on reddit_like@paper: vanilla, Sylvie-S, Sylvie-A ------
+    tr = train_phase(all_kernels)
+
+    # -- 7. the backward's kernels vs their plain versions ---------------------
+    trk = train_kernels_phase(tr.pop("recorded"), tr.pop("block"))
+    for name in errs:
+        errs[name] = max(errs[name], trk[name])
+    torch.cuda.empty_cache()
+
+    # -- 8. training, card vs the CPU's plain versions -------------------------
+    train_parity_phase()
+
+    # -- 9. the LM: granite-3-2b at full width, prefill + greedy decode -------
     lm = lm_phase(all_kernels)
 
-    # -- 7. small LMs: card vs the CPU's plain versions ------------------------
+    # -- 10. small LMs: card vs the CPU's plain versions -----------------------
     lm_small_phase()
 
-    # -- 8. the flash kernel vs its plain versions on layer 0's q/k/v ----------
+    # -- 11. the flash kernel vs its plain versions on layer 0's q/k/v ---------
     fl = flash_phase(*lm.pop("qkv"))
 
-    # -- 9. summary -----------------------------------------------------------
+    # -- 12. summary ----------------------------------------------------------
     s0 = detail[0]
     times = {
         "quantize_pack": ("quantize", None),
@@ -761,6 +1031,13 @@ def main() -> int:
         "unpack_dequantize": ("event_ms",),
         "spmm_csr": (),
     }
+    # launches per path: one serving sweep, one training step of each kind,
+    # one LM generate
+    per_path = {name: dict(
+        gcn_serve_sweep=serve_launches[name],
+        **{f"gcn_train_{run}_step": n[name]
+           for run, n in tr["launches"].items()},
+        lm_generate=lm["launches"][name]) for name in all_kernels}
     summary = []
     for name, meta in kernels.items():
         key, lib = times[name]
@@ -772,11 +1049,15 @@ def main() -> int:
             bound_by=s0[f"{key}_bound_by"],
             library_ms=s0[lib] if lib else None,
             shape=s0["spmm_shape" if key == "spmm" else "shape"],
-            **{k: s0[f"{key}_{k}"] for k in extra[name]}))
+            launches_per_path=per_path[name],
+            **{k: s0[f"{key}_{k}"] for k in extra[name]},
+            **({k: v for k, v in trk.items() if k.startswith(
+                ("transposed", "scatter"))} if key == "spmm" else {})))
     meta = lm_kernels["flash_fwd"]
     summary.append(dict(
         name="flash_fwd", route="cuda", source=meta["source"],
         replaces=meta["replaces"], launches=lm["launches"]["flash_fwd"],
+        launches_per_path=per_path["flash_fwd"],
         max_abs_err=fl["max_abs_err"], ms=fl["ms"], plain_ms=fl["plain_ms"],
         bound_ms=fl["bound_ms"], bound_by=fl["bound_by"],
         library_ms=fl["library_ms"], shape=fl["shape"],

@@ -9,15 +9,23 @@ module is the seam. Two buffer layouts exist (see ``graph/partition.py``):
   its own inverse;
 * compact ring buckets ``(P, R, ...)`` with ``R = sum(bucket_sizes)`` — bucket
   ``k`` moves ``p -> (p+k) % P``; ``reverse=True`` runs the inverted rings.
+
+The backward's scatter of received boundary gradients onto their owner rows
+(:func:`scatter_boundary_grad`) is a fixed 0/1 matrix from send slots to
+owners, built once on the host with the plan (``PlanArrays.scatter``) and
+applied by the SpMM kernel: no atomics, the adds in slot order.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional
 
+import numpy as np
 import torch
 
 from ..dist.backend import SimulatedBackend
+from ..kernels.spmm.ops import spmm
+from ..kernels.spmm.ref import CSR, csr_from_edges
 from .quantization import QuantizedTensor, comm_bytes
 
 
@@ -28,7 +36,8 @@ class PlanArrays:
     ``bucket_sizes`` is ``None`` for the dense layout and the per-ring-offset
     row counts for the compact layout. ``wire_rows`` / ``real_rows`` are
     exchange-accounting constants (totals across partitions): rows the layout
-    ships vs. true unpadded off-diagonal halo rows."""
+    ships vs. true unpadded off-diagonal halo rows. ``scatter`` is the CSR of
+    :func:`scatter_csr` (``None`` on a plan built by hand)."""
 
     send_idx: torch.Tensor   # (P, rows) int64 — local rows to send
     send_mask: torch.Tensor  # (P, rows) bool
@@ -39,6 +48,7 @@ class PlanArrays:
     bucket_sizes: Optional[tuple[int, ...]] = None
     wire_rows: int = 0
     real_rows: int = 0
+    scatter: Optional[CSR] = None
 
     @property
     def halo_rows(self) -> int:
@@ -51,15 +61,31 @@ class PlanArrays:
         buckets = None
         if getattr(p, "layout", "dense") == "compact":
             buckets = tuple(int(b) for b in p.bucket_sizes)
+        send_idx = np.asarray(p.send_idx).reshape(p.n_parts, -1)
+        send_mask = np.asarray(p.send_mask).reshape(p.n_parts, -1)
         return PlanArrays(
-            send_idx=torch.as_tensor(p.send_idx.reshape(p.n_parts, -1),
-                                     dtype=torch.int64, device=device),
-            send_mask=torch.as_tensor(p.send_mask.reshape(p.n_parts, -1),
-                                      device=device),
+            send_idx=torch.as_tensor(send_idx, dtype=torch.int64,
+                                     device=device),
+            send_mask=torch.as_tensor(send_mask, device=device),
             recv_mask=torch.as_tensor(p.recv_mask, device=device),
             n_local=int(p.n_local), h_pad=int(p.h_pad), n_parts=int(p.n_parts),
             bucket_sizes=buckets, wire_rows=int(p.wire_rows()),
-            real_rows=int(p.real_rows()))
+            real_rows=int(p.real_rows()),
+            scatter=scatter_csr(send_idx, send_mask, int(p.n_local)).to(
+                device))
+
+
+def scatter_csr(send_idx: np.ndarray, send_mask: np.ndarray,
+                n_local: int) -> CSR:
+    """Host-side: the boundary-gradient scatter as a CSR over the stack.
+    Row ``p*n_local + send_idx[p, s]`` (the owner) gathers column ``p*rows +
+    s`` (the send slot) with weight 1 for every live slot, in slot order."""
+    n_parts, rows = send_idx.shape
+    part, slot = np.nonzero(send_mask)            # partition-major, slot order
+    return csr_from_edges(part * rows + slot,
+                          part * n_local + send_idx[part, slot],
+                          np.ones(part.size, np.float32), n_parts * n_local,
+                          n_parts * rows)
 
 
 def gather_boundary(h: torch.Tensor, plan: PlanArrays) -> torch.Tensor:
@@ -67,6 +93,17 @@ def gather_boundary(h: torch.Tensor, plan: PlanArrays) -> torch.Tensor:
     idx = plan.send_idx[..., None].expand(-1, -1, h.shape[-1])
     buf = torch.gather(h, 1, idx)
     return torch.where(plan.send_mask[..., None], buf, 0.0)
+
+
+def scatter_boundary_grad(g: torch.Tensor, plan: PlanArrays) -> torch.Tensor:
+    """(P, rows, d) received grads -> (P, n_local, d) sums onto the owners.
+
+    A node sent to several partitions accumulates all their gradients
+    (Alg. 2 line 13); masked slots add nothing. One SpMM over
+    ``plan.scatter``: the kernel on CUDA, its plain version on the CPU."""
+    p, rows, d = g.shape
+    out = spmm(g.reshape(p * rows, d).contiguous(), plan.scatter)
+    return out.reshape(p, plan.n_local, d)
 
 
 def exchange_halo(x: torch.Tensor, plan: PlanArrays, backend=None,

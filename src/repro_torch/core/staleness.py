@@ -1,14 +1,19 @@
-"""Per-site halo state.
+"""Staleness state for Sylvie-A + the Bounded Staleness Adaptor schedule.
 
-``HaloState.feats[i]`` is the dequantized halo received at exchange site
-``i`` during the previous pass; the inference engine keeps it as its
-per-layer halo cache. (Training adds the received boundary gradients,
-``grads``, with the Sylvie-A step.)
+``HaloState`` carries, per exchange site (one per GNN layer):
+
+* ``feats[i]`` — the dequantized halo features received during the previous
+  pass (the inference engine keeps it as its per-layer halo cache);
+* ``grads[i]`` — the dequantized boundary gradients received during the
+  previous step's backward pass (pre-scatter, in the halo buffer's layout).
+
+Both are leaves of the training state: they checkpoint under the JAX
+package's paths (``halo/feats/0``, ``halo/grads/0``).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 
@@ -18,12 +23,32 @@ from .exchange import PlanArrays
 @dataclasses.dataclass
 class HaloState:
     feats: tuple
+    grads: tuple = ()
+
+    def gslots(self) -> tuple:
+        """Zero-valued tensors that require grad: their gradients carry the
+        fresh outgoing boundary gradients out of the backward pass (see
+        ``core/sylvie.py::StaleHalo``)."""
+        return tuple(torch.zeros_like(f).requires_grad_() for f in self.feats)
 
     @staticmethod
     def zeros(plan: PlanArrays, dims: Sequence[int], dtype=torch.float32,
-              stacked_parts: int | None = None, device=None) -> "HaloState":
+              stacked_parts: Optional[int] = None, device=None) -> "HaloState":
         p = stacked_parts if stacked_parts is not None else plan.n_parts
         rows = plan.halo_rows
-        return HaloState(feats=tuple(
-            torch.zeros((p, rows, d), dtype=dtype, device=device)
-            for d in dims))
+        feats = tuple(torch.zeros((p, rows, d), dtype=dtype, device=device)
+                      for d in dims)
+        return HaloState(feats=feats,
+                         grads=tuple(torch.zeros_like(f) for f in feats))
+
+
+def use_sync_step(epoch: int, eps_s: Optional[int]) -> bool:
+    """Bounded Staleness Adaptor schedule (paper §3.3): one synchronous epoch
+    every ``eps_s`` epochs (``None`` = pure Sylvie-A; 1 = always synchronous).
+    Epoch 0 is always synchronous — it doubles as the cache warmup. The
+    ``BoundedStaleness`` policy delegates here."""
+    if epoch == 0:
+        return True
+    if eps_s is None:
+        return False
+    return epoch % eps_s == 0

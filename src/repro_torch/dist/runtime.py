@@ -15,6 +15,7 @@ from typing import Callable, Optional
 
 import torch
 
+from ..train.optimizer import tree_map
 from .backend import SimulatedBackend
 
 
@@ -61,3 +62,9 @@ class Runtime:
         """The inference-engine sweep for this runtime: a plain call (PyTorch
         runs eagerly; the simulated stack needs no sharding)."""
         return sweep_fn
+
+    def place(self, tree):
+        """A tree (nested dicts, tuples, dataclasses) of arrays or tensors as
+        tensors on this runtime's device, dtypes kept."""
+        return tree_map(lambda a: torch.as_tensor(a, device=self.device),
+                        tree)

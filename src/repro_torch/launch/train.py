@@ -1,14 +1,20 @@
-"""End-to-end launcher of the port: batched LM serving (prefill + greedy
-decode), as ``python -m repro.launch.train --arch <lm> --serve`` does.
+"""End-to-end launcher of the port, as ``python -m repro.launch.train``:
+full-graph GCN training with Sylvie's quantized halo exchange, and batched LM
+serving (prefill + greedy decode).
 
+    python -m repro_torch.launch.train --arch gcn --graph reddit_like@paper \\
+        --parts 4 --mode async --bits 1 --eps-s 4 --epochs 20
+    python -m repro_torch.launch.train --arch gcn --reduced --graph \\
+        yelp_like@smoke --epochs 3 --device cpu
     python -m repro_torch.launch.train --arch granite-3-2b --serve
     python -m repro_torch.launch.train --arch granite-3-2b --serve --reduced \\
         --device cpu
 
-The first runs the full published config on the CUDA card; ``--device cpu``
-runs the plain PyTorch versions on the CPU. Parameters are float32 from a
-seeded generator; prompts are random tokens from the same seed. GNN, LM and
-DLRM training and ``--scenario`` are not ported yet (ROADMAP queue A).
+Without ``--device cpu`` they run on the CUDA card (and raise where there is
+none); ``--device cpu`` runs the kernels' plain PyTorch versions on the CPU.
+LM parameters are float32 from a seeded generator; prompts are random tokens
+from the same seed. GraphSAGE/GAT, LM and DLRM training, ``--scenario`` and
+``--schedule overlap`` are not ported yet (ROADMAP queue A).
 """
 from __future__ import annotations
 
@@ -85,6 +91,66 @@ def serve_lm(args) -> Generation:
     return res
 
 
+def build_policy(args):
+    """CLI -> CommPolicy. ``--eps-s`` maps onto the BoundedStaleness policy;
+    ``None`` leaves the ``Uniform`` policy of the config."""
+    from .. import policy as P
+
+    if args.eps_s is not None and args.policy not in ("uniform",
+                                                      "bounded_staleness"):
+        raise SystemExit(f"--eps-s conflicts with --policy {args.policy}; "
+                         "it implies bounded_staleness")
+    if args.policy == "warmup":
+        return P.Warmup(epochs=args.warmup_epochs, bits=args.bits)
+    if args.policy == "adaqp":
+        return P.AdaQPVariance(budget_bits=args.bits)
+    if args.policy == "bounded_staleness" or args.eps_s is not None:
+        if args.eps_s is None:
+            raise SystemExit("--policy bounded_staleness needs --eps-s N "
+                             "(the cache-refresh period)")
+        return P.BoundedStaleness(eps_s=args.eps_s, bits=args.bits)
+    return None
+
+
+def train_gnn(args):
+    """Full-graph training of a registered GNN; returns the trainer."""
+    from .. import datasets
+    from ..core.sylvie import SylvieConfig
+    from ..graph import formats, partition, synthetic
+    from ..train.trainer import GNNTrainer
+
+    if args.schedule == "overlap":
+        raise SystemExit(f"--schedule overlap: {NOT_PORTED}")
+    dev = resolve_device(args.device)
+    spec = configlib.get(args.arch)
+    arch = spec.reduced() if args.reduced else spec.config()
+    if args.graph in synthetic.GENERATORS:     # raw generator, default kwargs
+        g = synthetic.by_name(args.graph, seed=args.seed)
+    else:                                      # named workload
+        g = datasets.load(args.graph, seed=args.seed)
+    g, ew = formats.gcn_normalize(g)
+    pg = partition.partition_graph(g, args.parts, edge_weight=ew)
+    model = arch.make(g.x.shape[1], g.n_classes)
+    cfg = SylvieConfig(mode=args.mode, bits=args.bits)
+    tr = GNNTrainer(model, pg, cfg, policy=build_policy(args), device=dev,
+                    seed=args.seed, ckpt_dir=args.ckpt_dir)
+    if args.resume and tr.resume():
+        print(f"resumed at epoch {tr.epoch}")
+    t0 = time.perf_counter()
+    for _ in range(args.epochs):
+        m = tr.train_epoch()
+        if tr.epoch % args.log_every == 0:
+            acc = tr.evaluate("val")
+            print(f"epoch {m.epoch:4d} [{m.mode}] loss {m.loss:.4f} "
+                  f"val {acc:.4f} comm {m.comm_payload_mb:.2f}MB "
+                  f"(+{m.comm_ec_mb:.2f}MB ec) {m.seconds * 1e3:.1f}ms")
+    print(f"test acc {tr.evaluate('test'):.4f}  ({args.epochs} epochs in "
+          f"{time.perf_counter() - t0:.1f}s on {dev})")
+    if args.ckpt_dir:
+        tr.save()
+    return tr
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default=None,
@@ -95,6 +161,30 @@ def main(argv=None) -> None:
     ap.add_argument("--serve", action="store_true",
                     help="LM: batched prefill + greedy decode")
     ap.add_argument("--scenario", default=None, help=NOT_PORTED)
+    # GNN
+    ap.add_argument("--graph", default="planted",
+                    help="named workload ('reddit_like@paper', see "
+                         "repro_torch.datasets.names()) or generator name")
+    ap.add_argument("--parts", type=int, default=4)
+    ap.add_argument("--mode", default="sync",
+                    choices=["vanilla", "sync", "async"])
+    ap.add_argument("--bits", type=int, default=1)
+    ap.add_argument("--schedule", default=None,
+                    choices=["blocking", "overlap"],
+                    help=f"halo-exchange schedule; overlap: {NOT_PORTED}")
+    ap.add_argument("--policy", default="uniform",
+                    choices=["uniform", "warmup", "bounded_staleness",
+                             "adaqp"],
+                    help="per-epoch communication schedule; adaqp treats "
+                         "--bits as the budget")
+    ap.add_argument("--warmup-epochs", type=int, default=5)
+    ap.add_argument("--eps-s", type=int, default=None,
+                    help="cache-refresh period (implies bounded_staleness)")
+    ap.add_argument("--epochs", type=int, default=50)
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--resume", action="store_true")
+    ap.add_argument("--log-every", type=int, default=10)
+    # LM
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--decode-tokens", type=int, default=32)
@@ -110,10 +200,13 @@ def main(argv=None) -> None:
         ap.error("--arch is required")
     if args.arch not in configlib.REGISTRY:
         raise SystemExit(f"--arch {args.arch}: {NOT_PORTED}; the port runs "
-                         f"{sorted(configlib.REGISTRY)} with --serve")
-    if not args.serve:
+                         f"{sorted(configlib.REGISTRY)}")
+    if configlib.get(args.arch).kind == "gnn":
+        train_gnn(args)
+    elif not args.serve:
         raise SystemExit(f"LM training: {NOT_PORTED}; pass --serve")
-    serve_lm(args)
+    else:
+        serve_lm(args)
 
 
 if __name__ == "__main__":

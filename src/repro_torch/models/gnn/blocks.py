@@ -9,8 +9,13 @@ feature table (``halo_table``). Two ways to aggregate over them:
 * :func:`aggregate` — the same weighted sum as one CSR SpMM over the whole
   stack (``repro_torch.kernels.spmm``): rows ``P * n_local``, table
   ``P * (n_local + halo_rows)``, columns of partition ``p`` offset by
-  ``p * (n_local + halo_rows)``. The CSR is built once, on the host, in
-  :func:`build_block`. GCN aggregates this way.
+  ``p * (n_local + halo_rows)``. GCN aggregates this way. It is
+  differentiable: the gradient of the table is the same kernel over the
+  transposed CSR, ``grad_table = Aᵀ · grad_out`` (edge weights are constants
+  and get none). Both CSRs, each with its own split plan (the transposed
+  matrix's hub columns become split hub rows), are built once, on the host,
+  in :func:`build_block`, so the sums' order — and their bits — are fixed by
+  the graph in both directions, with no atomics.
 """
 from __future__ import annotations
 
@@ -37,23 +42,29 @@ class GraphBlock:
     edge_weight: Optional[torch.Tensor] = None   # (P, E) GCN-normalized weights
     csr: Optional[CSR] = None             # weighted CSR of the whole stack
     n_local: int = 0
+    csr_t: Optional[CSR] = None           # its transpose (the backward)
 
     @property
     def n_parts(self) -> int:
         return self.plan.n_parts
 
 
-def stack_csr(pg: PartitionedGraph) -> CSR:
+def stack_csr(pg: PartitionedGraph, transpose: bool = False) -> CSR:
     """The weighted CSR of every partition's real edges, flattened over the
     stack: destination ``p*n_local + dst``, source ``p*n_ext + src_ext`` with
-    ``n_ext = n_local + halo_rows``. Each row keeps its edge-list order."""
+    ``n_ext = n_local + halo_rows``. Each row keeps its edge-list order.
+    ``transpose`` swaps the two: a row per table row, gathering from the
+    destinations it feeds, in edge-list order."""
     plan = pg.plan
     n_ext = plan.n_local + plan.halo_rows
     p_idx, e_idx = np.nonzero(pg.edge_mask)
     src = pg.edges[p_idx, e_idx, 0].astype(np.int64) + p_idx * n_ext
     dst = pg.edges[p_idx, e_idx, 1].astype(np.int64) + p_idx * plan.n_local
-    return csr_from_edges(src, dst, pg.edge_weight[p_idx, e_idx],
-                          plan.n_parts * plan.n_local, plan.n_parts * n_ext)
+    shape = (plan.n_parts * plan.n_local, plan.n_parts * n_ext)
+    w = pg.edge_weight[p_idx, e_idx]
+    if transpose:
+        return csr_from_edges(dst, src, w, shape[1], shape[0])
+    return csr_from_edges(src, dst, w, *shape)
 
 
 def build_block(pg: PartitionedGraph, device=None) -> GraphBlock:
@@ -66,7 +77,8 @@ def build_block(pg: PartitionedGraph, device=None) -> GraphBlock:
         edge_weight=torch.as_tensor(pg.edge_weight, device=device)
         if weighted else None,
         csr=stack_csr(pg).to(device) if weighted else None,
-        n_local=pg.plan.n_local)
+        n_local=pg.plan.n_local,
+        csr_t=stack_csr(pg, transpose=True).to(device) if weighted else None)
 
 
 # --- message-passing primitives -------------------------------------------------
@@ -106,12 +118,26 @@ def degrees(block: GraphBlock) -> torch.Tensor:
     return out.reshape(block.n_parts, block.n_local)
 
 
+class _Aggregate(torch.autograd.Function):
+    """``spmm(table, csr)`` forward, ``spmm(grad_out, csr_t)`` backward."""
+
+    @staticmethod
+    def forward(ctx, table, csr: CSR, csr_t: CSR):
+        ctx.csr_t = csr_t
+        return spmm(table, csr)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        return spmm(grad_out.contiguous(), ctx.csr_t), None, None
+
+
 def aggregate(block: GraphBlock, table: torch.Tensor) -> torch.Tensor:
     """(P, n_ext, d) table -> (P, n_local, d) weighted neighbor sums: the same
     value as ``agg_sum(block, gather_src(block, table) * edge_weight)``, as
-    one SpMM launch over the stack."""
+    one SpMM launch over the stack, and one more over the transposed CSR in
+    the backward pass when the table needs a gradient."""
     if block.csr is None:
         raise ValueError("the block has no edge weights to aggregate with")
     p, n_ext, d = table.shape
-    out = spmm(table.reshape(p * n_ext, d), block.csr)
+    out = _Aggregate.apply(table.reshape(p * n_ext, d), block.csr, block.csr_t)
     return out.reshape(p, block.n_local, d)

@@ -1,9 +1,11 @@
-"""GNN models (the paper's GCN; GraphSAGE and GAT follow with training).
+"""GNN models (the paper's GCN; GraphSAGE and GAT are not ported yet).
 
 Uniform contract, as in the JAX package::
 
-    model.comm_dims()              -> feature width at each halo-exchange site
-    model(block, x, comm)          -> (P, n_local, d_out)
+    model.comm_dims()                    -> feature width at each exchange site
+    model.apply(params, block, x, comm)  -> (P, n_local, d_out)
+    model(block, x, comm)                -> the same with the module's own
+                                            parameters (``param_tree()``)
 
 ``comm`` provides ``comm.halo(h)``; every layer calls it exactly once per
 site, in ``comm_dims`` order. Parameters are named like the JAX parameter
@@ -16,7 +18,7 @@ from typing import Optional
 import torch
 from torch import nn
 
-from ..nn import Linear
+from ..nn import Linear, linear
 from . import blocks as B
 
 
@@ -38,11 +40,20 @@ class GCN(nn.Module):
     def comm_dims(self):
         return [self.d_in] + [self.d_hidden] * (self.n_layers - 1)
 
-    def forward(self, block: B.GraphBlock, x: torch.Tensor, comm) -> torch.Tensor:
+    def param_tree(self) -> dict:
+        """The parameters as the JAX tree ``{"layer0": {"w", "b"}, ...}``."""
+        return {f"layer{i}": dict(getattr(self, f"layer{i}").named_parameters())
+                for i in range(self.n_layers)}
+
+    def apply(self, params: dict, block: B.GraphBlock, x: torch.Tensor,
+              comm) -> torch.Tensor:
         h = x
         for i in range(self.n_layers):
             table = B.halo_table(h, comm.halo(h))
-            h = getattr(self, f"layer{i}")(B.aggregate(block, table))
+            h = linear(params[f"layer{i}"], B.aggregate(block, table))
             if i < self.n_layers - 1:
                 h = torch.relu(h)
         return h
+
+    def forward(self, block: B.GraphBlock, x: torch.Tensor, comm) -> torch.Tensor:
+        return self.apply(self.param_tree(), block, x, comm)

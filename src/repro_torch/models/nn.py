@@ -48,3 +48,20 @@ class Linear(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return linear(dict(self.named_parameters()), x)
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Masked cross entropy as ``(sum_loss, count)``, so callers can sum both
+    across partitions before dividing."""
+    logz = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    ce = (logz - ll) * mask
+    return ce.sum(), mask.sum()
+
+
+def accuracy_counts(logits: torch.Tensor, labels: torch.Tensor,
+                    mask: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(correct predictions, count) over ``mask``."""
+    pred = torch.argmax(logits, dim=-1)
+    return ((pred == labels) * mask).sum(), mask.sum()

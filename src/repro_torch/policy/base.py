@@ -1,15 +1,24 @@
-"""Communication decisions: what each halo-exchange site does.
+"""CommPolicy vocabulary: decisions, telemetry, and the policy protocol.
 
-The pure-Python vocabulary of ``repro.policy.base`` that the inference engine
-needs: :class:`SiteDecision` (per-site forward/backward bit-widths, rounding,
-boundary sampling), :class:`EpochDecision` (one per site, plus the step-level
-choices) and the lattice they snap to. The policy loop itself comes with the
-training slice.
+A copy of ``repro.policy.base`` (pure Python):
+
+* :class:`SiteDecision` — what one halo-exchange site does this epoch
+  (forward/backward bit-widths, stochastic vs deterministic rounding,
+  BNS-style boundary sampling);
+* :class:`EpochDecision` — one :class:`SiteDecision` per exchange site plus
+  the epoch-level choices (synchronous vs pipelined step, EF21 bits, the
+  exchange schedule). Hashable: the trainer keys its step cache on
+  :meth:`EpochDecision.step_key`;
+* :class:`Telemetry` / :class:`SiteStats` — what a policy may observe, all
+  host-side floats gathered once per epoch;
+* :class:`CommPolicy` — the protocol: ``decide(telemetry) -> EpochDecision``.
+
+The trainer snaps decisions to the lattice below before using them.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Protocol, runtime_checkable
 
 # The decision lattice: bit-widths a snapped decision may use and the grid
 # boundary-sampling rates are rounded to.
@@ -83,11 +92,94 @@ class EpochDecision:
         return EpochDecision(sites=(site,) * n_sites, sync=sync,
                              ef_bits=ef_bits, schedule=schedule)
 
+    @staticmethod
+    def from_config(cfg, n_sites: int, *, sync: bool = False
+                    ) -> "EpochDecision":
+        """The ``SylvieConfig(bits=...)`` shim: every site gets the config's
+        one global decision (see :meth:`SiteDecision.from_config`)."""
+        return EpochDecision(sites=(SiteDecision.from_config(cfg),) * n_sites,
+                             sync=sync, schedule=cfg.schedule)
+
     def snapped(self) -> "EpochDecision":
         return EpochDecision(
             sites=tuple(s.snapped() for s in self.sites), sync=bool(self.sync),
             ef_bits=None if self.ef_bits is None else snap_bits(self.ef_bits),
             schedule=str(self.schedule))
+
+    def with_bits(self, bits: int) -> "EpochDecision":
+        """Every site forced to ``bits`` both directions (the trainer pins
+        vanilla mode at 32 this way)."""
+        return EpochDecision(
+            sites=tuple(dataclasses.replace(s, fwd_bits=bits, bwd_bits=bits)
+                        for s in self.sites),
+            sync=self.sync, ef_bits=self.ef_bits, schedule=self.schedule)
+
+    def step_key(self):
+        """Cache key of the built step functions. ``sync`` is excluded — it
+        selects *which* step runs, not how either is built."""
+        return (self.sites, self.ef_bits, self.schedule)
+
+    def bits_per_site(self) -> tuple[tuple[int, int], ...]:
+        """((fwd_bits, bwd_bits), ...) — the EpochMetrics record."""
+        return tuple((s.fwd_bits, s.bwd_bits) for s in self.sites)
+
+
+@dataclasses.dataclass(frozen=True)
+class SiteStats:
+    """Observed per-site quantization statistics from the previous epoch.
+
+    ``mean_range_sq`` is the mean over live boundary rows of the squared
+    per-row range ``(max - min)^2`` (Theorem 1's variance is built from it);
+    ``rows`` the live boundary rows totaled across partitions; ``dim`` the
+    feature width at this site."""
+
+    dim: int
+    rows: int
+    mean_range_sq: float
+
+    def variance(self, bits: int) -> float:
+        """Theorem-1 quantization variance summed over this site's rows:
+        ``rows * dim * E[range^2] / (6 * (2^bits - 1)^2)``; passthrough
+        widths (16/32) contribute zero."""
+        if bits >= 16:
+            return 0.0
+        big = 2.0 ** bits - 1.0
+        return self.rows * self.dim * self.mean_range_sq / (6.0 * big * big)
+
+
+@dataclasses.dataclass(frozen=True)
+class Telemetry:
+    """Everything a policy may observe, gathered on the host once per epoch.
+
+    ``site_stats`` is ``None`` until the first training epoch has run.
+    ``prev`` is the previous epoch's (snapped) decision. ``needs_sync`` flags
+    a cache-coherence requirement (resume after an elastic repartition):
+    policies must return ``sync=True`` then, and the trainer enforces it.
+    ``site_staleness`` counts consecutive faulty epochs per site under a
+    fault plan (empty: the port runs none)."""
+
+    epoch: int
+    n_parts: int
+    n_sites: int
+    site_dims: tuple[int, ...]
+    site_stats: Optional[tuple[SiteStats, ...]] = None
+    val_history: tuple[float, ...] = ()
+    needs_sync: bool = False
+    prev: Optional[EpochDecision] = None
+    site_staleness: tuple[int, ...] = ()
+
+
+@runtime_checkable
+class CommPolicy(Protocol):
+    """Per-epoch communication schedules as a pluggable strategy: any object
+    with ``decide(telemetry) -> EpochDecision`` and a ``name``. ``decide``
+    must be a pure function of the telemetry (the trainer may call it
+    speculatively, e.g. for byte accounting)."""
+
+    def decide(self, tel: Telemetry) -> EpochDecision: ...
+
+    @property
+    def name(self) -> str: ...
 
 
 def validate_decision(decision: EpochDecision, n_sites: int) -> EpochDecision:

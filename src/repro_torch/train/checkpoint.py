@@ -9,12 +9,20 @@ The format (``format_version`` 2, ``/``-joined dict paths) is the one
 package restores in the other. Saves are atomic (a temporary directory renamed
 into place) and keep the newest ``keep`` steps.
 
-:func:`restore_for_inference` loads only the model parameters: a missing or
-mis-shaped parameter leaf is an error, never zero-filled. Restoring a full
-training state (optimizer, halo caches) comes with the training slice.
+Trees are nested dicts, tuples and dataclasses (``GNNTrainState``) of tensors
+or arrays; their paths are the ones ``jax.tree_util`` writes: dict keys in
+sorted order, tuple positions, dataclass fields in order, ``None`` dropped —
+``params/layer0/w``, ``opt_state/t``, ``halo/feats/0``.
+
+:func:`restore` loads a full training state: a leaf whose stored shape
+differs (halo caches after an elastic repartition) or that is missing is
+zero-filled and flags a synchronous epoch. :func:`restore_for_inference`
+loads only the model parameters: a missing or mis-shaped parameter leaf is
+an error, never zero-filled.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import shutil
@@ -28,14 +36,45 @@ SEP = "/"
 FORMAT_VERSION = 2
 
 
+def _children(tree):
+    """(key, child) pairs of an inner node, or ``None`` for a leaf."""
+    if isinstance(tree, dict):
+        return [(str(k), tree[k]) for k in sorted(tree)]
+    if isinstance(tree, (tuple, list)):
+        return [(str(i), t) for i, t in enumerate(tree)]
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return [(f.name, getattr(tree, f.name))
+                for f in dataclasses.fields(tree)]
+    return None
+
+
 def _flatten(tree, prefix: str = "") -> dict[str, Any]:
-    """Nested dicts -> {"a/b/c": leaf}, keys in sorted order."""
-    if not isinstance(tree, dict):
+    """A tree -> {"a/b/c": leaf} (see the module docstring for the paths)."""
+    if tree is None:
+        return {}
+    kids = _children(tree)
+    if kids is None:
         return {prefix or "_root": tree}
     flat: dict[str, Any] = {}
-    for k in sorted(tree):
-        flat.update(_flatten(tree[k], f"{prefix}{SEP}{k}" if prefix else str(k)))
+    for k, child in kids:
+        flat.update(_flatten(child, f"{prefix}{SEP}{k}" if prefix else k))
     return flat
+
+
+def _rebuild(tree, leaf_of, prefix: str = ""):
+    """``tree``'s structure with each leaf replaced by ``leaf_of(path)``."""
+    if tree is None:
+        return None
+    kids = _children(tree)
+    if kids is None:
+        return leaf_of(prefix or "_root")
+    new = {k: _rebuild(c, leaf_of, f"{prefix}{SEP}{k}" if prefix else k)
+           for k, c in kids}
+    if isinstance(tree, dict):
+        return {k: new[str(k)] for k in tree}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(new[str(i)] for i in range(len(tree)))
+    return dataclasses.replace(tree, **new)
 
 
 def _to_numpy(leaf) -> np.ndarray:
@@ -118,6 +157,30 @@ def _unflatten(flat: dict[str, Any]):
             node = node.setdefault(part, {})
         node[last] = leaf
     return tree
+
+
+def restore(ckpt_dir: str | os.PathLike, example_tree,
+            step: Optional[int] = None):
+    """-> (tree, manifest meta, needs_sync_epoch).
+
+    ``example_tree`` gives the structure and the target shapes and dtypes;
+    the result has its structure with numpy leaves. Leaves whose stored shape
+    differs (halo caches after an elastic repartition) or that are missing
+    are zeros of the target shape, and flag a synchronous epoch."""
+    manifest, stored = _open(ckpt_dir, step)
+    examples = _flatten(example_tree)
+    needs_sync = False
+
+    def leaf_of(key):
+        nonlocal needs_sync
+        ex = _to_numpy(examples[key])
+        if key in stored.files and tuple(stored[key].shape) == ex.shape:
+            return stored[key].astype(ex.dtype)
+        needs_sync = True
+        return np.zeros(ex.shape, ex.dtype)
+
+    tree = _rebuild(example_tree, leaf_of)
+    return tree, manifest["meta"], needs_sync
 
 
 def restore_for_inference(ckpt_dir: str | os.PathLike, example_params,
