@@ -1,5 +1,6 @@
 """repro_torch.api — the one-import facade of the port, as ``repro.api``
-(limited to what is ported: partitioning and full-graph GCN training).
+(limited to what is ported: partitioning and full-graph GCN / GraphSAGE /
+GAT training).
 
     import repro_torch.api as repro
     from repro_torch import datasets

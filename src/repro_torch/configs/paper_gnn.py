@@ -1,7 +1,7 @@
-"""The paper's evaluation GCN (Sylvie §4), as ``repro/configs/paper_gnn.py``
-defines it: d_hidden 256, 2 layers; the reduced config has d_hidden 16.
-GraphSAGE and GAT are not ported yet (ROADMAP queue A item 8)."""
-from ..models.gnn.models import GCN
+"""The paper's evaluation models (Sylvie §4), as ``repro/configs/paper_gnn.py``
+defines them: GCN and GraphSAGE with d_hidden 256, GAT with 4 heads of 64,
+each 2 layers; the reduced configs have d_hidden 16."""
+from ..models.gnn.models import GAT, GCN, GraphSAGE
 from .base import GNN_SHAPES, ArchSpec
 from .gnn_common import GNNArch
 
@@ -23,3 +23,5 @@ def _make(name, ctor, **kw):
 
 
 GCN_SPEC = _make("gcn", GCN, d_hidden=256, n_layers=2)
+SAGE_SPEC = _make("graphsage", GraphSAGE, d_hidden=256, n_layers=2)
+GAT_SPEC = _make("gat", GAT, d_hidden=64, n_layers=2, heads=4)

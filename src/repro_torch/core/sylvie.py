@@ -28,8 +28,9 @@ epoch)``); site ``i`` draws its forward noise from the generator seeded by
 (2i+1,))`` and its BNS keep-mask from ``SeedSequence(key + (999,))`` — the
 layout of JAX's ``fold_in(key, 2i)`` / ``2i+1`` / ``999``, not its values
 (the two PRNGs differ, so stochastic runs match JAX only through injected
-noise: the Functions take ``u_fwd`` / ``u_bwd``). Without a key, every site
-shares the one ``generator`` (the serving sweep's stream).
+noise: the Functions take ``u_fwd`` / ``u_bwd``, and ``SylvieComm`` takes
+per-site BNS keep-masks, ``bns_masks``). Without a key, every site shares
+the one ``generator`` (the serving sweep's stream).
 
 Not ported: the ``"overlap"`` schedule (``dist/overlap.py``) and fault-armed
 sites (``repro.faults``); both raise here rather than run blocking.
@@ -202,13 +203,16 @@ class SylvieComm:
     integers) gives each site its own forward and backward noise streams;
     without it every site draws from ``generator``. Collects the halos it
     produced (``new_feat_caches``: the Sylvie-A caches of the next step) and,
-    when ``collect_stats``, per-site boundary range statistics."""
+    when ``collect_stats``, per-site boundary range statistics.
+    ``bns_masks`` (one (P, halo_rows) 0/1 keep-mask per site) replaces the
+    BNS draws of a synchronous pass where sampling is on."""
 
     def __init__(self, cfg: SylvieConfig, plan: PlanArrays,
                  generator: Optional[torch.Generator] = None, backend=None,
                  decision=None, *, key: Optional[tuple] = None,
                  collect_stats: bool = False, feat_caches=None,
-                 grad_ins=None, gslots=None, fault_sites=None):
+                 grad_ins=None, gslots=None, fault_sites=None,
+                 bns_masks=None):
         if fault_sites is not None:
             raise NotImplementedError(f"fault-armed sites: {NOT_PORTED}")
         self.cfg = cfg
@@ -221,6 +225,7 @@ class SylvieComm:
         self.feat_caches = feat_caches
         self.grad_ins = grad_ins
         self.gslots = gslots
+        self.bns_masks = bns_masks
         self.new_feat_caches: list = []
         self.site_stats: list = []
         self._site = 0
@@ -245,16 +250,21 @@ class SylvieComm:
             return self.generator
         return stream_generator(self.key, stream, device)
 
-    def _bns_mask(self, p: float, device) -> Optional[torch.Tensor]:
+    def _bns_mask(self, i: int, p: float, device) -> Optional[torch.Tensor]:
         """BNS-GCN-style boundary sampling: one Bernoulli keep-mask per halo
-        row per step, scaled by 1/(1-p); it multiplies the halo, so the
-        backward sees the same mask."""
+        row per step (site ``i``'s injected one when given), scaled by
+        1/(1-p); it multiplies the halo, so the backward sees the same
+        mask."""
         if p <= 0.0:
             return None
-        keep = torch.full(tuple(self.plan.recv_mask.shape), 1.0 - p,
-                          device=device)
-        return torch.bernoulli(keep, generator=self._stream(BNS_STREAM,
-                                                            device)) / (1.0 - p)
+        if self.bns_masks is not None:
+            keep = self.bns_masks[i].to(device=device, dtype=torch.float32)
+        else:
+            keep = torch.bernoulli(
+                torch.full(tuple(self.plan.recv_mask.shape), 1.0 - p,
+                           device=device),
+                generator=self._stream(BNS_STREAM, device))
+        return keep / (1.0 - p)
 
     def _record_stats(self, h: torch.Tensor) -> None:
         """Per-site telemetry for adaptive policies: the sum over live send
@@ -282,7 +292,7 @@ class SylvieComm:
             halo = quantized_halo(h, self.plan, sd.fwd_bits, sd.bwd_bits,
                                   sd.stochastic, cfg.scale_dtype, self.backend,
                                   gen_f, gen_b)
-            bns = self._bns_mask(sd.boundary_sample_p, h.device)
+            bns = self._bns_mask(i, sd.boundary_sample_p, h.device)
             if bns is not None:
                 halo = halo * bns[..., None]
             # a synchronous step doubles as a cache refresh for Sylvie-A

@@ -43,6 +43,16 @@
 // No atomics: the same CSR gives the same bits on every run (the serving
 // engine's delta-refresh == full-sweep guarantee rests on it). The kernel
 // allocates nothing; the wrapper passes the partials' workspace.
+//
+// spmm_csr_heads is the same kernel with a weight per edge and head: GAT's
+// aggregation out[r, h*dh + k] = sum_e alpha[e, h] * table[col[e], h*dh + k]
+// (alpha (nnz, H) in CSR order), and its backward over the transposed CSR
+// with alpha carried into the transposed order. The JAX package computes it
+// as gather_src * alpha then segment_sum (src/repro/models/gnn/models.py:141,
+// outside any Pallas kernel). The vector width also divides dh, so a lane's
+// vector lies in one head and takes one weight, read per (edge, vector)
+// instead of shared by shuffles; the order of the adds is spmm_csr's, which
+// is its H = 1 case bit for bit.
 
 #include <cuda_runtime.h>
 
@@ -79,12 +89,14 @@ __device__ __forceinline__ float4 madd(float4 acc, float w, float4 t) {
 // units: (n_units, 3) int32 rows (e_begin, e_end, target); target < n_rows is
 // an output row, otherwise partial slot target - n_rows. Warp w of the grid's
 // row x sums unit x * kWarpsPerBlock + w over column chunk blockIdx.y.
-template <int VEC, int NV>
+// HEADS: w is (nnz, n_heads) and column c takes w[e, c / dh].
+template <int VEC, int NV, bool HEADS>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 spmm_units_kernel(const float* __restrict__ table, const int* __restrict__ col,
                   const float* __restrict__ w, const int* __restrict__ units,
                   int n_units, float* __restrict__ part,
-                  float* __restrict__ out, int n_rows, int d) {
+                  float* __restrict__ out, int n_rows, int d, int n_heads,
+                  int dh) {
   using V = typename VecT<VEC>::T;
   const int lane = threadIdx.x & 31;
   const int unit = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
@@ -97,35 +109,43 @@ spmm_units_kernel(const float* __restrict__ table, const int* __restrict__ col,
   const int dv = d / VEC;  // vectors per row
   const int v0 = blockIdx.y * 32 * NV + lane;
   V acc[NV];
+  int head[NV];  // HEADS: the head of each of the lane's vectors
 #pragma unroll
-  for (int v = 0; v < NV; ++v) acc[v] = zero_of(V());
+  for (int v = 0; v < NV; ++v) {
+    acc[v] = zero_of(V());
+    head[v] = HEADS ? (v0 + 32 * v) * VEC / dh : 0;
+  }
   for (int eb = e0; eb < e1; eb += 32) {
     const int n = e1 - eb < 32 ? e1 - eb : 32;
     int my_c = 0;
     float my_w = 0.f;
     if (lane < n) {
       my_c = __ldg(col + eb + lane);
-      my_w = __ldg(w + eb + lane);
+      if (!HEADS) my_w = __ldg(w + eb + lane);
     }
     for (int j = 0; j < n; j += kBatch) {
+      constexpr int NW = HEADS ? NV : 1;  // weights per edge: one per vector
       V t[kBatch][NV];
-      float wu[kBatch];
+      float wu[kBatch][NW];
 #pragma unroll
       for (int u = 0; u < kBatch; ++u) {
         const int c = __shfl_sync(0xffffffffu, my_c, j + u);
-        wu[u] = __shfl_sync(0xffffffffu, my_w, j + u);
+        wu[u][0] = __shfl_sync(0xffffffffu, my_w, j + u);
         const V* tr = reinterpret_cast<const V*>(table + (int64_t)c * d);
+        const float* we = w + (int64_t)(eb + j + u) * n_heads;
 #pragma unroll
         for (int v = 0; v < NV; ++v) {
-          const int idx = v0 + 32 * v;
-          t[u][v] = (j + u < n && idx < dv) ? __ldg(tr + idx) : zero_of(V());
+          const bool live = j + u < n && v0 + 32 * v < dv;
+          t[u][v] = live ? __ldg(tr + v0 + 32 * v) : zero_of(V());
+          if (HEADS) wu[u][v < NW ? v : 0] = live ? __ldg(we + head[v]) : 0.f;
         }
       }
 #pragma unroll
       for (int u = 0; u < kBatch; ++u) {
         if (j + u < n) {
 #pragma unroll
-          for (int v = 0; v < NV; ++v) acc[v] = madd(acc[v], wu[u], t[u][v]);
+          for (int v = 0; v < NV; ++v)
+            acc[v] = madd(acc[v], wu[u][v < NW ? v : 0], t[u][v]);
         }
       }
     }
@@ -157,10 +177,10 @@ spmm_combine_kernel(const float* __restrict__ part,
 
 // Vectors of VEC floats; NV of them per lane, so a warp sums a column chunk
 // of 32 * NV * VEC <= kChunkFloats floats (fewer where the row is narrower).
-template <int VEC>
+template <int VEC, bool HEADS>
 void launch_units(const float* table, const int* col, const float* w,
                   const int* units, int n_units, float* part, float* out,
-                  int n_rows, int d, cudaStream_t s) {
+                  int n_rows, int d, int n_heads, int dh, cudaStream_t s) {
   static_assert(kChunkFloats <= 128, "NV goes up to 4");
   constexpr int kMaxNV = kChunkFloats / (32 * VEC);
   const int dv = d / VEC;
@@ -170,15 +190,44 @@ void launch_units(const float* table, const int* col, const float* w,
                   (unsigned)((dv + 32 * nv - 1) / (32 * nv)));
   const dim3 block(kWarpsPerBlock * 32);
   if (nv == 1) {
-    spmm_units_kernel<VEC, 1><<<grid, block, 0, s>>>(
-        table, col, w, units, n_units, part, out, n_rows, d);
+    spmm_units_kernel<VEC, 1, HEADS><<<grid, block, 0, s>>>(
+        table, col, w, units, n_units, part, out, n_rows, d, n_heads, dh);
   } else if (nv == 2) {
-    spmm_units_kernel<VEC, (kMaxNV >= 2 ? 2 : 1)><<<grid, block, 0, s>>>(
-        table, col, w, units, n_units, part, out, n_rows, d);
+    spmm_units_kernel<VEC, (kMaxNV >= 2 ? 2 : 1), HEADS>
+        <<<grid, block, 0, s>>>(table, col, w, units, n_units, part, out,
+                                n_rows, d, n_heads, dh);
   } else {
-    spmm_units_kernel<VEC, (kMaxNV >= 4 ? 4 : 1)><<<grid, block, 0, s>>>(
-        table, col, w, units, n_units, part, out, n_rows, d);
+    spmm_units_kernel<VEC, (kMaxNV >= 4 ? 4 : 1), HEADS>
+        <<<grid, block, 0, s>>>(table, col, w, units, n_units, part, out,
+                                n_rows, d, n_heads, dh);
   }
+}
+
+// Both entry points: the widest vector that divides dh (so it lies in one
+// head) and that the pointers' alignment allows, then the combine pass.
+template <bool HEADS>
+int spmm_run(const float* table, const int* col, const float* w, int n_heads,
+             const int* units, int n_units, const int* long_rows,
+             const int* long_ptr, int n_long, float* part, float* out,
+             int n_rows, int d, cudaStream_t s) {
+  if (n_units <= 0 || d <= 0) return (int)cudaSuccess;
+  const int dh = d / n_heads;
+  const uintptr_t ptrs = (uintptr_t)table | (uintptr_t)out | (uintptr_t)part;
+  if (dh % 4 == 0 && ptrs % 16 == 0) {
+    launch_units<4, HEADS>(table, col, w, units, n_units, part, out, n_rows,
+                           d, n_heads, dh, s);
+  } else if (dh % 2 == 0 && ptrs % 8 == 0) {
+    launch_units<2, HEADS>(table, col, w, units, n_units, part, out, n_rows,
+                           d, n_heads, dh, s);
+  } else {
+    launch_units<1, HEADS>(table, col, w, units, n_units, part, out, n_rows,
+                           d, n_heads, dh, s);
+  }
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || n_long <= 0) return (int)err;
+  const dim3 grid((unsigned)n_long, (unsigned)((d + 255) / 256));
+  spmm_combine_kernel<<<grid, 256, 0, s>>>(part, long_rows, long_ptr, out, d);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -197,21 +246,21 @@ int spmm_csr(const float* table, const int* col, const float* w,
              const int* units, int n_units, const int* long_rows,
              const int* long_ptr, int n_long, float* part, float* out,
              int n_rows, int d, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  if (n_units <= 0 || d <= 0) return (int)cudaSuccess;
-  const uintptr_t ptrs = (uintptr_t)table | (uintptr_t)out | (uintptr_t)part;
-  if (d % 4 == 0 && ptrs % 16 == 0) {
-    launch_units<4>(table, col, w, units, n_units, part, out, n_rows, d, s);
-  } else if (d % 2 == 0 && ptrs % 8 == 0) {
-    launch_units<2>(table, col, w, units, n_units, part, out, n_rows, d, s);
-  } else {
-    launch_units<1>(table, col, w, units, n_units, part, out, n_rows, d, s);
-  }
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || n_long <= 0) return (int)err;
-  const dim3 grid((unsigned)n_long, (unsigned)((d + 255) / 256));
-  spmm_combine_kernel<<<grid, 256, 0, s>>>(part, long_rows, long_ptr, out, d);
-  return (int)cudaGetLastError();
+  return spmm_run<false>(table, col, w, 1, units, n_units, long_rows,
+                         long_ptr, n_long, part, out, n_rows, d,
+                         (cudaStream_t)stream);
+}
+
+// The same with w: (nnz, n_heads) float32, n_heads dividing d; column c of
+// the table is weighted by w[e, c / (d / n_heads)].
+int spmm_csr_heads(const float* table, const int* col, const float* w,
+                   int n_heads, const int* units, int n_units,
+                   const int* long_rows, const int* long_ptr, int n_long,
+                   float* part, float* out, int n_rows, int d, void* stream) {
+  if (n_heads <= 0 || d % n_heads) return (int)cudaErrorInvalidValue;
+  return spmm_run<true>(table, col, w, n_heads, units, n_units, long_rows,
+                        long_ptr, n_long, part, out, n_rows, d,
+                        (cudaStream_t)stream);
 }
 
 }  // extern "C"

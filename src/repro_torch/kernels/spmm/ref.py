@@ -127,41 +127,69 @@ def csr_from_padded(idx: np.ndarray, w: np.ndarray, n_src: int) -> CSR:
                           n_rows, n_src)
 
 
-def spmm_ref(table: torch.Tensor, csr: CSR) -> torch.Tensor:
-    """(n_cols, d) float32 table -> (n_rows, d) float32.
+def plan_reduce(term, csr: CSR, width: int, dtype, device,
+                reduce=torch.add, init: float = 0.0) -> torch.Tensor:
+    """The row reductions of a CSR in the order its plan fixes: ``out[r] =
+    reduce(... reduce(reduce(init, t_0), t_1) ..., t_k)`` over row ``r``'s
+    edges, with ``term(e)`` the ``(len(e), width)`` terms of the edges
+    ``e``; a split row reduces each segment so, then its partials left to
+    right. Returns ``(n_rows, width)``.
 
-    Step ``s`` adds the ``s``-th edge of every unit that has one; with the
+    Step ``s`` takes the ``s``-th edge of every unit that has one; with the
     units sorted heaviest first, those still active are a prefix and each
-    add is a plain slice update (no order left to the device). Whole rows
+    step is a plain slice update (no order left to the device). Whole rows
     are then copied out, and split rows' partials combined left to right,
     one segment per step, over the rows that still have one."""
     units = csr.units.to(torch.int64)
     length = units[:, 1] - units[:, 0]
     units = units[torch.argsort(length, descending=True, stable=True)]
-    n_rows, d = csr.n_rows, table.shape[1]
+    n_rows = csr.n_rows
     desc = (units[:, 1] - units[:, 0]).cpu().numpy()
     steps = int(desc[0]) if desc.size else 0
     n_active = np.searchsorted(-desc, -np.arange(steps), side="left")
-    col = csr.col.to(torch.int64)
-    buf = torch.zeros((units.shape[0], d), dtype=table.dtype,
-                      device=table.device)
+    buf = torch.full((units.shape[0], width), init, dtype=dtype,
+                     device=device)
     for s in range(steps):
         n = int(n_active[s])
-        e = units[:n, 0] + s
-        buf[:n] = buf[:n] + csr.w[e][:, None] * table[col[e]]
-    out = torch.empty((n_rows, d), dtype=table.dtype, device=table.device)
+        buf[:n] = reduce(buf[:n], term(units[:n, 0] + s))
+    out = torch.empty((n_rows, width), dtype=dtype, device=device)
     target = units[:, 2]
     whole = target < n_rows
     out[target[whole]] = buf[whole]
     if csr.long_rows.numel():
-        part = torch.empty((csr.n_partials, d), dtype=table.dtype,
-                           device=table.device)
+        part = torch.empty((csr.n_partials, width), dtype=dtype,
+                           device=device)
         part[target[~whole] - n_rows] = buf[~whole]
         ptr = csr.long_ptr.to(torch.int64)
         n_seg = ptr[1:] - ptr[:-1]
         acc = part[ptr[:-1]]
         for k in range(1, int(n_seg.max())):
             more = n_seg > k
-            acc[more] = acc[more] + part[ptr[:-1][more] + k]
+            acc[more] = reduce(acc[more], part[ptr[:-1][more] + k])
         out[csr.long_rows.to(torch.int64)] = acc
     return out
+
+
+def spmm_ref(table: torch.Tensor, csr: CSR) -> torch.Tensor:
+    """(n_cols, d) float32 table -> (n_rows, d) float32: the sums of
+    :func:`plan_reduce`, each term ``w[e] * table[col[e]]`` rounded before
+    its add."""
+    col = csr.col.to(torch.int64)
+    return plan_reduce(lambda e: csr.w[e][:, None] * table[col[e]], csr,
+                       table.shape[1], table.dtype, table.device)
+
+
+def spmm_heads_ref(table: torch.Tensor, csr: CSR,
+                   w: torch.Tensor) -> torch.Tensor:
+    """The per-head SpMM: ``w`` (nnz, H) in CSR order replaces ``csr.w``;
+    column ``c`` of the (n_cols, H * dh) table is weighted by ``w[e, c //
+    dh]``: ``out[r, h*dh + k] = sum_e w[e, h] * table[col[e], h*dh + k]``,
+    in the order of :func:`spmm_ref`, which is its ``H = 1`` case bit for
+    bit."""
+    n_heads, d = w.shape[1], table.shape[1]
+    col = csr.col.to(torch.int64)
+
+    def term(e):
+        t = table[col[e]].view(-1, n_heads, d // n_heads)
+        return (w[e][:, :, None] * t).view(-1, d)
+    return plan_reduce(term, csr, d, table.dtype, table.device)

@@ -1,10 +1,12 @@
 """End-to-end launcher of the port, as ``python -m repro.launch.train``:
-full-graph GCN training with Sylvie's quantized halo exchange, and batched LM
-serving (prefill + greedy decode).
+full-graph GCN / GraphSAGE / GAT training with Sylvie's quantized halo
+exchange, and batched LM serving (prefill + greedy decode).
 
     python -m repro_torch.launch.train --arch gcn --graph reddit_like@paper \\
         --parts 4 --mode async --bits 1 --eps-s 4 --epochs 20
-    python -m repro_torch.launch.train --arch gcn --reduced --graph \\
+    python -m repro_torch.launch.train --arch gat --graph reddit_like@paper \\
+        --parts 4 --mode sync --bits 1 --epochs 20
+    python -m repro_torch.launch.train --arch graphsage --reduced --graph \\
         yelp_like@smoke --epochs 3 --device cpu
     python -m repro_torch.launch.train --arch granite-3-2b --serve
     python -m repro_torch.launch.train --arch granite-3-2b --serve --reduced \\
@@ -13,8 +15,8 @@ serving (prefill + greedy decode).
 Without ``--device cpu`` they run on the CUDA card (and raise where there is
 none); ``--device cpu`` runs the kernels' plain PyTorch versions on the CPU.
 LM parameters are float32 from a seeded generator; prompts are random tokens
-from the same seed. GraphSAGE/GAT, LM and DLRM training, ``--scenario`` and
-``--schedule overlap`` are not ported yet (ROADMAP queue A).
+from the same seed. LM and DLRM training, ``--scenario`` and ``--schedule
+overlap`` are not ported yet (ROADMAP queue A).
 """
 from __future__ import annotations
 

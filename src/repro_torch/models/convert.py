@@ -3,8 +3,9 @@
 The JAX package keeps parameters as nested dicts
 (``{"layer0": {"w": (d_in, d_out), "b": (d_out,)}, ...}``). The port keeps
 the GNN's in ``nn.Module``s whose parameter names follow the same path
-(``layer0.w``), and the LM's in a nested dict of tensors with the JAX tree's
-keys. These functions carry weights across, so both packages can run on the
+(``layer0.w``; GraphSAGE's ``layer0.self.w`` / ``layer0.nb.w``, GAT's
+``layer0.w.w`` / ``layer0.a_src`` / ``out.b``), and the LM's in a nested
+dict of tensors with the JAX tree's keys. These functions carry weights across, so both packages can run on the
 same numbers.
 """
 from __future__ import annotations
@@ -13,6 +14,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from .gnn.models import param_tree
 from .lm.model import param_shapes, tree_leaves
 
 
@@ -40,14 +42,7 @@ def params_from_numpy(model: nn.Module, tree: dict, device=None) -> nn.Module:
 
 def params_to_numpy(model: nn.Module) -> dict:
     """``model``'s parameters as a nested dict of numpy arrays."""
-    tree: dict = {}
-    for name, param in model.named_parameters():
-        *path, leaf = name.split(".")
-        node = tree
-        for part in path:
-            node = node.setdefault(part, {})
-        node[leaf] = param.detach().cpu().numpy()
-    return tree
+    return lm_params_to_numpy(param_tree(model))
 
 
 def lm_params_from_numpy(tree: dict, cfg, device=None, dtype=None) -> dict:
@@ -84,7 +79,7 @@ def lm_params_from_numpy(tree: dict, cfg, device=None, dtype=None) -> dict:
 
 
 def lm_params_to_numpy(params: dict) -> dict:
-    """The port's LM parameter dict as a nested dict of numpy arrays
+    """The port's LM (or any) parameter dict as a nested dict of numpy arrays
     (bfloat16 tensors come out as float32, which holds them exactly)."""
     def conv(t: torch.Tensor):
         t = t.detach().cpu()

@@ -83,10 +83,12 @@ def make_gnn_steps(model, cfg: SylvieConfig, opt: optlib.Optimizer,
     """Builds ``(train_step_sync, train_step_async, eval_step)``; the caller
     decides which to run each epoch (``GNNTrainer`` owns that loop).
 
-    Each train step is ``step(state, block, x, y, mask, key) -> (new state,
-    loss)`` with ``key`` a tuple of integers (the noise streams, see
-    ``core/sylvie.py``); ``eval_step(params, block, x, y, mask, key) ->
-    (correct, count)``."""
+    Each train step is ``step(state, block, x, y, mask, key, bns_masks=None)
+    -> (new state, loss)`` with ``key`` a tuple of integers (the noise
+    streams, see ``core/sylvie.py``) and ``bns_masks`` the per-site BNS
+    keep-masks that replace the sync step's draws (the async step samples
+    no boundary); ``eval_step(params, block, x, y, mask, key) -> (correct,
+    count)``."""
     backend = backend if backend is not None else SimulatedBackend()
     n_sites = len(model.comm_dims())
     if decision is None:
@@ -121,10 +123,12 @@ def make_gnn_steps(model, cfg: SylvieConfig, opt: optlib.Optimizer,
         it = iter(got[:len(leaves)])
         return optlib.tree_map(lambda _: next(it), params), got[len(leaves):]
 
-    def train_step_sync(state: GNNTrainState, block, x, y, mask, key):
+    def train_step_sync(state: GNNTrainState, block, x, y, mask, key,
+                        bns_masks=None):
         params = _leaves_requiring_grad(state.params)
         comm = SylvieComm(sync_cfg, block.plan, backend=backend,
-                          decision=decision, key=key, collect_stats=True)
+                          decision=decision, key=key, collect_stats=True,
+                          bns_masks=bns_masks)
         loss = _masked_loss(model.apply(params, block, x, comm), y, mask,
                             backend)
         grads, _ = _grads(loss, params)
@@ -133,7 +137,8 @@ def make_gnn_steps(model, cfg: SylvieConfig, opt: optlib.Optimizer,
                              grads=tuple(torch.zeros_like(f) for f in caches))
         return _finish(state, grads, loss, new_halo, comm)
 
-    def train_step_async(state: GNNTrainState, block, x, y, mask, key):
+    def train_step_async(state: GNNTrainState, block, x, y, mask, key,
+                         bns_masks=None):
         params = _leaves_requiring_grad(state.params)
         gslots = state.halo.gslots()
         comm = SylvieComm(async_cfg, block.plan, backend=backend,

@@ -73,7 +73,9 @@ class GNNTrainer:
     ``params`` (nested dicts of arrays, the JAX parameter-tree layout) are
     copied into ``model`` first when given; training starts from the model's
     parameters. ``device`` picks the runtime's device when no ``runtime`` is
-    given (``None``: the CUDA card)."""
+    given (``None``: the CUDA card). ``bns_masks``, a function of the epoch,
+    gives that epoch's per-site BNS keep-masks in place of the step's own
+    draws (the tests hand in the JAX reference's)."""
 
     def __init__(self, model, pg, cfg: Optional[SylvieConfig] = None,
                  opt: Optional[optlib.Optimizer] = None,
@@ -81,7 +83,7 @@ class GNNTrainer:
                  runtime: Optional[Runtime] = None, device=None,
                  seed: int = 0, ckpt_dir: Optional[str] = None,
                  keep: int = 3, ckpt_every: Optional[int] = None,
-                 params=None):
+                 params=None, bns_masks=None):
         self.model = model
         self.pg = pg
         self.cfg = cfg = cfg if cfg is not None else SylvieConfig()
@@ -104,6 +106,7 @@ class GNNTrainer:
         self.ckpt_dir = ckpt_dir
         self.keep = keep
         self.seed = seed
+        self.bns_masks = bns_masks
 
         if params is not None:
             params_from_numpy(model, params)
@@ -220,8 +223,9 @@ class GNNTrainer:
         ts, ta = self._steps_for(decision)
         fn = ts if decision.sync else ta
         t0 = time.perf_counter()
+        masks = self.bns_masks(self.epoch) if self.bns_masks else None
         self.state, loss = fn(self.state, self.block, self.x, self.y,
-                              self.train_mask, self._epoch_key())
+                              self.train_mask, self._epoch_key(), masks)
         loss = float(loss)                   # a device sync
         dt = time.perf_counter() - t0
         self._needs_sync = False

@@ -47,6 +47,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 20
+    gat = ROOT / "src" / "repro_torch" / "kernels" / "gat"
+    assert {gat / "ops.py", gat / "ref.py"} <= set(files)
     bad = [f"{f.relative_to(ROOT)}:{line} imports {mod}"
            for f in files for line, mod in _imported_roots(f)
            if mod in FORBIDDEN]
@@ -141,8 +143,8 @@ def test_build_needs_nvcc_and_hashes_sources(monkeypatch):
 
 def test_nvcc_flags_differ_only_where_the_docstring_says():
     """Every source: sm_90a, -O3, no fast math. The bit-exact sources (quant,
-    spmm) add -fmad=false and nothing else; flash has exactly the common
-    flags. Each source's flags go into its library hash."""
+    spmm, gat) add -fmad=false and nothing else; flash has exactly the
+    common flags. Each source's flags go into its library hash."""
     common = build.nvcc_flags("flash.cu")
     assert common == build.NVCC_FLAGS
     assert "arch=compute_90a,code=sm_90a" in common and "-O3" in common
@@ -150,12 +152,13 @@ def test_nvcc_flags_differ_only_where_the_docstring_says():
         flags = build.nvcc_flags(src)
         assert "--use_fast_math" not in flags
         extra = [f for f in flags if f not in common]
-        assert extra == (["-fmad=false"] if src in ("quant.cu", "spmm.cu")
+        assert extra == (["-fmad=false"] if src in ("quant.cu", "spmm.cu",
+                                                    "gat.cu")
                          else []), src
         assert set(common) <= set(flags)
-    assert set(build.BIT_EXACT) == {"quant.cu", "spmm.cu"}
+    assert set(build.BIT_EXACT) == {"quant.cu", "spmm.cu", "gat.cu"}
     doc = build.__doc__
-    assert "-fmad=false" in doc and "flash.cu" in doc
+    assert "-fmad=false" in doc and "flash.cu" in doc and "gat.cu" in doc
 
 
 def test_chip_smoke_fails_without_a_card(monkeypatch, capsys):

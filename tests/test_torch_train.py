@@ -19,6 +19,13 @@ carried into the port, deterministic rounding:
   below 1e-3 of the site's largest gradient;
 * 10 epochs of ``GNNTrainer`` — vanilla (losses within rtol 1e-5), Sylvie-S
   ``Uniform(1)`` and Sylvie-A ``BoundedStaleness(eps_s=4)`` (rtol 1e-4);
+  and 6 epochs (fewer, for time) of ``AdaQPVariance(budget_bits=4)``,
+  ``Warmup(3)``, EF21 at 1 and 2 bits and Sylvie-A at 2 bits (rtol 1e-4),
+  modes, bits per site, payload and EC bytes equal every epoch;
+* Boundary-Node Sampling (``boundary_sample_p = 0.5``), sync and Sylvie-A
+  (``eps_s = 3``), 6 epochs: the port gets the keep-masks the JAX
+  reference draws (``bernoulli(fold_in(epoch key, 999))``, recomputed
+  here) and the losses match within rtol 1e-4 (1.6e-7 / 3.9e-6 measured);
 * checkpoints resume across packages (JAX saves at epoch 3, the port's
   epochs 4-5 match JAX's uninterrupted run, rtol 1e-4; and the reverse),
   and a 4-part checkpoint resumed at 2 parts forces a synchronous epoch;
@@ -26,7 +33,8 @@ carried into the port, deterministic rounding:
   times (quantize / dequantize / SpMM: 3 / 3 / 4 sync, 4 / 4 / 5 async) and
   never ``index_add_``, ``scatter_add_`` or ``torch.sparse.mm``;
 * the entry points (``launch.train --arch gcn``, ``api.train``,
-  ``GNNTrainer``) need a card unless asked for the CPU.
+  ``GNNTrainer``) need a card unless asked for the CPU; ``--arch
+  graphsage`` and ``--arch gat`` train on the CPU when asked.
 """
 import dataclasses
 
@@ -63,6 +71,17 @@ D_HIDDEN = 16
 CPU = Runtime.simulated(4, device="cpu")
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """The plain versions run thousands of tiny torch ops; beside the other
+    workers of a parallel test run, torch's idle threads spinning between
+    them cost far more than they give. Each test here runs on one."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def graphs(tmp_path_factory):
     pg = datasets.load_partitioned(REF, n_parts=4)
@@ -83,7 +102,24 @@ CONFIGS = {
     "sylvie_a": (dict(mode="async", bits=1, stochastic=False),
                  lambda m: m.BoundedStaleness(eps_s=4, bits=1,
                                               stochastic=False), 1e-4),
+    "adaqp_4": (dict(mode="sync", bits=1, stochastic=False),
+                lambda m: m.AdaQPVariance(budget_bits=4, stochastic=False),
+                1e-4),
+    "warmup_3": (dict(mode="sync", bits=1, stochastic=False),
+                 lambda m: m.Warmup(epochs=3, bits=1, stochastic=False),
+                 1e-4),
+    "ef21_1": (dict(mode="sync", bits=1, stochastic=False),
+               lambda m: m.Uniform(bits=1, stochastic=False, ef_bits=1),
+               1e-4),
+    "ef21_2": (dict(mode="sync", bits=1, stochastic=False),
+               lambda m: m.Uniform(bits=1, stochastic=False, ef_bits=2),
+               1e-4),
+    "sylvie_a_2": (dict(mode="async", bits=2, stochastic=False),
+                   lambda m: m.BoundedStaleness(eps_s=4, bits=2,
+                                                stochastic=False), 1e-4),
 }
+# these three run 10 epochs; the other cases 6, for the tests' time
+TEN_EPOCHS = ("vanilla", "sylvie_s", "sylvie_a")
 
 
 def _trainers(graphs, name, **kw):
@@ -170,8 +206,9 @@ def _differing_rows(mine, ref, bound, noise=False) -> int:
 @pytest.mark.parametrize("name", sorted(CONFIGS))
 def test_ten_epochs_match_jax_trainer(graphs, name):
     tr, jtr = _trainers(graphs, name)
-    want = [m.loss for m in jtr.fit(10)]
-    got = tr.fit(10)
+    epochs = 10 if name in TEN_EPOCHS else 6
+    want = [m.loss for m in jtr.fit(epochs)]
+    got = tr.fit(epochs)
     np.testing.assert_allclose([m.loss for m in got], want,
                                rtol=CONFIGS[name][2])
     assert [m.mode for m in got] == [m.mode for m in jtr.history]
@@ -180,6 +217,44 @@ def test_ten_epochs_match_jax_trainer(graphs, name):
                                m.bits_per_site, m.policy)
                               for m in jtr.history]
     assert tr.evaluate("val") == pytest.approx(jtr.evaluate("val"))
+
+
+@pytest.mark.parametrize("mode", ["sync", "async"])
+def test_bns_training_matches_jax_with_its_masks(graphs, mode):
+    """BNS at p = 0.5 (sync; Sylvie-A with eps_s = 3, whose sync epochs
+    sample): the port takes the JAX reference's keep-masks, one per epoch
+    shared by every site (``repro/core/sylvie.py`` draws them from
+    ``fold_in(epoch key, 999)``), and trains to the same losses."""
+    pg, jpg = graphs
+    p, kw = 0.5, dict(bits=1, stochastic=False)
+    cfg = dict(mode=mode, boundary_sample_p=p, **kw)
+    pol = (lambda m: m.BoundedStaleness(eps_s=3, boundary_sample_p=p, **kw)
+           ) if mode == "async" else None
+    model, jmodel = _models(pg)
+    jtr = JTrainer(jmodel, jpg, JConfig(**cfg),
+                   policy=pol(jpol) if pol else None)
+    shape = tuple(B.build_block(pg).plan.recv_mask.shape)
+
+    def masks(epoch):
+        key = jax.random.fold_in(jax.random.fold_in(jax.random.PRNGKey(0),
+                                                    epoch), 999)
+        keep = torch.from_numpy(np.array(
+            jax.random.bernoulli(key, 1.0 - p, shape)))
+        return (keep,) * len(model.comm_dims())
+    tr = GNNTrainer(model, pg, SylvieConfig(**cfg),
+                    policy=pol(tpol) if pol else None, runtime=CPU,
+                    params=jax.tree.map(np.asarray, jtr.state.params),
+                    bns_masks=masks)
+    want = [m.loss for m in jtr.fit(6)]
+    got = tr.fit(6)
+    assert [m.mode for m in got] == [m.mode for m in jtr.history]
+    np.testing.assert_allclose([m.loss for m in got], want, rtol=1e-4)
+    # the masks matter: without them the port samples its own rows
+    own = GNNTrainer(_models(pg)[0], pg, SylvieConfig(**cfg),
+                     policy=pol(tpol) if pol else None, runtime=CPU,
+                     params=jax.tree.map(np.asarray, JTrainer(
+                         _models(pg)[1], jpg, JConfig(**cfg)).state.params))
+    assert own.fit(2)[-1].loss != pytest.approx(want[1], rel=1e-4)
 
 
 def test_resume_across_packages_both_ways(graphs, tmp_path):
@@ -288,11 +363,20 @@ def test_entry_points_need_a_card_unless_asked_for_the_cpu(
     assert sum(ln.startswith("epoch ") for ln in lines) == 3
     assert "[async]" in out and "test acc" in out
     assert ckpt.latest_step(tmp_path) == 3
-    for bad in (["--arch", "graphsage"], ["--arch", "gat"],
+    for bad in (["--arch", "pna"], ["--arch", "schnet"],
                 ["--arch", "gcn", "--schedule", "overlap", "--device",
                  "cpu"]):
         with pytest.raises(SystemExit, match="not ported yet"):
             launch.main(bad)
+    for arch in ("graphsage", "gat"):
+        argv = ["--arch", arch, "--reduced", "--graph", "yelp_like@smoke",
+                "--mode", "async", "--eps-s", "2", "--epochs", "2",
+                "--log-every", "1"]
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            launch.main(argv)
+        launch.main(argv + ["--device", "cpu"])
+        out = capsys.readouterr().out
+        assert "[sync]" in out and "[async]" in out and "test acc" in out
     small = api.partition(datasets.load("yelp_like@smoke"), 4)
     tr = api.train(_models(small)[0], small, mode="vanilla", epochs=2,
                    device="cpu")
