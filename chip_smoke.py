@@ -87,7 +87,8 @@ train     — GCN 256x2, GraphSAGE 256x2 and GAT (4 heads x 64, 2 layers),
             reference either: ``GAT_ONE_BIT``),
             validation accuracy, payload and error-compensation MB per
             epoch, peak memory, and a profiled sync and async epoch of
-            GCN's and GAT's Sylvie-A split by kernel.
+            GCN's and GAT's Sylvie-A split by kernel (GAT's must launch no
+            index gather: its backward reads alpha through perm_t).
 train-kernels — the tensors of one recorded GCN Sylvie-S step: the SpMM over
             the transposed CSR (d = 256) and over the scatter CSR, and
             quantize / dequantize of the site-1 gradient (bits 1/2/4/8,
@@ -99,8 +100,11 @@ gat-kernels — the tensors of one recorded GAT Sylvie-S step: each of GAT's
             kernels against its plain version on the card
             (``gat_kernels_phase``: bit for bit, the softmax within rtol
             1e-6, atol 1e-7) and on a second run, ``spmm_csr_heads`` at one
-            head against ``spmm_csr``; CUDA-event times beside the bound,
-            the plain version and the per-head library calls.
+            head against ``spmm_csr``, over the transposed CSR with
+            ``w_idx = perm_t`` against the gather + kernel path it
+            replaced, ``sddmm_heads`` also at ``SDDMM_SHAPES``; CUDA-event
+            times beside the bound, the plain version and the per-head
+            library calls.
 train-parity — deterministic 6-epoch Sylvie-S and Sylvie-A (eps_s=2) of each
             arch on ``yelp_like@small`` on the card and on the CPU: losses
             allclose at rtol 1e-4, halo caches and gradients allclose but
@@ -113,6 +117,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import inspect
 import json
 import subprocess
 import sys
@@ -306,9 +311,9 @@ def bound(n_bytes: float, n_ops: float,
 
 def profile_device(fn, label: str):
     """Run ``fn`` once under ``torch.profiler``; print its device time by
-    kernel and return (fn's result, host ms, device-busy ms, {group: ms}) with
-    the groups flash kernel / SpMM / GAT kernels / quantize / dequantize /
-    matrix products (cuBLAS) / everything else."""
+    kernel and return (fn's result, host ms, device-busy ms, {group: ms},
+    {kernel: launches}) with the groups flash kernel / SpMM / GAT kernels /
+    quantize / dequantize / matrix products (cuBLAS) / everything else."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -341,7 +346,7 @@ def profile_device(fn, label: str):
     for e in sorted(on_dev, key=lambda e: -e.self_device_time_total)[:8]:
         log(f"[profile]   {e.self_device_time_total / 1e3:9.3f} ms "
             f"{e.count:5d}x  {e.key[:100]}")
-    return out, wall, busy, groups
+    return out, wall, busy, groups, {e.key: e.count for e in on_dev}
 
 
 def lm_phase(all_kernels: dict) -> dict:
@@ -565,12 +570,16 @@ def flash_phase(q, k, v) -> dict:
 @contextlib.contextmanager
 def recording(owner, name: str, calls: list):
     """Wrap ``owner.name`` so that each call appends its arguments to
-    ``calls``; restored on exit."""
+    ``calls``, all of them in the signature's order (keywords and defaults
+    included); restored on exit."""
     real = getattr(owner, name)
+    sig = inspect.signature(real)
 
-    def wrapper(*args):
-        calls.append(args)
-        return real(*args)
+    def wrapper(*args, **kwargs):
+        bound = sig.bind(*args, **kwargs)
+        bound.apply_defaults()
+        calls.append(tuple(bound.arguments.values()))
+        return real(*args, **kwargs)
     setattr(owner, name, wrapper)
     try:
         yield
@@ -647,9 +656,15 @@ def train_phase(all_kernels: dict) -> dict:
             log(f"[train] {tag} ({tr.policy.name}): {json.dumps(res)}")
             if name == "sylvie_a" and arch != "graphsage":
                 for mode in ("sync", "async"):      # epochs 20 (sync), 21
-                    profile_device(tr.train_epoch,
-                                   f"one {mode} epoch of {arch} Sylvie-A "
-                                   f"(epoch {tr.epoch})")
+                    *_, by_kernel = profile_device(
+                        tr.train_epoch, f"one {mode} epoch of {arch} "
+                        f"Sylvie-A (epoch {tr.epoch})")
+                    # the backward reads alpha through perm_t: no gather
+                    gathers = {k: n for k, n in by_kernel.items()
+                               if "vectorized_gather_kernel" in k}
+                    check(arch != "gat" or not gathers,
+                          f"[train] a {mode} GAT epoch launched index "
+                          f"gathers: {gathers}")
             if name == "sylvie_s" and arch == "gcn":
                 # one more step with its backward tensors recorded
                 rec = dict(aggregate=[], scatter=[], quantize=[])
@@ -739,6 +754,41 @@ def train_kernels_phase(rec: dict, block) -> dict:
     return res
 
 
+# sddmm_heads at other shapes than the step's: (tag, heads, columns of the
+# step's (n, 256) tables, offset view)
+SDDMM_SHAPES = (("4 heads, dh 16", 4, 64, False),
+                ("4 heads, dh 64, offset view", 4, 256, True),
+                ("4 heads, dh 63", 4, 252, False),
+                ("1 head, dh 256", 1, 256, False),
+                ("2 heads, dh 128", 2, 256, False),
+                ("8 heads, dh 32", 8, 256, False))
+
+
+def sddmm_shapes(g: torch.Tensor, table: torch.Tensor, csr) -> dict:
+    """sddmm_heads against its plain version, bit for bit and the same bits
+    on a second run, at ``SDDMM_SHAPES`` over the step's CSR: the first
+    columns of its g and table, or a copy starting one float into its
+    buffer (not 16-byte aligned: the 4-byte copies). Returns ms by tag."""
+    from repro_torch.kernels.gat import ops as gops
+    from repro_torch.kernels.gat import ref as gref
+
+    out = {}
+    for tag, heads, width, offset in SDDMM_SHAPES:
+        gg, tt = (x[:, :width].contiguous() for x in (g, table))
+        if offset:
+            gg, tt = shifted(gg), shifted(tt)
+        got, again = (gops.sddmm_heads(gg, tt, csr, heads) for _ in "ab")
+        want = gref.sddmm_heads_ref(gg, tt, csr, heads)
+        err = float((got - want).abs().max())
+        check(same_bits(got, want) and same_bits(got, again),
+              f"[gat-kernels] sddmm_heads at {tag}: bit-equal to the plain "
+              f"version and twice (max abs err {err})")
+        out[tag] = cuda_ms(lambda: gops.sddmm_heads(gg, tt, csr, heads))
+    log(f"[gat-kernels] sddmm_heads bit-equal to its plain version, twice, "
+        f"at {[t[0] for t in SDDMM_SHAPES]}; ms {json.dumps(out)}")
+    return out
+
+
 def _outputs(x) -> tuple:
     return (x,) if torch.is_tensor(x) else tuple(x)
 
@@ -746,15 +796,21 @@ def _outputs(x) -> tuple:
 def gat_kernels_phase(rec: dict, block) -> dict:
     """GAT's four kernels on the inputs one Sylvie-S step of GAT 4x64 on
     reddit_like@paper gave them, each against its plain version run on the
-    card: spmm_csr_heads (forward over the CSR, backward over the transposed
-    CSR), sddmm_heads and gat_softmax_bwd (both modes) bit for bit (the same
-    order, products and adds rounded apart); gat_softmax within rtol 1e-6,
-    atol 1e-7, because its ``expf`` and ``torch.exp`` need not round alike
-    (whether it came out bit-equal is printed); spmm_csr_heads at one head
-    bit-equal to spmm_csr; every kernel the same bits on a second run. Then
-    CUDA-event times beside the bytes-or-operations bound, the plain version
-    and, for the per-head SpMM and the SDDMM, the library calls (one per
-    head: ``torch.sparse.mm``, ``torch.sparse.sampled_addmm``)."""
+    card: spmm_csr_heads (forward over the CSR; backward over the transposed
+    CSR, reading alpha through ``w_idx = perm_t``, against the plain version
+    over ``alpha[perm_t]`` and against the gather + kernel path that it
+    replaced), sddmm_heads and gat_softmax_bwd (both modes) bit for bit (the
+    same order, products and adds rounded apart); gat_softmax within rtol
+    1e-6, atol 1e-7, because its ``expf`` and ``torch.exp`` need not round
+    alike (whether it came out bit-equal is printed); spmm_csr_heads at one
+    head bit-equal to spmm_csr; every kernel the same bits on a second run.
+    sddmm_heads also bit for bit at other shapes (``SDDMM_SHAPES``: dh 16,
+    an offset view that takes the 4-byte copies, dh 63, 1 / 2 / 8 heads).
+    Then CUDA-event times beside the bytes-or-operations bound, the plain
+    version and, for the per-head SpMM and the SDDMM, the library calls (one
+    per head: ``torch.sparse.mm``, ``torch.sparse.sampled_addmm``); the
+    replaced gather + kernel path and the gather alone beside the
+    transposed per-head SpMM."""
     from repro_torch.kernels.gat import ops as gops
     from repro_torch.kernels.gat import ref as gref
     from repro_torch.kernels.spmm import ops as sops
@@ -767,10 +823,17 @@ def gat_kernels_phase(rec: dict, block) -> dict:
                  ("softmax_bwd", 2), ("row_sums_t", 2)):
         check(len(rec[k]) == n, f"[gat-kernels] {len(rec[k])} recorded "
               f"{k} calls in a GAT step, expected {n}")
-    table, _, alpha = rec["spmm_heads"][0]           # layer 0, forward
-    g, csr_b, alpha_t = rec["spmm_heads"][2]         # layer 1, backward
+    table, _, alpha, _ = rec["spmm_heads"][0]        # layer 0, forward
+    g, csr_b, alpha_b, w_idx = rec["spmm_heads"][2]  # layer 1, backward
     check(csr_b is csr_t and table.shape[1] == 256 and alpha.shape[1] == 4,
           "[gat-kernels] the step's CSRs at width 256, 4 heads")
+    # the backward reads the forward's alpha itself (the same storage)
+    # through the block's own perm_t: no transposed copy
+    check(w_idx.data_ptr() == perm.data_ptr() and alpha_b.data_ptr()
+          == rec["spmm_heads"][1][2].data_ptr(),
+          "[gat-kernels] the backward's per-head SpMM takes layer 1's alpha "
+          "with w_idx = perm_t")
+    alpha_t = torch.index_select(alpha_b, 0, perm)   # the replaced gather
     s_src, s_dst, _ = rec["softmax"][0]
     g_s, table_s, _, n_heads = rec["sddmm_heads"][0]
     a_b, da_b, ss_b, sd_b, _ = rec["softmax_bwd"][0]
@@ -788,10 +851,12 @@ def gat_kernels_phase(rec: dict, block) -> dict:
                            lambda: sref.spmm_heads_ref(table, csr, alpha),
                            True, cols * d * 4 + plan_bytes + nnz * h * 4
                            + rows * d * 4, 2 * nnz * d),
-        "spmm_csr_heads_t": (lambda: sops.spmm_heads(g, csr_t, alpha_t),
+        "spmm_csr_heads_t": (lambda: sops.spmm_heads(g, csr_t, alpha_b,
+                                                     w_idx=perm),
                              lambda: sref.spmm_heads_ref(g, csr_t, alpha_t),
                              True, rows * d * 4 + (cols + 1) * 4 + nnz * 4
-                             + nnz * h * 4 + cols * d * 4, 2 * nnz * d),
+                             + nnz * h * 4 + nnz * 4 + cols * d * 4,
+                             2 * nnz * d),
         "sddmm_heads": (lambda: gops.sddmm_heads(g_s, table_s, csr, h),
                         lambda: gref.sddmm_heads_ref(g_s, table_s, csr, h),
                         True, (rows + cols) * d * 4 + plan_bytes
@@ -825,16 +890,30 @@ def gat_kernels_phase(rec: dict, block) -> dict:
                                                             warmup=1),
                          bound_ms=tb, bound_by=to, library_ms=None,
                          shape=[rows, cols, d, nnz, h])
+        if name.startswith(("spmm_csr_heads", "sddmm")):
+            # the table rows they gather, a d-wide row per edge, and the
+            # rate at which they gather them
+            res[name]["gathered_gb"] = nnz * d * 4 / 1e9
+            res[name]["gather_tb_s"] = nnz * d * 4 / res[name]["ms"] / 1e9
         log(f"[gat-kernels] {name}: {json.dumps(res[name])}")
-    # the backward carries alpha into the transposed order by one gather
+    # the path the backward took before w_idx: gather alpha into the
+    # transposed order, then the kernel; and the gather alone (the yardstick)
+    gather_path = lambda: sops.spmm_heads(
+        g, csr_t, torch.index_select(alpha_b, 0, perm))
+    check(same_bits(sops.spmm_heads(g, csr_t, alpha_b, w_idx=perm),
+                    gather_path()),
+          "[gat-kernels] spmm_csr_heads over csr_t with w_idx = perm_t == "
+          "the gather + kernel path, bit for bit")
+    res["spmm_csr_heads_t"]["gather_path_ms"] = cuda_ms(gather_path)
     res["alpha_t_gather"] = dict(
-        ms=cuda_ms(lambda: torch.index_select(alpha, 0, perm)),
-        indexing_ms=cuda_ms(lambda: alpha[perm]),
+        ms=cuda_ms(lambda: torch.index_select(alpha_b, 0, perm)),
+        indexing_ms=cuda_ms(lambda: alpha_b[perm]),
         bound_ms=bound(2 * nnz * h * 4 + nnz * 4, 0)[0])
-    check(same_bits(torch.index_select(rec["spmm_heads"][1][2], 0, perm),
-                    alpha_t),           # layer 1: forward, then backward
-          "[gat-kernels] the step's alpha[perm_t] is the gather's")
-    log(f"[gat-kernels] alpha[perm_t]: {json.dumps(res['alpha_t_gather'])}")
+    t = res["spmm_csr_heads_t"]
+    log(f"[gat-kernels] spmm_csr_heads over csr_t: {t['ms']:.4f} ms with "
+        f"w_idx, {t['gather_path_ms']:.4f} ms gather + kernel (bit-equal); "
+        f"alpha[perm_t] alone: {json.dumps(res['alpha_t_gather'])}")
+    res["sddmm_heads"]["shapes"] = sddmm_shapes(g_s, table_s, csr)
     one = alpha[:, :1].contiguous()
     check(same_bits(sops.spmm_heads(table, csr, one), sops.spmm(
         table, dataclasses.replace(csr, w=alpha[:, 0].contiguous()))),
@@ -1309,7 +1388,14 @@ def main() -> int:
             bit_equal=main["bit_equal"], launches_per_path=per_path[name],
             **({f"transposed_{k}": twin[k] for k in (
                 "ms", "plain_ms", "bound_ms", "bound_by", "bit_equal")}
-               if twin else {})))
+               if twin else {}),
+            **({k: main[k] for k in ("gathered_gb", "gather_tb_s")
+                if k in main}),
+            **({"transposed_gather_path_ms": twin["gather_path_ms"],
+                "transposed_gather_tb_s": twin["gather_tb_s"]}
+               if twin and "gather_path_ms" in twin else {}),
+            **({"other_shapes_ms": main["shapes"]} if "shapes" in main
+               else {})))
     meta = lm_kernels["flash_fwd"]
     summary.append(dict(
         name="flash_fwd", route="cuda", source=meta["source"],

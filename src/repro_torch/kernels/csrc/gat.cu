@@ -23,8 +23,14 @@
 //                                   table[col_e, h*dh + k], k in order.
 //
 // What bounds them on an H100: bytes. Per edge and head the softmax does a
-// handful of flops and an expf against 4-byte gathers and writes; the SDDMM
-// does 2*dh flops against 8*dh gathered bytes (0.25 flop/byte).
+// handful of flops and an expf against 4-byte gathers and writes. The SDDMM
+// does 2*dh flops per (edge, head) against the dh floats of the gathered
+// row table[col_e]: nnz * d * 4 bytes of gathers (1.66 GB for GAT 4x64 on
+// reddit_like@paper), 0.5 flop/byte. Its least traffic (one read of the
+// table, g and the CSR, one write of dalpha) is some 10x less, but a row is
+// read once per edge that names it, and only what L2 (50 MB) still holds of
+// the 100 MB table comes back cheaply: the rate to aim at is that of
+// spmm_csr_heads, which gathers the same bytes.
 //
 // Design. The rules of spmm.cu: no atomics, and every sum in an order the
 // CSR alone fixes, through the same host work plan (ref.py::split_plan). A
@@ -44,9 +50,25 @@
 //     right for a sum) and, for the softmax, every warp then normalizes its
 //     own segments. So a hub no longer runs serially on one warp, and needs
 //     no second launch;
-//   * SDDMM: one warp per work unit; thread (edge, head) sums its dh
-//     products in k order, reading float4 where dh and the pointers allow.
-//     A segment unit finds its row through the plan's long rows.
+//   * SDDMM: a block of one warp per work unit. A thread that read its own
+//     (edge, head) slice from global memory made a warp's load touch 32
+//     rows, 16 bytes each, so every 32-byte sector came through L1 once per
+//     16 iterations: 2.6 TB/s of gathers. Instead the warp stages batches
+//     of 32 / H edges' rows in shared memory, double-buffered so one batch
+//     is in flight while the last is summed, and g's row once per unit;
+//     thread (edge, head) then sums its dh products in k order from shared
+//     memory, the rows padded so that the 8 lanes of a cycle, 8 edges of
+//     one head, read 8 different bank groups. The copies are bulk copies
+//     of the Tensor Memory Accelerator, one per edge's row, completing on
+//     an mbarrier per stage: with 16-byte cp.async copies (neighbouring
+//     lanes on neighbouring pieces) the copies alone took the kernel's
+//     whole time, also from a table that L2 held; and one warp per block,
+//     not four, lets a finished unit's slot refill without waiting for its
+//     block's longest unit. Head slices longer than kChunk floats are
+//     staged in chunks, the sum carried over, so shared memory stays
+//     bounded. dh not a multiple of 4, or pointers not 16-byte aligned,
+//     take 4-byte cp.async copies. A segment unit finds its row through the
+//     plan's long rows.
 // The kernels allocate nothing; the wrappers pass outputs and the partials'
 // workspace (n_partials, H).
 
@@ -315,21 +337,97 @@ RowArgs plan_args(const int* row_ptr, const int* col, const int* units,
   return a;
 }
 
-// dalpha[e, h] for the units' edges; thread t of a unit's warp takes the
-// (edge, head) pairs t, t + 32, ... of the unit.
-template <int VEC>
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+// --- SDDMM ------------------------------------------------------------------
+constexpr int kChunk = 64;        // floats of a head slice staged at a time
+constexpr int kStages = 2;        // batches staged at once (a ring)
+constexpr int kMaxSmem = 232448;  // bytes of shared memory a block may use
+
+// The floats from one staged piece of len floats to the next. The aligned
+// path reads float4, 8 lanes a shared-memory cycle: an odd number of 16-byte
+// units puts 8 neighbouring pieces in 8 different groups of 4 banks. The
+// scalar path reads floats: an odd pitch puts neighbouring pieces in
+// different banks.
+__host__ __device__ __forceinline__ int slice_pitch(int len, int vec) {
+  return vec == 4 ? 4 * (((len + 3) / 4) | 1) : (len | 1);
+}
+
+// A block's shared memory, in floats: kStages mbarriers (16 bytes kept for
+// each), g's row (H slices of dh, padded) and kStages batches of 32 / H
+// edges, each edge's H chunks of kc floats side by side, padded.
+__host__ __device__ __forceinline__ int sddmm_smem_floats(int n_heads, int dh,
+                                                          int vec) {
+  const int kc = dh < kChunk ? dh : kChunk;
+  return 4 * kStages + n_heads * slice_pitch(dh, vec) +
+         kStages * (32 / n_heads) * slice_pitch(n_heads * kc, vec);
+}
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+// The scalar path: a 4-byte asynchronous copy.
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src));
+}
+
+// The aligned path: one bulk copy by the Tensor Memory Accelerator, bytes a
+// multiple of 16, both addresses 16-byte aligned; its completion counts
+// against the mbarrier bar.
+__device__ __forceinline__ void bulk_copy(float* dst, const float* src,
+                                          unsigned bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void bar_expect(uint64_t* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(smem_u32(bar)), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void bar_wait(uint64_t* bar, unsigned parity) {
+  unsigned done = 0;
+  while (!done)
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+}
+
+// dalpha[e, h] = sum_k g[r, h*dh + k] * table[col_e, h*dh + k] for the
+// edges of the block's unit; the block is one warp. A stage is a batch of
+// kEdges = 32 / H edges and one chunk [k0, k0 + kc) of every head: 32 (edge,
+// head) slices, thread t's that of edge t % kEdges, head t / kEdges, so the
+// 8 lanes of a shared-memory cycle read 8 edges' rows. The warp stages the
+// gathered rows kStages batches ahead while it sums: on the aligned path
+// (VEC 4) with bulk copies, a lane per edge (its whole row, where one chunk
+// holds the head) or per slice, counted by an mbarrier per stage; on the
+// scalar path with 4-byte cp.async, neighbouring lanes on neighbouring
+// floats. g's row r is staged once per unit. Thread t sums its slice's
+// products in k order, carrying its sum from chunk to chunk, and writes it
+// after the last: the order of sddmm_heads_ref.
+template <int H, int VEC>
+__global__ void __launch_bounds__(32)
 sddmm_kernel(const float* __restrict__ g, const float* __restrict__ table,
              const int* __restrict__ col, const int* __restrict__ units,
-             int n_units, const int* __restrict__ long_rows,
+             const int* __restrict__ long_rows,
              const int* __restrict__ long_ptr, int n_long,
-             float* __restrict__ out, int n_rows, int n_heads, int dh) {
+             float* __restrict__ out, int n_rows, int dh) {
   using V = typename std::conditional<VEC == 4, float4, float>::type;
-  const int lane = threadIdx.x & 31;
-  const int unit = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (unit >= n_units) return;
+  constexpr int kEdges = 32 / H;
+  extern __shared__ __align__(16) float smem[];
+  const int lane = threadIdx.x, unit = blockIdx.x;
   const int e0 = __ldg(units + 3 * unit);
   const int e1 = __ldg(units + 3 * unit + 1);
+  if (e0 >= e1) return;  // an empty row: no edge, nothing to write
   int r = __ldg(units + 3 * unit + 2);
   if (r >= n_rows) {  // a segment: its row is the long row holding the slot
     const int slot = r - n_rows;
@@ -340,26 +438,147 @@ sddmm_kernel(const float* __restrict__ g, const float* __restrict__ table,
     }
     r = __ldg(long_rows + lo);
   }
-  const int d = n_heads * dh;
-  const int pairs = (e1 - e0) * n_heads;
-  for (int q = lane; q < pairs; q += 32) {
-    const int e = e0 + q / n_heads, h = q - (q / n_heads) * n_heads;
-    const V* gr = reinterpret_cast<const V*>(g + (int64_t)r * d + h * dh);
-    const V* tr = reinterpret_cast<const V*>(
-        table + (int64_t)__ldg(col + e) * d + h * dh);
-    float acc = 0.f;
-    for (int k = 0; k < dh / VEC; ++k) {
-      const V gv = __ldg(gr + k), tv = __ldg(tr + k);
-      if constexpr (VEC == 4) {
-        acc = __fadd_rn(acc, __fmul_rn(gv.x, tv.x));
-        acc = __fadd_rn(acc, __fmul_rn(gv.y, tv.y));
-        acc = __fadd_rn(acc, __fmul_rn(gv.z, tv.z));
-        acc = __fadd_rn(acc, __fmul_rn(gv.w, tv.w));
-      } else {
-        acc = __fadd_rn(acc, __fmul_rn(gv, tv));
+  const int d = H * dh;
+  const int kc = dh < kChunk ? dh : kChunk;
+  const int gp = slice_pitch(dh, VEC), ep = slice_pitch(H * kc, VEC);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem);
+  float* g_s = smem + 4 * kStages;
+  float* buf = g_s + H * gp;  // stage s in buf + (s % kStages) * kEdges * ep
+  const int n_chunks = (dh + kc - 1) / kc;
+  const int n_stages = (e1 - e0 + kEdges - 1) / kEdges * n_chunks;
+  const float* grow = g + (int64_t)r * d;
+  if (VEC == 4 && lane == 0) {
+    for (int k = 0; k < kStages; ++k)
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
+          smem_u32(bars + k)));
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncwarp();
+  if (VEC == 1) {
+#pragma unroll
+    for (int h = 0; h < H; ++h)
+      for (int k = lane; k < dh; k += 32)
+        cp_async4(g_s + h * gp + k, grow + h * dh + k);
+  }
+
+  int my_c = 0;  // the column of edge (window start) + lane
+  auto issue = [&](int s) {
+    const int b = s / n_chunks, k0 = (s - b * n_chunks) * kc;
+    const int eb = e0 + b * kEdges;
+    const int nb = e1 - eb < kEdges ? e1 - eb : kEdges;
+    if (k0 == 0 && (b * kEdges & 31) == 0)  // a new window of 32 edges
+      my_c = eb + lane < e1 ? __ldg(col + eb + lane) : 0;
+    const int len = dh - k0 < kc ? dh - k0 : kc;
+    const int base = b * kEdges & 31;  // the batch's first lane in the window
+    float* dst = buf + (s % kStages) * kEdges * ep;
+    if constexpr (VEC == 4) {
+      uint64_t* bar = bars + s % kStages;
+      if (lane == 0)
+        bar_expect(bar, nb * H * len * 4 + (s == 0 ? d * 4 : 0));
+      __syncwarp();
+      if (kc == dh) {  // an edge's H chunks are its whole row: one copy
+        const int c = __shfl_sync(kFull, my_c, (base + lane) & 31);
+        if (lane < nb)
+          bulk_copy(dst + lane * ep, table + (int64_t)c * d, d * 4, bar);
+      } else {         // a copy per (edge lane / H, head lane % H)
+        const int c = __shfl_sync(kFull, my_c, (base + lane / H) & 31);
+        if (lane < nb * H)
+          bulk_copy(dst + lane / H * ep + lane % H * kc,
+                    table + (int64_t)c * d + lane % H * dh + k0, len * 4,
+                    bar);
+      }
+      if (s == 0 && lane < H)  // g's row, in the first stage's count
+        bulk_copy(g_s + lane * gp, grow + lane * dh, dh * 4, bar);
+    } else {  // edge by edge, head by head, a float a lane
+      for (int i = 0; i < nb; ++i) {
+        const float* row =
+            table + (int64_t)__shfl_sync(kFull, my_c, base + i) * d + k0;
+#pragma unroll
+        for (int h = 0; h < H; ++h)
+          for (int k = lane; k < len; k += 32)
+            cp_async4(dst + i * ep + h * kc + k, row + h * dh + k);
       }
     }
-    out[(int64_t)e * n_heads + h] = acc;
+  };
+
+  for (int s = 0; s < kStages - 1; ++s) {  // a group each, empty or not
+    if (s < n_stages) issue(s);
+    asm volatile("cp.async.commit_group;\n" ::);
+  }
+  const int i = lane % kEdges, h = lane / kEdges;  // this thread's slice
+  float acc = 0.f;
+  for (int s = 0; s < n_stages; ++s) {
+    if (s + kStages - 1 < n_stages) issue(s + kStages - 1);
+    asm volatile("cp.async.commit_group;\n" ::);
+    if constexpr (VEC == 4)
+      bar_wait(bars + s % kStages, (unsigned)(s / kStages) & 1u);
+    else
+      asm volatile("cp.async.wait_group %0;\n" ::"n"(kStages - 1));
+    __syncwarp();  // stage s is in shared memory, from every lane's copies
+    const int b = s / n_chunks, k0 = (s - b * n_chunks) * kc;
+    const int len = dh - k0 < kc ? dh - k0 : kc;
+    const int e = e0 + b * kEdges + i;
+    if (e < e1) {
+      const V* ts = reinterpret_cast<const V*>(
+          buf + (s % kStages) * kEdges * ep + i * ep + h * kc);
+      const V* gs = reinterpret_cast<const V*>(g_s + h * gp + k0);
+      for (int k = 0; k < len / VEC; ++k) {
+        const V gv = gs[k], tv = ts[k];
+        if constexpr (VEC == 4) {
+          acc = __fadd_rn(acc, __fmul_rn(gv.x, tv.x));
+          acc = __fadd_rn(acc, __fmul_rn(gv.y, tv.y));
+          acc = __fadd_rn(acc, __fmul_rn(gv.z, tv.z));
+          acc = __fadd_rn(acc, __fmul_rn(gv.w, tv.w));
+        } else {
+          acc = __fadd_rn(acc, __fmul_rn(gv, tv));
+        }
+      }
+      if (k0 + len == dh) {
+        out[(int64_t)e * H + h] = acc;
+        acc = 0.f;
+      }
+    }
+    __syncwarp();  // every lane is done with the slot the next issue refills
+  }
+}
+
+template <int H, int VEC>
+int launch_sddmm(const float* g, const float* table, const int* col,
+                 const int* units, int n_units, const int* long_rows,
+                 const int* long_ptr, int n_long, float* out, int n_rows,
+                 int dh, cudaStream_t s) {
+  const int bytes = 4 * sddmm_smem_floats(H, dh, VEC);
+  if (bytes > kMaxSmem) return (int)cudaErrorInvalidValue;
+  if (bytes > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        sddmm_kernel<H, VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        bytes);
+    if (err != cudaSuccess) return (int)err;
+  }
+  sddmm_kernel<H, VEC><<<(unsigned)n_units, 32, bytes, s>>>(
+      g, table, col, units, long_rows, long_ptr, n_long, out, n_rows, dh);
+  return (int)cudaGetLastError();
+}
+
+template <int VEC>
+int dispatch_sddmm(const float* g, const float* table, const int* col,
+                   const int* units, int n_units, const int* long_rows,
+                   const int* long_ptr, int n_long, float* out, int n_rows,
+                   int n_heads, int dh, cudaStream_t s) {
+  switch (n_heads) {
+    case 1: return launch_sddmm<1, VEC>(g, table, col, units, n_units,
+                                        long_rows, long_ptr, n_long, out,
+                                        n_rows, dh, s);
+    case 2: return launch_sddmm<2, VEC>(g, table, col, units, n_units,
+                                        long_rows, long_ptr, n_long, out,
+                                        n_rows, dh, s);
+    case 4: return launch_sddmm<4, VEC>(g, table, col, units, n_units,
+                                        long_rows, long_ptr, n_long, out,
+                                        n_rows, dh, s);
+    case 8: return launch_sddmm<8, VEC>(g, table, col, units, n_units,
+                                        long_rows, long_ptr, n_long, out,
+                                        n_rows, dh, s);
+    default: return (int)cudaErrorInvalidValue;
   }
 }
 
@@ -429,20 +648,13 @@ int sddmm_heads(const float* g, const float* table, const int* col,
                 int n_heads, int dh, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (n_units <= 0) return (int)cudaSuccess;
-  if (n_heads <= 0 || dh <= 0) return (int)cudaErrorInvalidValue;
-  const unsigned grid = (unsigned)((n_units + kWarpsPerBlock - 1) /
-                                   kWarpsPerBlock);
+  if (dh <= 0) return (int)cudaErrorInvalidValue;
   const uintptr_t ptrs = (uintptr_t)g | (uintptr_t)table;
-  if (dh % 4 == 0 && ptrs % 16 == 0) {
-    sddmm_kernel<4><<<grid, kWarpsPerBlock * 32, 0, s>>>(
-        g, table, col, units, n_units, long_rows, long_ptr, n_long, out,
-        n_rows, n_heads, dh);
-  } else {
-    sddmm_kernel<1><<<grid, kWarpsPerBlock * 32, 0, s>>>(
-        g, table, col, units, n_units, long_rows, long_ptr, n_long, out,
-        n_rows, n_heads, dh);
-  }
-  return (int)cudaGetLastError();
+  if (dh % 4 == 0 && ptrs % 16 == 0)
+    return dispatch_sddmm<4>(g, table, col, units, n_units, long_rows,
+                             long_ptr, n_long, out, n_rows, n_heads, dh, s);
+  return dispatch_sddmm<1>(g, table, col, units, n_units, long_rows, long_ptr,
+                           n_long, out, n_rows, n_heads, dh, s);
 }
 
 }  // extern "C"

@@ -45,14 +45,20 @@
 // allocates nothing; the wrapper passes the partials' workspace.
 //
 // spmm_csr_heads is the same kernel with a weight per edge and head: GAT's
-// aggregation out[r, h*dh + k] = sum_e alpha[e, h] * table[col[e], h*dh + k]
-// (alpha (nnz, H) in CSR order), and its backward over the transposed CSR
-// with alpha carried into the transposed order. The JAX package computes it
-// as gather_src * alpha then segment_sum (src/repro/models/gnn/models.py:141,
-// outside any Pallas kernel). The vector width also divides dh, so a lane's
-// vector lies in one head and takes one weight, read per (edge, vector)
-// instead of shared by shuffles; the order of the adds is spmm_csr's, which
-// is its H = 1 case bit for bit.
+// aggregation out[r, h*dh + k] = sum_e alpha[w_idx[e], h] * table[col[e],
+// h*dh + k], and its backward over the transposed CSR. The JAX package
+// computes it as gather_src * alpha then segment_sum
+// (src/repro/models/gnn/models.py:141, outside any Pallas kernel). w_idx
+// (null: the identity) lets the backward read the forward's alpha through
+// perm_t (transposed edge -> forward edge) instead of gathering a transposed
+// copy first: that gather, a launch of its own, took about four times this
+// kernel's time on an H100. Lane l reads edge eb + l's index and its H <=
+// kMaxHeads weights once per 32-edge batch into the warp's slice of shared
+// memory, and the lanes read them from there, so the weights' indexed loads
+// are neither repeated per vector nor in the inner loop's chain of dependent
+// loads. The vector width also divides dh, so a lane's vector lies in one
+// head and takes one weight; the order of the adds is spmm_csr's, which is
+// its H = 1 case bit for bit.
 
 #include <cuda_runtime.h>
 
@@ -63,6 +69,7 @@ namespace {
 constexpr int kWarpsPerBlock = 8;
 constexpr int kBatch = 4;         // gathered table rows in flight per warp
 constexpr int kChunkFloats = 128; // columns of a row one warp sums
+constexpr int kMaxHeads = 8;      // spmm_csr_heads: weights per edge
 
 template <int VEC> struct VecT;
 template <> struct VecT<1> { using T = float; };
@@ -89,15 +96,19 @@ __device__ __forceinline__ float4 madd(float4 acc, float w, float4 t) {
 // units: (n_units, 3) int32 rows (e_begin, e_end, target); target < n_rows is
 // an output row, otherwise partial slot target - n_rows. Warp w of the grid's
 // row x sums unit x * kWarpsPerBlock + w over column chunk blockIdx.y.
-// HEADS: w is (nnz, n_heads) and column c takes w[e, c / dh].
+// HEADS: w is (n_w, n_heads) and column c of edge e takes w[w_idx[e], c /
+// dh] (w[e, c / dh] where w_idx is null).
 template <int VEC, int NV, bool HEADS>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 spmm_units_kernel(const float* __restrict__ table, const int* __restrict__ col,
                   const float* __restrict__ w, const int* __restrict__ units,
                   int n_units, float* __restrict__ part,
                   float* __restrict__ out, int n_rows, int d, int n_heads,
-                  int dh) {
+                  int dh, const int* __restrict__ w_idx) {
   using V = typename VecT<VEC>::T;
+  // HEADS: the weights of the warp's current 32 edges, [edge][head]
+  __shared__ float w_s[HEADS ? kWarpsPerBlock * 32 * kMaxHeads : 1];
+  float* ws = w_s + (HEADS ? (threadIdx.x >> 5) * 32 * kMaxHeads : 0);
   const int lane = threadIdx.x & 31;
   const int unit = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
   if (unit >= n_units) return;
@@ -123,6 +134,16 @@ spmm_units_kernel(const float* __restrict__ table, const int* __restrict__ col,
       my_c = __ldg(col + eb + lane);
       if (!HEADS) my_w = __ldg(w + eb + lane);
     }
+    if constexpr (HEADS) {
+      __syncwarp();  // every lane is done with the last batch's weights
+      if (lane < n) {
+        const int64_t src =
+            (int64_t)(w_idx ? __ldg(w_idx + eb + lane) : eb + lane) * n_heads;
+        for (int h = 0; h < n_heads; ++h)
+          ws[lane * n_heads + h] = __ldg(w + src + h);
+      }
+      __syncwarp();
+    }
     for (int j = 0; j < n; j += kBatch) {
       constexpr int NW = HEADS ? NV : 1;  // weights per edge: one per vector
       V t[kBatch][NV];
@@ -132,12 +153,12 @@ spmm_units_kernel(const float* __restrict__ table, const int* __restrict__ col,
         const int c = __shfl_sync(0xffffffffu, my_c, j + u);
         wu[u][0] = __shfl_sync(0xffffffffu, my_w, j + u);
         const V* tr = reinterpret_cast<const V*>(table + (int64_t)c * d);
-        const float* we = w + (int64_t)(eb + j + u) * n_heads;
+        const float* we = ws + (j + u) * n_heads;
 #pragma unroll
         for (int v = 0; v < NV; ++v) {
           const bool live = j + u < n && v0 + 32 * v < dv;
           t[u][v] = live ? __ldg(tr + v0 + 32 * v) : zero_of(V());
-          if (HEADS) wu[u][v < NW ? v : 0] = live ? __ldg(we + head[v]) : 0.f;
+          if (HEADS) wu[u][v < NW ? v : 0] = live ? we[head[v]] : 0.f;
         }
       }
 #pragma unroll
@@ -179,8 +200,9 @@ spmm_combine_kernel(const float* __restrict__ part,
 // of 32 * NV * VEC <= kChunkFloats floats (fewer where the row is narrower).
 template <int VEC, bool HEADS>
 void launch_units(const float* table, const int* col, const float* w,
-                  const int* units, int n_units, float* part, float* out,
-                  int n_rows, int d, int n_heads, int dh, cudaStream_t s) {
+                  const int* w_idx, const int* units, int n_units,
+                  float* part, float* out, int n_rows, int d, int n_heads,
+                  int dh, cudaStream_t s) {
   static_assert(kChunkFloats <= 128, "NV goes up to 4");
   constexpr int kMaxNV = kChunkFloats / (32 * VEC);
   const int dv = d / VEC;
@@ -191,37 +213,38 @@ void launch_units(const float* table, const int* col, const float* w,
   const dim3 block(kWarpsPerBlock * 32);
   if (nv == 1) {
     spmm_units_kernel<VEC, 1, HEADS><<<grid, block, 0, s>>>(
-        table, col, w, units, n_units, part, out, n_rows, d, n_heads, dh);
+        table, col, w, units, n_units, part, out, n_rows, d, n_heads, dh,
+        w_idx);
   } else if (nv == 2) {
     spmm_units_kernel<VEC, (kMaxNV >= 2 ? 2 : 1), HEADS>
         <<<grid, block, 0, s>>>(table, col, w, units, n_units, part, out,
-                                n_rows, d, n_heads, dh);
+                                n_rows, d, n_heads, dh, w_idx);
   } else {
     spmm_units_kernel<VEC, (kMaxNV >= 4 ? 4 : 1), HEADS>
         <<<grid, block, 0, s>>>(table, col, w, units, n_units, part, out,
-                                n_rows, d, n_heads, dh);
+                                n_rows, d, n_heads, dh, w_idx);
   }
 }
 
 // Both entry points: the widest vector that divides dh (so it lies in one
 // head) and that the pointers' alignment allows, then the combine pass.
 template <bool HEADS>
-int spmm_run(const float* table, const int* col, const float* w, int n_heads,
-             const int* units, int n_units, const int* long_rows,
-             const int* long_ptr, int n_long, float* part, float* out,
-             int n_rows, int d, cudaStream_t s) {
+int spmm_run(const float* table, const int* col, const float* w,
+             const int* w_idx, int n_heads, const int* units, int n_units,
+             const int* long_rows, const int* long_ptr, int n_long,
+             float* part, float* out, int n_rows, int d, cudaStream_t s) {
   if (n_units <= 0 || d <= 0) return (int)cudaSuccess;
   const int dh = d / n_heads;
   const uintptr_t ptrs = (uintptr_t)table | (uintptr_t)out | (uintptr_t)part;
   if (dh % 4 == 0 && ptrs % 16 == 0) {
-    launch_units<4, HEADS>(table, col, w, units, n_units, part, out, n_rows,
-                           d, n_heads, dh, s);
+    launch_units<4, HEADS>(table, col, w, w_idx, units, n_units, part, out,
+                           n_rows, d, n_heads, dh, s);
   } else if (dh % 2 == 0 && ptrs % 8 == 0) {
-    launch_units<2, HEADS>(table, col, w, units, n_units, part, out, n_rows,
-                           d, n_heads, dh, s);
+    launch_units<2, HEADS>(table, col, w, w_idx, units, n_units, part, out,
+                           n_rows, d, n_heads, dh, s);
   } else {
-    launch_units<1, HEADS>(table, col, w, units, n_units, part, out, n_rows,
-                           d, n_heads, dh, s);
+    launch_units<1, HEADS>(table, col, w, w_idx, units, n_units, part, out,
+                           n_rows, d, n_heads, dh, s);
   }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || n_long <= 0) return (int)err;
@@ -246,20 +269,24 @@ int spmm_csr(const float* table, const int* col, const float* w,
              const int* units, int n_units, const int* long_rows,
              const int* long_ptr, int n_long, float* part, float* out,
              int n_rows, int d, void* stream) {
-  return spmm_run<false>(table, col, w, 1, units, n_units, long_rows,
-                         long_ptr, n_long, part, out, n_rows, d,
+  return spmm_run<false>(table, col, w, nullptr, 1, units, n_units,
+                         long_rows, long_ptr, n_long, part, out, n_rows, d,
                          (cudaStream_t)stream);
 }
 
-// The same with w: (nnz, n_heads) float32, n_heads dividing d; column c of
-// the table is weighted by w[e, c / (d / n_heads)].
+// The same with w: (n_w, n_heads) float32, 1 <= n_heads <= 8 dividing d,
+// and w_idx: (nnz,) int32 in [0, n_w), or null for w_idx[e] = e (then n_w
+// = nnz); column c of the table is weighted by w[w_idx[e], c / (d /
+// n_heads)].
 int spmm_csr_heads(const float* table, const int* col, const float* w,
-                   int n_heads, const int* units, int n_units,
-                   const int* long_rows, const int* long_ptr, int n_long,
-                   float* part, float* out, int n_rows, int d, void* stream) {
-  if (n_heads <= 0 || d % n_heads) return (int)cudaErrorInvalidValue;
-  return spmm_run<true>(table, col, w, n_heads, units, n_units, long_rows,
-                        long_ptr, n_long, part, out, n_rows, d,
+                   const int* w_idx, int n_heads, const int* units,
+                   int n_units, const int* long_rows, const int* long_ptr,
+                   int n_long, float* part, float* out, int n_rows, int d,
+                   void* stream) {
+  if (n_heads <= 0 || n_heads > kMaxHeads || d % n_heads)
+    return (int)cudaErrorInvalidValue;
+  return spmm_run<true>(table, col, w, w_idx, n_heads, units, n_units,
+                        long_rows, long_ptr, n_long, part, out, n_rows, d,
                         (cudaStream_t)stream);
 }
 

@@ -28,6 +28,9 @@ SDDMM_HEADS = Kernel("sddmm_heads", "gat.cu",
                      [_P, _P, _P, _P, _I, _P, _P, _I, _P, _I, _I, _I, _P])
 # the head counts the CUDA kernels are built for
 CUDA_HEADS = (1, 2, 4, 8)
+# the widest rows (H * dh) the CUDA SDDMM stages: one warp's row of g and two
+# batches of slices must fit a block's shared memory
+SDDMM_MAX_WIDTH = 53_000
 
 
 def _on_cuda(ref: torch.Tensor, csr: CSR, n_heads: int, floats=(),
@@ -154,6 +157,9 @@ def sddmm_heads(g: torch.Tensor, table: torch.Tensor, csr: CSR,
                          f"{tuple(table.shape)} for {n_heads} heads")
     if not _on_cuda(g, csr, n_heads, (g, table)):
         return _r.sddmm_heads_ref(g, table, csr, n_heads)
+    if d > SDDMM_MAX_WIDTH:
+        raise ValueError(f"the CUDA SDDMM takes rows of at most "
+                         f"{SDDMM_MAX_WIDTH} floats, got {d}")
     out = torch.empty((csr.nnz, n_heads), dtype=torch.float32,
                       device=g.device)
     SDDMM_HEADS(g.data_ptr(), table.data_ptr(), csr.col.data_ptr(),

@@ -20,7 +20,10 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 SPMM = Kernel("spmm_csr", "spmm.cu",
               [_P, _P, _P, _P, _I, _P, _P, _I, _P, _P, _I, _I, _P])
 SPMM_HEADS = Kernel("spmm_csr_heads", "spmm.cu",
-                    [_P, _P, _P, _I, _P, _I, _P, _P, _I, _P, _P, _I, _I, _P])
+                    [_P, _P, _P, _P, _I, _P, _I, _P, _P, _I, _P, _P, _I, _I,
+                     _P])
+# the most heads spmm_csr_heads takes (its weights are staged per warp)
+CUDA_MAX_HEADS = 8
 
 
 def _check_cuda(table: torch.Tensor, csr: CSR,
@@ -74,18 +77,32 @@ def spmm(table: torch.Tensor, csr: CSR) -> torch.Tensor:
     return _launch(SPMM, table, csr, (csr.w.data_ptr(),))
 
 
-def spmm_heads(table: torch.Tensor, csr: CSR, w: torch.Tensor) -> torch.Tensor:
-    """The per-head SpMM: ``out[r, c] = sum_e w[e, c // dh] * table[col[e],
-    c]`` with ``w`` (nnz, H) in CSR order (``csr.w`` is not read) and the
-    (n_cols, H * dh) table's columns in H groups of dh. The order of
-    :func:`spmm`, which is its ``H = 1`` case bit for bit."""
+def spmm_heads(table: torch.Tensor, csr: CSR, w: torch.Tensor,
+               w_idx: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The per-head SpMM: ``out[r, c] = sum_e w[w_idx[e], c // dh] *
+    table[col[e], c]`` over the (n_cols, H * dh) table's columns in H groups
+    of dh (``csr.w`` is not read). ``w_idx`` (nnz,) int32 picks edge ``e``'s
+    row of ``w`` (n_w, H); without it ``w`` is (nnz, H) in CSR order. The
+    order of :func:`spmm`, which is its ``H = 1`` case bit for bit."""
     _check_table(table, csr)
-    if w.dim() != 2 or w.shape[0] != csr.nnz or w.shape[1] < 1 \
+    if w_idx is not None and (
+            w_idx.shape != (csr.nnz,) or w_idx.dtype != torch.int32
+            or w_idx.device != table.device or not w_idx.is_contiguous()):
+        raise ValueError(f"w_idx must be contiguous int32 ({csr.nnz},) on "
+                         f"{table.device}, got {w_idx.dtype} "
+                         f"{tuple(w_idx.shape)} on {w_idx.device}")
+    rows = csr.nnz if w_idx is None else w.shape[0]
+    if w.dim() != 2 or w.shape[0] != rows or w.shape[1] < 1 \
             or table.shape[1] % w.shape[1]:
-        raise ValueError(f"w must be ({csr.nnz}, H) with H dividing the "
+        raise ValueError(f"w must be ({rows}, H) with H dividing the "
                          f"table's width {table.shape[1]}, got "
                          f"{tuple(w.shape)}")
     if table.device.type == "cpu":
-        return _r.spmm_heads_ref(table, csr, w)
+        return _r.spmm_heads_ref(table, csr, w, w_idx)
     _check_cuda(table, csr, w)
-    return _launch(SPMM_HEADS, table, csr, (w.data_ptr(), w.shape[1]))
+    if w.shape[1] > CUDA_MAX_HEADS:
+        raise ValueError(f"the CUDA kernel takes at most {CUDA_MAX_HEADS} "
+                         f"heads, got {w.shape[1]}")
+    return _launch(SPMM_HEADS, table, csr, (
+        w.data_ptr(), None if w_idx is None else w_idx.data_ptr(),
+        w.shape[1]))

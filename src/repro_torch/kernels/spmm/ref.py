@@ -20,6 +20,7 @@ the CPU and on CUDA alike, and one CSR gives the same bits on every run.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
@@ -179,17 +180,20 @@ def spmm_ref(table: torch.Tensor, csr: CSR) -> torch.Tensor:
                        table.shape[1], table.dtype, table.device)
 
 
-def spmm_heads_ref(table: torch.Tensor, csr: CSR,
-                   w: torch.Tensor) -> torch.Tensor:
-    """The per-head SpMM: ``w`` (nnz, H) in CSR order replaces ``csr.w``;
-    column ``c`` of the (n_cols, H * dh) table is weighted by ``w[e, c //
-    dh]``: ``out[r, h*dh + k] = sum_e w[e, h] * table[col[e], h*dh + k]``,
-    in the order of :func:`spmm_ref`, which is its ``H = 1`` case bit for
-    bit."""
+def spmm_heads_ref(table: torch.Tensor, csr: CSR, w: torch.Tensor,
+                   w_idx: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The per-head SpMM: ``w`` (n_w, H) replaces ``csr.w``, edge ``e``
+    taking row ``w_idx[e]`` of it (row ``e`` without ``w_idx``, ``w`` then
+    (nnz, H) in CSR order); column ``c`` of the (n_cols, H * dh) table is
+    weighted by ``w[w_idx[e], c // dh]``: ``out[r, h*dh + k] = sum_e
+    w[w_idx[e], h] * table[col[e], h*dh + k]``, in the order of
+    :func:`spmm_ref`, which is its ``H = 1`` case bit for bit."""
     n_heads, d = w.shape[1], table.shape[1]
     col = csr.col.to(torch.int64)
+    idx = None if w_idx is None else w_idx.to(torch.int64)
 
     def term(e):
         t = table[col[e]].view(-1, n_heads, d // n_heads)
-        return (w[e][:, :, None] * t).view(-1, d)
+        we = w[e] if idx is None else w[idx[e]]
+        return (we[:, :, None] * t).view(-1, d)
     return plan_reduce(term, csr, d, table.dtype, table.device)

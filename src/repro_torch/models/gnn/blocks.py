@@ -24,8 +24,9 @@ feature table (``halo_table``). Two ways to aggregate over them:
   softmax (``kernels.gat``) and the per-head SpMM forward; the per-head SpMM
   over the transposed CSR, an SDDMM and the softmax's backward in the
   backward pass. ``perm_t`` (transposed edge -> forward edge, built with
-  ``csr_t``) carries per-edge values (alpha, the scores' gradient) into the
-  transposed order by one fixed gather.
+  ``csr_t``) is the index through which the kernels over the transposed CSR
+  read per-edge values kept in forward order (alpha, the scores' gradient):
+  no transposed copy of them is gathered.
 """
 from __future__ import annotations
 
@@ -196,9 +197,11 @@ def agg_mean(block: GraphBlock, table: torch.Tensor) -> torch.Tensor:
 class _GatAggregate(torch.autograd.Function):
     """Forward: ``alpha = gat.softmax(s_src, s_dst, csr)``, ``out =
     spmm_heads(table, csr, alpha)``. Backward, from ``g = d out``:
-    ``d table = spmm_heads(g, csr_t, alpha[perm_t])``; ``dalpha =
-    sddmm_heads(g, table)``; ``dx, d s_dst = gat.softmax_bwd(alpha, dalpha,
-    ...)``; ``d s_src = gat.row_sums_t(dx, csr_t, perm_t)``."""
+    ``d table = spmm_heads(g, csr_t, alpha, w_idx=perm_t)`` (the kernel
+    reads alpha through ``perm_t``; nothing gathers ``alpha[perm_t]``);
+    ``dalpha = sddmm_heads(g, table)``; ``dx, d s_dst =
+    gat.softmax_bwd(alpha, dalpha, ...)``; ``d s_src = gat.row_sums_t(dx,
+    csr_t, perm_t)``."""
 
     @staticmethod
     def forward(ctx, table, s_src, s_dst, block: GraphBlock):
@@ -213,8 +216,7 @@ class _GatAggregate(torch.autograd.Function):
         blk, g = ctx.block, g.contiguous()
         d_table = d_src = d_dst = None
         if ctx.needs_input_grad[0]:
-            d_table = spmm_heads(g, blk.csr_t,
-                                 torch.index_select(alpha, 0, blk.perm_t))
+            d_table = spmm_heads(g, blk.csr_t, alpha, w_idx=blk.perm_t)
         if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
             dalpha = gat.sddmm_heads(g, table, blk.csr, alpha.shape[1])
             dx, d_dst = gat.softmax_bwd(alpha, dalpha, s_src, s_dst, blk.csr)

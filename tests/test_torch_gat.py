@@ -17,11 +17,17 @@ and in its transpose) and padding rows without edges:
   rtol 1e-5, atol 1e-6, the three gradients within rtol 1e-4, atol 2e-5 of
   values up to ~7 (the gradients of the scores cancel: ``d s_dst`` is a row
   sum of ``alpha (dalpha - c)``, mathematically small, so its error is held
-  absolutely); padding rows get 0 in both;
+  absolutely); padding rows get 0 in both; the backward calls no
+  ``torch.index_select``, and hands the per-head SpMM over the transposed
+  CSR the forward's alpha with ``w_idx = perm_t``;
 * the plain versions sum in the order the CSR's plan fixes: bit for bit an
   explicit loop over each row's edges, a split row by 128-edge segments
   whose partials add left to right; ``spmm_heads`` at one head equals
   ``spmm_ref`` bit for bit, and at four heads equals four one-head SpMMs;
+  with ``w_idx`` it equals ``spmm_heads`` of ``w[w_idx]`` bit for bit, and
+  the wrapper refuses a ``w_idx`` of another length, dtype or device; the
+  SDDMM's plain version sums each (edge, head) in k order, bit for bit an
+  explicit float32 loop at dh 3, 16 and 64;
 * the wrappers refuse devices other than the CPU and CUDA.
 """
 import dataclasses
@@ -40,6 +46,7 @@ from repro_torch.graph import formats, partition, synthetic
 from repro_torch.kernels.gat import ops as gops
 from repro_torch.kernels.gat import ref as gref
 from repro_torch.kernels.spmm import ops as sops
+from repro_torch.kernels.spmm import ref as sref
 from repro_torch.kernels.spmm.ref import (SEGMENT, csr_from_edges, spmm_ref,
                                           split_plan)
 from repro_torch.models.gnn import blocks as TB
@@ -135,7 +142,10 @@ def test_softmax_matches_jax_edge_softmax(blocks):
                                atol=1e-7)
 
 
-def test_gat_aggregate_value_and_vjp_match_jax(blocks):
+def test_gat_aggregate_value_and_vjp_match_jax(blocks, monkeypatch):
+    """Also: the backward gathers no transposed copy of alpha
+    (``torch.index_select`` raises), but hands the per-head SpMM over
+    ``csr_t`` the forward's alpha itself with ``w_idx = perm_t``."""
     pg, blk, jblk = blocks
     table, s_src, s_dst, ct = _inputs(pg, 1)
 
@@ -144,10 +154,24 @@ def test_gat_aggregate_value_and_vjp_match_jax(blocks):
         return out, vjp(ct)
     want, want_grads = jax.jit(run)(tuple(jnp.asarray(a) for a in (
         table, s_src, s_dst)), jnp.asarray(ct))
+
+    def no_gather(*args, **kwargs):
+        raise AssertionError("the GAT step gathers with torch.index_select")
+    calls, real = [], TB.spmm_heads
+
+    def spmm_heads(table, csr, w, w_idx=None):
+        calls.append((csr, w, w_idx))
+        return real(table, csr, w, w_idx)
+    monkeypatch.setattr(torch, "index_select", no_gather)
+    monkeypatch.setattr(TB, "spmm_heads", spmm_heads)
     args = [torch.from_numpy(a).requires_grad_() for a in (table, s_src,
                                                           s_dst)]
     got = TB.gat_aggregate(blk, *args)
     grads = torch.autograd.grad(got, args, torch.from_numpy(ct))
+    (fwd_csr, alpha, fwd_idx), (bwd_csr, bwd_w, bwd_idx) = calls
+    assert fwd_csr is blk.csr and fwd_idx is None
+    assert bwd_csr is blk.csr_t and bwd_idx is blk.perm_t
+    assert bwd_w is alpha                          # forward order, no copy
     np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
                                rtol=1e-5, atol=1e-6)
     for g, w in zip(grads, want_grads):
@@ -262,6 +286,100 @@ def test_spmm_heads_is_spmm_per_head():
         assert torch.equal(got[:, h * DH:(h + 1) * DH], per)
     with pytest.raises(ValueError):
         sops.spmm_heads(table, csr, torch.ones((csr.nnz, 5)))  # 5 ∤ 12
+
+
+def _small_csr_pair():
+    """``_small_csr``'s edges as a forward CSR (a 300-edge hub row of 3
+    segments, two empty rows), its transpose and ``perm_t``."""
+    rng = np.random.default_rng(3)
+    dst = np.concatenate([np.full(300, 4), rng.integers(0, 12, 60)])
+    dst = dst[(dst != 7) & (dst != 9)]
+    src = rng.integers(0, 30, dst.size)
+    w = np.ones(dst.size)
+    return (csr_from_edges(src, dst, w, 12, 30),
+            csr_from_edges(dst, src, w, 30, 12),
+            torch.from_numpy(TB.transpose_perm(src, dst)), rng)
+
+
+@pytest.mark.parametrize("which", ["forward", "transposed"])
+def test_spmm_heads_reads_w_through_w_idx(which):
+    """``spmm_heads(table, csr, w, w_idx)`` equals ``spmm_heads(table, csr,
+    w[w_idx])`` bit for bit, the plain version and the wrapper alike: over
+    the transposed CSR with ``perm_t`` (GAT's backward), and over the
+    forward CSR (its hub row split into 3 segments, its empty rows) with an
+    index that repeats rows of a ``w`` longer than nnz."""
+    csr, csr_t, perm_t, rng = _small_csr_pair()
+    assert csr_t.col.tolist() == gref.edge_rows(csr)[perm_t.long()].tolist()
+    if which == "transposed":
+        csr, w_idx = csr_t, perm_t
+        w = torch.from_numpy(rng.normal(0, 1, (csr.nnz, H)).astype(
+            np.float32))
+    else:
+        assert csr.long_rows.tolist() == [4] and csr.n_partials == 3
+        assert (torch.diff(csr.row_ptr) == 0).sum() == 2
+        w = torch.from_numpy(rng.normal(0, 1, (csr.nnz + 50, H)).astype(
+            np.float32))
+        w_idx = torch.from_numpy(rng.integers(0, w.shape[0], csr.nnz).astype(
+            np.int32))
+    table = torch.from_numpy(rng.normal(0, 1, (csr.n_cols, H * DH)).astype(
+        np.float32))
+    want = sref.spmm_heads_ref(table, csr, w[w_idx.long()])
+    assert torch.equal(sref.spmm_heads_ref(table, csr, w, w_idx=w_idx), want)
+    assert torch.equal(sops.spmm_heads(table, csr, w, w_idx=w_idx), want)
+
+
+def test_spmm_heads_reads_alpha_through_perm_t_over_the_stack(blocks):
+    """The same over the stacked block's transposed CSR (hub rows split)."""
+    pg, blk, _ = blocks
+    assert blk.csr_t.long_rows.numel()
+    rng = np.random.default_rng(5)
+    alpha = torch.from_numpy(rng.normal(0, 1, (blk.csr.nnz, H)).astype(
+        np.float32))
+    g = torch.from_numpy(rng.normal(0, 1, (blk.csr_t.n_cols, H * DH)).astype(
+        np.float32))
+    assert torch.equal(
+        sops.spmm_heads(g, blk.csr_t, alpha, w_idx=blk.perm_t),
+        sref.spmm_heads_ref(g, blk.csr_t, alpha[blk.perm_t.long()]))
+
+
+def test_spmm_heads_refuses_a_bad_w_idx():
+    csr, csr_t, perm_t, rng = _small_csr_pair()
+    table = torch.zeros((csr_t.n_cols, H * DH))
+    w = torch.zeros((csr.nnz, H))
+    for bad in (perm_t[:-1], perm_t.long(), perm_t.float(),
+                torch.zeros(csr.nnz, dtype=torch.int32, device="meta"),
+                torch.zeros((csr.nnz, 2), dtype=torch.int32)[:, 0]):
+        with pytest.raises(ValueError, match="w_idx"):
+            sops.spmm_heads(table, csr_t, w, w_idx=bad)
+    with pytest.raises(ValueError, match="w must be"):   # w_idx's rows of w
+        sops.spmm_heads(table, csr_t, torch.zeros((csr.nnz, 5)),
+                        w_idx=perm_t)
+
+
+@pytest.mark.parametrize("dh", [3, 16, 64])
+def test_sddmm_heads_ref_sums_in_k_order(dh):
+    """``sddmm_heads_ref`` (the plain version the card's staged kernel is
+    held to bit for bit) against an explicit float32 loop over k, edge by
+    edge and head by head, each product rounded before its add; the hub
+    row's segments and the empty rows included."""
+    csr, _ = _small_csr()
+    rng = np.random.default_rng(dh)
+    g = rng.normal(0, 1, (12, H * dh)).astype(np.float32)
+    table = rng.normal(0, 1, (30, H * dh)).astype(np.float32)
+    got = gops.sddmm_heads(torch.from_numpy(g), torch.from_numpy(table), csr,
+                           H).numpy()
+    col, rows = csr.col.numpy(), gref.edge_rows(csr).numpy()
+    want = np.empty((csr.nnz, H), np.float32)
+    for e in range(csr.nnz):
+        for h in range(H):
+            gr = g[rows[e], h * dh:(h + 1) * dh].tolist()
+            tr = table[col[e], h * dh:(h + 1) * dh].tolist()
+            acc = np.float32(0)
+            for a, b in zip(gr, tr):
+                acc = np.float32(acc + np.float32(np.float32(a)
+                                                  * np.float32(b)))
+            want[e, h] = acc
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
 
 
 def test_split_plan_segments_the_hub_row_as_the_kernels_read_it():
