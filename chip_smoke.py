@@ -102,9 +102,15 @@ gat-kernels — the tensors of one recorded GAT Sylvie-S step: each of GAT's
             1e-6, atol 1e-7) and on a second run, ``spmm_csr_heads`` at one
             head against ``spmm_csr``, over the transposed CSR with
             ``w_idx = perm_t`` against the gather + kernel path it
-            replaced, ``sddmm_heads`` also at ``SDDMM_SHAPES``; CUDA-event
-            times beside the bound, the plain version and the per-head
-            library calls.
+            replaced, ``sddmm_heads`` also at ``SDDMM_SHAPES``,
+            ``gat_softmax`` and ``gat_softmax_bwd`` (both modes) also at
+            ``GAT_ROW_SHAPES`` (a 50,000-edge row, rows of 0, 1, 128, 129
+            edges; 1, 2, 4, 8 heads); CUDA-event times beside the bound,
+            the plain version and the library calls (per head for the
+            per-head SpMM and the SDDMM; ``torch.sparse.softmax``, its
+            backward and ``index_add_`` for the softmax and the two modes
+            of its backward), and for those three each phase's device time
+            and the CUDA launches a call and a GAT step make.
 train-parity — deterministic 6-epoch Sylvie-S and Sylvie-A (eps_s=2) of each
             arch on ``yelp_like@small`` on the card and on the CPU: losses
             allclose at rtol 1e-4, halo caches and gradients allclose but
@@ -129,6 +135,10 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "tools"))
+from torch_timing import (cuda_ms, device_ms, kernel_times,  # noqa: E402
+                          softmax_library_ms)
+
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM HBM3 (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
 TF32_OPS_PER_S = 495e12      # H100 SXM TF32 on the tensor cores, dense
@@ -178,54 +188,6 @@ def log(msg: str) -> None:
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise RuntimeError(f"chip_smoke: check failed: {what}")
-
-
-def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
-    """Mean milliseconds of ``fn`` over ``iters`` calls, by CUDA events."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / iters
-
-
-def device_ms(fn, kernel: str, iters: int = 20, traces: int = 3) -> float:
-    """Device milliseconds per launch of the CUDA kernel whose name contains
-    ``kernel``: its self device time over the launches the trace holds, by
-    ``torch.profiler`` over ``iters`` calls of ``fn``, traced in a second
-    cycle after a first, warm-up one. No host time is in it, which CUDA
-    events around back-to-back calls of a short kernel cannot promise. The
-    trace may miss some launches of a kernel launched from a library of its
-    own (seen on the card: 8 of 20, and once all 20), so the count only has
-    to be nonzero, and a trace that holds none is taken again, up to
-    ``traces`` times."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, schedule
-    for _ in range(traces):
-        with profile(activities=[ProfilerActivity.CUDA],
-                     schedule=schedule(wait=0, warmup=1, active=1)) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-            prof.step()                      # the warm-up cycle ends here
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-        ev = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA and kernel in e.key]
-        n = sum(e.count for e in ev)
-        if n:
-            break
-        log(f"[profile] the trace held no launch of {kernel}; tracing again")
-    check(0 < n <= iters, f"the profiler saw {n} launches of {kernel} in "
-          f"{iters} calls, {traces} traces")
-    return sum(e.self_device_time_total for e in ev) / n / 1e3
 
 
 def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
@@ -333,7 +295,8 @@ def profile_device(fn, label: str):
         g = "flash" if "flash_fwd_kernel" in name else \
             "spmm" if "spmm_" in name else \
             "gat" if any(w in name for w in ("rows_unit_kernel",
-                                             "rows_hub_kernel",
+                                             "rows_segment_kernel",
+                                             "rows_long_kernel",
                                              "sddmm_kernel")) else \
             "quantize" if "quantize_pack_" in name else \
             "dequantize" if "unpack_dequantize" in name else \
@@ -789,8 +752,80 @@ def sddmm_shapes(g: torch.Tensor, table: torch.Tensor, csr) -> dict:
     return out
 
 
+# gat_softmax and gat_softmax_bwd at rows harder than the step's: (tag, heads,
+# offset views), each over one CSR of rows of GAT_ROW_LENGTHS edges (a row of
+# 50,000 edges is 391 segments, one of 1,300 is 11) from GAT_ROW_SOURCES
+# sources, columns drawn from SEED
+GAT_ROW_LENGTHS = (50_000, 0, 1, 128, 129, 1_300, 33)
+GAT_ROW_SOURCES = 10_000
+GAT_ROW_SHAPES = (("1 head", 1, False), ("2 heads", 2, False),
+                  ("4 heads", 4, False), ("8 heads", 8, False),
+                  ("2 heads, offset views", 2, True),
+                  ("4 heads, offset views", 4, True))
+
+
 def _outputs(x) -> tuple:
     return (x,) if torch.is_tensor(x) else tuple(x)
+
+
+def gat_row_shapes() -> dict:
+    """gat_softmax (within rtol 1e-6, atol 1e-7) and gat_softmax_bwd in both
+    modes (bit for bit) against their plain versions, and the same bits on a
+    second run, at ``GAT_ROW_SHAPES``. Mode 1 sums over the same CSR, a
+    random permutation of its edges standing for ``perm_t``. Offset views
+    start one float into their buffers, so the kernels take their 4-byte
+    loads. Returns {tag: {kernel: ms}}."""
+    from repro_torch.kernels.gat import ops as gops
+    from repro_torch.kernels.gat import ref as gref
+    from repro_torch.kernels.spmm.ref import csr_from_edges
+
+    rng = np.random.default_rng(SEED)
+    n_rows = len(GAT_ROW_LENGTHS)
+    dst = np.repeat(np.arange(n_rows), GAT_ROW_LENGTHS)
+    src = rng.integers(0, GAT_ROW_SOURCES, dst.size)
+    csr = csr_from_edges(src, dst, np.ones(dst.size), n_rows,
+                         GAT_ROW_SOURCES).to("cuda")
+    perm = torch.from_numpy(rng.permutation(csr.nnz).astype(np.int32)).cuda()
+    gen = torch.Generator("cuda").manual_seed(SEED)
+    out = {}
+    for tag, heads, offset in GAT_ROW_SHAPES:
+        def rand(rows):
+            t = torch.randn((rows, heads), device="cuda", generator=gen)
+            return shifted(t) if offset else t
+        s_src, s_dst, dalpha = (rand(n) for n in (GAT_ROW_SOURCES, n_rows,
+                                                  csr.nnz))
+        alpha = gops.softmax(s_src, s_dst, csr)
+        dx = gops.softmax_bwd(alpha, dalpha, s_src, s_dst, csr)[0]
+        if offset:
+            alpha, dx = shifted(alpha), shifted(dx)
+        cases = {
+            "gat_softmax": (lambda: gops.softmax(s_src, s_dst, csr),
+                            lambda: gref.gat_softmax_ref(s_src, s_dst, csr),
+                            False),
+            "gat_softmax_bwd": (
+                lambda: gops.softmax_bwd(alpha, dalpha, s_src, s_dst, csr),
+                lambda: gref.gat_softmax_bwd_ref(alpha, dalpha, s_src, s_dst,
+                                                 csr), True),
+            "gat_softmax_bwd_t": (lambda: gops.row_sums_t(dx, csr, perm),
+                                  lambda: gref.row_sums_t_ref(dx, csr, perm),
+                                  True)}
+        out[tag] = {}
+        for name, (kern, plain, exact) in cases.items():
+            got, again, want = (_outputs(f()) for f in (kern, kern, plain))
+            for a, b, w in zip(got, again, want):
+                err = float((a - w).abs().max())
+                check(same_bits(a, b), f"[gat-kernels] {name} at {tag}: "
+                      f"same bits twice")
+                check(same_bits(a, w) if exact else torch.allclose(
+                    a, w, rtol=1e-6, atol=1e-7),
+                      f"[gat-kernels] {name} at {tag}: against the plain "
+                      f"version (max abs err {err})")
+            out[tag][name] = cuda_ms(kern)
+    log(f"[gat-kernels] gat_softmax (tol) and gat_softmax_bwd in both modes "
+        f"(bit for bit) agree with their plain versions, twice, at "
+        f"{[t[0] for t in GAT_ROW_SHAPES]} over rows of {GAT_ROW_LENGTHS} "
+        f"edges; ms {json.dumps(out)}")
+    return out
 
 
 def gat_kernels_phase(rec: dict, block) -> dict:
@@ -805,12 +840,19 @@ def gat_kernels_phase(rec: dict, block) -> dict:
     alike (whether it came out bit-equal is printed); spmm_csr_heads at one
     head bit-equal to spmm_csr; every kernel the same bits on a second run.
     sddmm_heads also bit for bit at other shapes (``SDDMM_SHAPES``: dh 16,
-    an offset view that takes the 4-byte copies, dh 63, 1 / 2 / 8 heads).
-    Then CUDA-event times beside the bytes-or-operations bound, the plain
-    version and, for the per-head SpMM and the SDDMM, the library calls (one
-    per head: ``torch.sparse.mm``, ``torch.sparse.sampled_addmm``); the
-    replaced gather + kernel path and the gather alone beside the
-    transposed per-head SpMM."""
+    an offset view that takes the 4-byte copies, dh 63, 1 / 2 / 8 heads),
+    and the softmax and its backward at ``GAT_ROW_SHAPES``
+    (``gat_row_shapes``). Then CUDA-event times beside the
+    bytes-or-operations bound, the plain version and the library calls: for
+    the per-head SpMM and the SDDMM one per head (``torch.sparse.mm``,
+    ``torch.sparse.sampled_addmm``), for the softmax and its backward
+    ``torch.sparse.softmax``, its backward and, for mode 1, ``index_add_``
+    (``softmax_library_ms``); the replaced gather + kernel path and the
+    gather alone beside the transposed per-head SpMM. A call of the softmax
+    or its backward launches 2-3 kernels, its phases: their device times
+    (``torch.profiler``), their sum and their count stand beside its event
+    time, and the CUDA launches of a GAT step are printed beside
+    ``TRAIN_LAUNCHES``' wrapper calls."""
     from repro_torch.kernels.gat import ops as gops
     from repro_torch.kernels.gat import ref as gref
     from repro_torch.kernels.spmm import ops as sops
@@ -890,6 +932,16 @@ def gat_kernels_phase(rec: dict, block) -> dict:
                                                             warmup=1),
                          bound_ms=tb, bound_by=to, library_ms=None,
                          shape=[rows, cols, d, nnz, h])
+        if name.startswith("gat_softmax"):
+            # a call runs its phases as separate kernels, one launch each:
+            # their device times (torch.profiler) and their sum, the call's
+            # device time, with no host time or gap between launches in it
+            t = name.endswith("_t")     # the row sums: one phase less
+            hubs = (csr_t if t else csr).long_rows.numel() > 0
+            ph = kernel_times(kern, expect=1 + hubs * (1 if t else 2))
+            res[name]["device_ms"] = sum(v[0] for v in ph.values())
+            res[name]["phases_ms"] = {k: v[0] for k, v in ph.items()}
+            res[name]["cuda_launches_per_call"] = len(ph)
         if name.startswith(("spmm_csr_heads", "sddmm")):
             # the table rows they gather, a d-wide row per edge, and the
             # rate at which they gather them
@@ -914,6 +966,30 @@ def gat_kernels_phase(rec: dict, block) -> dict:
         f"w_idx, {t['gather_path_ms']:.4f} ms gather + kernel (bit-equal); "
         f"alpha[perm_t] alone: {json.dumps(res['alpha_t_gather'])}")
     res["sddmm_heads"]["shapes"] = sddmm_shapes(g_s, table_s, csr)
+    rows_ms = gat_row_shapes()
+    for name in ("gat_softmax", "gat_softmax_bwd", "gat_softmax_bwd_t"):
+        res[name]["shapes"] = {tag: ms[name] for tag, ms in rows_ms.items()}
+    lib = softmax_library_ms(
+        csr, s_src, s_dst, gops.softmax(s_src, s_dst, csr), a_b, da_b, ss_b,
+        sd_b, dx_b, gops.row_sums_t(dx_b, csr_t, perm))
+    for name, call in (("gat_softmax", "softmax"),
+                       ("gat_softmax_bwd", "softmax_bwd"),
+                       ("gat_softmax_bwd_t", "row_sums_t")):
+        res[name]["library_ms"] = lib[call]["ms"]
+    log(f"[gat-kernels] library: torch.sparse.softmax, its backward "
+        f"(aten._sparse_softmax_backward_data), index_add_ over the CSR's "
+        f"columns (mode 1): {json.dumps(lib)}")
+    # TRAIN_LAUNCHES counts wrapper calls; each call of the softmax and its
+    # backward launches its phases
+    per_call = {n: res[n]["cuda_launches_per_call"] for n in (
+        "gat_softmax", "gat_softmax_bwd", "gat_softmax_bwd_t")}
+    calls = {"gat_softmax": len(rec["softmax"]),
+             "gat_softmax_bwd": len(rec["softmax_bwd"]),
+             "gat_softmax_bwd_t": len(rec["row_sums_t"])}
+    log(f"[gat-kernels] CUDA launches per wrapper call {per_call}; a GAT "
+        f"step's wrapper calls {calls} (TRAIN_LAUNCHES: gat_softmax 2, "
+        f"gat_softmax_bwd 4 = both modes) launch "
+        f"{sum(per_call[n] * calls[n] for n in calls)} CUDA kernels")
     one = alpha[:, :1].contiguous()
     check(same_bits(sops.spmm_heads(table, csr, one), sops.spmm(
         table, dataclasses.replace(csr, w=alpha[:, 0].contiguous()))),
@@ -1386,8 +1462,13 @@ def main() -> int:
             bound_ms=main["bound_ms"], bound_by=main["bound_by"],
             library_ms=main["library_ms"], shape=main["shape"],
             bit_equal=main["bit_equal"], launches_per_path=per_path[name],
+            **({k: main[k] for k in ("device_ms", "phases_ms",
+                                     "cuda_launches_per_call") if k in main}),
             **({f"transposed_{k}": twin[k] for k in (
-                "ms", "plain_ms", "bound_ms", "bound_by", "bit_equal")}
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                "bit_equal", "device_ms", "phases_ms",
+                "cuda_launches_per_call")
+                if twin.get(k) is not None}
                if twin else {}),
             **({k: main[k] for k in ("gathered_gb", "gather_tb_s")
                 if k in main}),
@@ -1395,7 +1476,9 @@ def main() -> int:
                 "transposed_gather_tb_s": twin["gather_tb_s"]}
                if twin and "gather_path_ms" in twin else {}),
             **({"other_shapes_ms": main["shapes"]} if "shapes" in main
-               else {})))
+               else {}),
+            **({"transposed_other_shapes_ms": twin["shapes"]}
+               if twin and "shapes" in twin else {})))
     meta = lm_kernels["flash_fwd"]
     summary.append(dict(
         name="flash_fwd", route="cuda", source=meta["source"],

@@ -23,7 +23,10 @@
 //                                   table[col_e, h*dh + k], k in order.
 //
 // What bounds them on an H100: bytes. Per edge and head the softmax does a
-// handful of flops and an expf against 4-byte gathers and writes. The SDDMM
+// handful of flops and an expf against 4-byte gathers and writes; the
+// gathered s_src (n_src * H floats) fits in L2, so what is left beside the
+// bytes is the latency of each unit's dependent col -> s_src loads and of
+// its ordered sums, hidden by having many units in flight. The SDDMM
 // does 2*dh flops per (edge, head) against the dh floats of the gathered
 // row table[col_e]: nnz * d * 4 bytes of gathers (1.66 GB for GAT 4x64 on
 // reddit_like@paper), 0.5 flop/byte. Its least traffic (one read of the
@@ -39,17 +42,33 @@
 // left to right. The plain versions in repro_torch/kernels/gat/ref.py follow
 // the same order, and the products and adds round separately (__fmul_rn,
 // __fadd_rn; the library is built with -fmad=false). expf, not __expf.
-//   * rows of at most SEGMENT edges: one warp per work unit. The lanes take
-//     32 edges at a time (all H heads each) and compute their terms in
-//     parallel; a maximum is a warp reduction (exact in any order); a sum
-//     runs edge by edge over the 32 lanes' terms by shuffles, every lane
-//     keeping the same running sum;
-//   * hub rows (their units are segments): one block of kHubWarps warps per
-//     row, a warp per segment. Each segment's maximum or sum goes to a
-//     partial slot of the plan, the block combines the partials (left to
-//     right for a sum) and, for the softmax, every warp then normalizes its
-//     own segments. So a hub no longer runs serially on one warp, and needs
-//     no second launch;
+//   * softmax and its backward: one warp per work unit of the plan, segments
+//     included, so a hub row runs on as many warps as it has segments
+//     (reddit_like@paper's longest row, 12,679 edges, on 100), not on one
+//     block that walks them. A call runs in phases, separate launches, so
+//     nothing waits on a grid-wide barrier: (1) every unit; a whole row
+//     finishes there, a segment writes its first partial (the softmax: its
+//     scores' maximum, the scores kept in alpha's place; the backward: its
+//     sum of alpha * dalpha; the row sums: its sum); (2) every segment: the
+//     softmax reads its row's maxima, writes exp(score - m) and its sum;
+//     the backward adds its row's partials left to right into c, writes dx
+//     and its sum; (3) the softmax: every segment adds its row's sums left
+//     to right (all alike, so all get the same z) and normalizes; the sums:
+//     a warp per long row adds the partials into row_out. A segment finds
+//     its row by a warp-wide search of long_ptr. A unit holds its terms in
+//     registers across the steps of one launch (at most 4 edges a lane, H
+//     floats each), so col and the gathered s_src rows are read once per
+//     edge and alpha and dx written once, but for the edges of hub rows
+//     (24% of reddit_like@paper's), whose terms pass through alpha's or
+//     dx's place between launches;
+//   * the ordered sums: the lanes stage a unit's terms in shared memory,
+//     edge by edge, and lane h folds head h's in edge order, a load and an
+//     add per edge, where a running sum carried by every lane through a
+//     shuffle per (edge, head) took 25-37% longer; a row's partials come
+//     into shared memory the same way, 128 at a time, in one load a lane
+//     each. A maximum is a warp reduction (exact in any order). What is
+//     left is mostly instructions (expf and the division per (edge, head))
+//     and the latency of the dependent loads;
 //   * SDDMM: a block of one warp per work unit. A thread that read its own
 //     (edge, head) slice from global memory made a warp's load touch 32
 //     rows, 16 bytes each, so every 32-byte sector came through L1 once per
@@ -70,7 +89,7 @@
 //     take 4-byte cp.async copies. A segment unit finds its row through the
 //     plan's long rows.
 // The kernels allocate nothing; the wrappers pass outputs and the partials'
-// workspace (n_partials, H).
+// workspace (2 * n_partials, H).
 
 #include <cuda_runtime.h>
 
@@ -79,8 +98,9 @@
 
 namespace {
 
-constexpr int kWarpsPerBlock = 8;
-constexpr int kHubWarps = 8;
+constexpr int kRowWarps = 4;      // warps per block of the row kernels
+constexpr int kUnitEdges = 128;   // a unit's most edges (the plan's segment)
+constexpr int kPerLane = kUnitEdges / 32;
 constexpr unsigned kFull = 0xffffffffu;
 
 enum Op { kSoftmax = 0, kSoftmaxBwd = 1, kRowSum = 2 };
@@ -95,6 +115,7 @@ struct RowArgs {
   int n_long;
   int segment;
   int n_rows;
+  int n_partials;
   const float* s_src;   // kSoftmax, kSoftmaxBwd: (n_src, H)
   const float* s_dst;   // kSoftmax, kSoftmaxBwd: (n_rows, H)
   const float* alpha;   // kSoftmaxBwd: (nnz, H)
@@ -103,7 +124,7 @@ struct RowArgs {
   const int* perm;      // kRowSum: (nnz,) edge -> forward edge
   float* edge_out;      // kSoftmax: alpha; kSoftmaxBwd: dx   (nnz, H)
   float* row_out;       // kSoftmaxBwd: d s_dst; kRowSum: d s_src (n_rows, H)
-  float* part;          // (n_partials, H)
+  float* part;          // (2 * n_partials, H): first partials, then second
 };
 
 __device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000); }
@@ -119,210 +140,451 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-// x = s_src[col_e] + s_dst[r], all heads.
-template <int H>
-__device__ __forceinline__ void load_x(const RowArgs& a, int e, int r,
-                                       float (&x)[H]) {
-  const int64_t c = __ldg(a.col + e);
+// v = p[0, H): 16- or 8-byte loads where VEC (p is then so aligned).
+template <int H, bool VEC>
+__device__ __forceinline__ void load_heads(const float* p, float (&v)[H]) {
+  if constexpr (VEC && H % 4 == 0) {
 #pragma unroll
-  for (int h = 0; h < H; ++h)
-    x[h] = __fadd_rn(__ldg(a.s_src + c * H + h),
-                     __ldg(a.s_dst + (int64_t)r * H + h));
-}
-
-// acc[h] = (...(acc[h] + v[h] of lane 0) + v[h] of lane 1) ... + lane n-1.
-template <int H>
-__device__ __forceinline__ void add_in_order(float (&acc)[H],
-                                             const float (&v)[H], int n) {
-  for (int j = 0; j < n; ++j) {
-#pragma unroll
-    for (int h = 0; h < H; ++h)
-      acc[h] = __fadd_rn(acc[h], __shfl_sync(kFull, v[h], j));
-  }
-}
-
-// One warp over the edges [e0, e1) of row r (a whole row or a segment).
-// PASS 1: the first reduction (kSoftmax: max of the scores; kSoftmaxBwd:
-//   sum of alpha * dalpha). PASS 2: the per-edge terms, written to edge_out
-//   (kSoftmax: exp(score - red[h]); kSoftmaxBwd: dx), and their sum
-//   (kRowSum: the sum of vals[perm[e]]). PASS 3 (kSoftmax): edge_out /= red.
-// Every lane returns the same acc.
-template <int OP, int H, int PASS>
-__device__ void run_range(const RowArgs& a, int e0, int e1, int r,
-                          const float (&red)[H], float (&acc)[H]) {
-  const int lane = threadIdx.x & 31;
-  const bool is_max = OP == kSoftmax && PASS == 1;
-#pragma unroll
-  for (int h = 0; h < H; ++h) acc[h] = is_max ? neg_inf() : 0.f;
-  for (int eb = e0; eb < e1; eb += 32) {
-    const int n = e1 - eb < 32 ? e1 - eb : 32;
-    const int e = eb + lane;
-    float v[H];
-#pragma unroll
-    for (int h = 0; h < H; ++h) v[h] = 0.f;
-    if (lane < n) {
-      const int64_t eh = (int64_t)e * H;
-      if constexpr (OP == kRowSum) {
-        const int64_t ph = (int64_t)__ldg(a.perm + e) * H;
-#pragma unroll
-        for (int h = 0; h < H; ++h) v[h] = __ldg(a.vals + ph + h);
-      } else if constexpr (OP == kSoftmax && PASS == 3) {
-#pragma unroll
-        for (int h = 0; h < H; ++h)
-          a.edge_out[eh + h] = __fdiv_rn(a.edge_out[eh + h], red[h]);
-      } else if constexpr (OP == kSoftmaxBwd && PASS == 1) {
-#pragma unroll
-        for (int h = 0; h < H; ++h)
-          v[h] = __fmul_rn(__ldg(a.alpha + eh + h), __ldg(a.dalpha + eh + h));
-      } else {
-        float x[H];
-        load_x<H>(a, e, r, x);
-#pragma unroll
-        for (int h = 0; h < H; ++h) {
-          if constexpr (OP == kSoftmax && PASS == 1) {
-            acc[h] = fmaxf(acc[h], leaky(x[h]));
-          } else if constexpr (OP == kSoftmax) {
-            v[h] = expf(__fsub_rn(leaky(x[h]), red[h]));
-            a.edge_out[eh + h] = v[h];
-          } else {
-            float dx = __fmul_rn(__ldg(a.alpha + eh + h),
-                                 __fsub_rn(__ldg(a.dalpha + eh + h), red[h]));
-            if (x[h] < 0.f) dx = __fmul_rn(0.2f, dx);
-            v[h] = dx;
-            a.edge_out[eh + h] = dx;
-          }
-        }
-      }
+    for (int h = 0; h < H; h += 4) {
+      const float4 q = *reinterpret_cast<const float4*>(p + h);
+      v[h] = q.x, v[h + 1] = q.y, v[h + 2] = q.z, v[h + 3] = q.w;
     }
-    if constexpr (!(OP == kSoftmax && PASS != 2)) add_in_order<H>(acc, v, n);
-  }
-  if constexpr (OP == kSoftmax && PASS == 1) {
+  } else if constexpr (VEC && H == 2) {
+    const float2 q = *reinterpret_cast<const float2*>(p);
+    v[0] = q.x, v[1] = q.y;
+  } else {
 #pragma unroll
-    for (int h = 0; h < H; ++h) acc[h] = warp_max(acc[h]);
+    for (int h = 0; h < H; ++h) v[h] = p[h];
   }
 }
 
-// The whole-row units (target < n_rows), one warp each; segment units are
-// left to rows_hub_kernel.
-template <int OP, int H>
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+template <int H, bool VEC>
+__device__ __forceinline__ void store_heads(float* p, const float (&v)[H]) {
+  if constexpr (VEC && H % 4 == 0) {
+#pragma unroll
+    for (int h = 0; h < H; h += 4)
+      *reinterpret_cast<float4*>(p + h) =
+          make_float4(v[h], v[h + 1], v[h + 2], v[h + 3]);
+  } else if constexpr (VEC && H == 2) {
+    *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+  } else {
+#pragma unroll
+    for (int h = 0; h < H; ++h) p[h] = v[h];
+  }
+}
+
+// The long row whose partial slots hold slot: the last i with long_ptr[i] <=
+// slot (a long row has two segments or more, so long_ptr rises strictly).
+// The warp probes 32 evenly spaced rows of the range a round and keeps the
+// stretch after the last that is <= slot: 3 rounds for 1,092 long rows.
+__device__ __forceinline__ int long_row_of(const RowArgs& a, int slot,
+                                           int lane) {
+  int lo = 0, len = a.n_long;  // long_ptr[lo] <= slot; the answer < lo + len
+  while (len > 1) {
+    const int step = (len + 31) / 32;
+    const int i = lo + lane * step;
+    const bool le = lane * step < len && __ldg(a.long_ptr + i) <= slot;
+    const int k = 31 - __clz(__ballot_sync(kFull, le));
+    lo += k * step;
+    len = len - k * step < step ? len - k * step : step;
+  }
+  return lo;
+}
+
+// A unit's edges e0 + i, i = lane + 32 j < n, are lane's slots j; the warp
+// holds a unit's per-edge terms in v[j][h] across its phases.
+template <int H>
+using Terms = float[kPerLane][H];
+
+// Stage the n terms in shared memory, edge by edge (H floats each), and fold
+// them in edge order: lane h < H returns (...((0 + t_0[h]) + t_1[h]) ...) +
+// t_{n-1}[h], every other lane 0. One lane per head reads the staged terms;
+// no running sum passes through shuffles.
+template <int H>
+__device__ __forceinline__ float fold(float* s, const Terms<H>& v, int n,
+                                      int lane) {
+  __syncwarp();  // the lanes < H have read the stage's last contents
+#pragma unroll
+  for (int j = 0; j < kPerLane && 32 * j < n; ++j)
+    if (lane + 32 * j < n) store_heads<H, true>(s + (lane + 32 * j) * H, v[j]);
+  __syncwarp();
+  float acc = 0.f;
+  if (lane < H) {
+#pragma unroll 8
+    for (int i = 0; i < n; ++i) acc = __fadd_rn(acc, s[i * H + lane]);
+  }
+  return acc;
+}
+
+// lane h < H: part[s0][h] + part[s0 + 1][h] + ... + part[s0 + ns - 1][h],
+// left to right (every segment of a row makes the same adds); others 0. The
+// partials come through the stage s kUnitEdges at a time, each chunk read by
+// the whole warp at once, so the adds wait on shared memory, not on a load
+// from L2 each.
+template <int H>
+__device__ __forceinline__ float combine(float* s, const float* part, int s0,
+                                         int ns, int lane) {
+  constexpr int kPer = kUnitEdges * H / 32;
+  const float* p = part + (int64_t)s0 * H;
+  float acc = 0.f;
+  for (int k0 = 0; k0 < ns; k0 += kUnitEdges) {
+    const int len = (ns - k0 < kUnitEdges ? ns - k0 : kUnitEdges) * H;
+    float q[kPer];
+#pragma unroll
+    for (int i = 0; i < kPer; ++i)
+      q[i] = lane + 32 * i < len ? p[(int64_t)k0 * H + lane + 32 * i] : 0.f;
+    __syncwarp();  // the lanes < H have read the stage's last contents
+#pragma unroll
+    for (int i = 0; i < kPer; ++i)
+      if (lane + 32 * i < len) s[lane + 32 * i] = q[i];
+    __syncwarp();
+    if (lane < H) {
+      int i = lane;
+      if (k0 == 0) acc = s[lane], i += H;
+#pragma unroll 8
+      for (; i < len; i += H) acc = __fadd_rn(acc, s[i]);
+    }
+  }
+  return acc;
+}
+
+// out[h] = lane h's v, on every lane.
+template <int H>
+__device__ __forceinline__ void bcast(float v, float (&out)[H]) {
+#pragma unroll
+  for (int h = 0; h < H; ++h) out[h] = __shfl_sync(kFull, v, h);
+}
+
+// lane h < H writes its v to p[h].
+template <int H>
+__device__ __forceinline__ void put_lanes(float* p, float v, int lane) {
+  if (lane < H) p[lane] = v;
+}
+
+// The scores leaky(s_src[col_e] + s_dst[r]) of the unit's edges, -inf where
+// a slot holds none; m = their maximum per head, on every lane. col and the
+// s_src rows are read once: all slots' columns, then all their rows. (The
+// slots past the unit's last edge are skipped here, and in every loop of
+// arithmetic below; the other loads are issued for all slots at once.)
+template <int H, bool VEC>
+__device__ __forceinline__ void scores(const RowArgs& a, int e0, int n, int r,
+                                       int lane, Terms<H>& v, float (&m)[H]) {
+  float sd[H];
+  load_heads<H, VEC>(a.s_dst + (int64_t)r * H, sd);
+  int c[kPerLane];
+#pragma unroll
+  for (int j = 0; j < kPerLane && 32 * j < n; ++j)
+    c[j] = lane + 32 * j < n ? __ldg(a.col + e0 + lane + 32 * j) : 0;
+#pragma unroll
+  for (int h = 0; h < H; ++h) m[h] = neg_inf();
+#pragma unroll
+  for (int j = 0; j < kPerLane && 32 * j < n; ++j) {
+    if (lane + 32 * j < n) {
+      load_heads<H, VEC>(a.s_src + (int64_t)c[j] * H, v[j]);
+#pragma unroll
+      for (int h = 0; h < H; ++h) {
+        v[j][h] = leaky(__fadd_rn(v[j][h], sd[h]));
+        m[h] = fmaxf(m[h], v[j][h]);
+      }
+    } else {
+#pragma unroll
+      for (int h = 0; h < H; ++h) v[j][h] = neg_inf();
+    }
+  }
+#pragma unroll
+  for (int h = 0; h < H; ++h) m[h] = warp_max(m[h]);
+}
+
+// neg[j][h]: s_src[col_e, h] + s_dst[r, h] < 0, the leaky ReLU's slope 0.2
+// (edges held; the rest false).
+template <int H, bool VEC>
+__device__ __forceinline__ void negatives(const RowArgs& a, int e0, int n,
+                                          int r, int lane,
+                                          bool (&neg)[kPerLane][H]) {
+  float sd[H];
+  load_heads<H, VEC>(a.s_dst + (int64_t)r * H, sd);
+  int c[kPerLane];
+#pragma unroll
+  for (int j = 0; j < kPerLane; ++j)
+    c[j] = lane + 32 * j < n ? __ldg(a.col + e0 + lane + 32 * j) : 0;
+#pragma unroll
+  for (int j = 0; j < kPerLane; ++j) {
+    float x[H] = {};
+    if (lane + 32 * j < n) load_heads<H, VEC>(a.s_src + (int64_t)c[j] * H, x);
+#pragma unroll
+    for (int h = 0; h < H; ++h) neg[j][h] = __fadd_rn(x[h], sd[h]) < 0.f;
+  }
+}
+
+// v[j] = p[(e0 + lane + 32 j) * H, +H) for the edges held, 0 elsewhere.
+template <int H, bool VEC>
+__device__ __forceinline__ void load_edges(const float* p, int e0, int n,
+                                           int lane, Terms<H>& v) {
+#pragma unroll
+  for (int j = 0; j < kPerLane; ++j) {
+    if (lane + 32 * j < n) {
+      load_heads<H, VEC>(p + (int64_t)(e0 + lane + 32 * j) * H, v[j]);
+    } else {
+#pragma unroll
+      for (int h = 0; h < H; ++h) v[j][h] = 0.f;
+    }
+  }
+}
+
+template <int H, bool VEC>
+__device__ __forceinline__ void store_edges(float* p, int e0, int n, int lane,
+                                            const Terms<H>& v) {
+#pragma unroll
+  for (int j = 0; j < kPerLane && 32 * j < n; ++j)
+    if (lane + 32 * j < n)
+      store_heads<H, VEC>(p + (int64_t)(e0 + lane + 32 * j) * H, v[j]);
+}
+
+// dx = alpha * (dalpha - c), times 0.2 where x < 0; alpha, dalpha in al, da.
+template <int H>
+__device__ __forceinline__ void softmax_grad(Terms<H>& al, const Terms<H>& da,
+                                             const bool (&neg)[kPerLane][H],
+                                             const float (&c)[H], int n) {
+#pragma unroll
+  for (int j = 0; j < kPerLane && 32 * j < n; ++j) {
+#pragma unroll
+    for (int h = 0; h < H; ++h) {
+      const float dx = __fmul_rn(al[j][h], __fsub_rn(da[j][h], c[h]));
+      al[j][h] = neg[j][h] ? __fmul_rn(0.2f, dx) : dx;
+    }
+  }
+}
+
+// Phase 1, a warp per unit of the plan (every unit). A whole row (target <
+// n_rows) runs its function to the end: kSoftmax writes alpha; kSoftmaxBwd
+// dx and d s_dst; kRowSum the row sum. A segment (target n_rows + slot)
+// writes its first partial to part[slot]: kSoftmax its scores' maximum (the
+// scores go to edge_out); kSoftmaxBwd its sum of alpha * dalpha; kRowSum its
+// sum.
+template <int OP, int H, bool VEC>
+__global__ void __launch_bounds__(kRowWarps * 32)
 rows_unit_kernel(RowArgs a) {
-  const int unit = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  __shared__ __align__(16) float stage[kRowWarps][kUnitEdges * H];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int unit = blockIdx.x * kRowWarps + warp;
   if (unit >= a.n_units) return;
   const int e0 = __ldg(a.units + 3 * unit);
-  const int e1 = __ldg(a.units + 3 * unit + 1);
-  const int r = __ldg(a.units + 3 * unit + 2);
-  if (r >= a.n_rows) return;
-  float red1[H] = {}, red2[H];
-  if constexpr (OP != kRowSum) run_range<OP, H, 1>(a, e0, e1, r, red1, red1);
-  run_range<OP, H, 2>(a, e0, e1, r, red1, red2);
+  const int n = __ldg(a.units + 3 * unit + 1) - e0;
+  const int t = __ldg(a.units + 3 * unit + 2);
+  const bool whole = t < a.n_rows;
+  float* s = stage[warp];
+  float* part = a.part + (int64_t)(t - a.n_rows) * H;  // a segment's slot
+  Terms<H> v;
   if constexpr (OP == kSoftmax) {
+    const int r =
+        whole ? t : __ldg(a.long_rows + long_row_of(a, t - a.n_rows, lane));
+    float m[H];
+    scores<H, VEC>(a, e0, n, r, lane, v, m);
+    if (!whole) {
+      store_edges<H, VEC>(a.edge_out, e0, n, lane, v);
 #pragma unroll
-    for (int h = 0; h < H; ++h) red2[h] = fmaxf(red2[h], 1e-16f);
-    run_range<OP, H, 3>(a, e0, e1, r, red2, red1);
-  } else if ((threadIdx.x & 31) == 0) {
+      for (int h = 0; h < H; ++h)
+        if (lane == h) part[h] = m[h];
+      return;
+    }
 #pragma unroll
-    for (int h = 0; h < H; ++h) a.row_out[(int64_t)r * H + h] = red2[h];
+    for (int j = 0; j < kPerLane && 32 * j < n; ++j)
+#pragma unroll
+      for (int h = 0; h < H; ++h)
+        v[j][h] = lane + 32 * j < n ? expf(__fsub_rn(v[j][h], m[h])) : 0.f;
+    float z[H];
+    bcast<H>(fold<H>(s, v, n, lane), z);
+#pragma unroll
+    for (int j = 0; j < kPerLane && 32 * j < n; ++j)
+#pragma unroll
+      for (int h = 0; h < H; ++h)
+        v[j][h] = __fdiv_rn(v[j][h], fmaxf(z[h], 1e-16f));
+    store_edges<H, VEC>(a.edge_out, e0, n, lane, v);
+  } else if constexpr (OP == kSoftmaxBwd) {
+    Terms<H> da;
+    bool neg[kPerLane][H];
+    load_edges<H, VEC>(a.alpha, e0, n, lane, v);
+    load_edges<H, VEC>(a.dalpha, e0, n, lane, da);
+    if (whole) negatives<H, VEC>(a, e0, n, t, lane, neg);
+    Terms<H> p;
+#pragma unroll
+    for (int j = 0; j < kPerLane && 32 * j < n; ++j)
+#pragma unroll
+      for (int h = 0; h < H; ++h) p[j][h] = __fmul_rn(v[j][h], da[j][h]);
+    const float acc = fold<H>(s, p, n, lane);
+    if (!whole) {
+      put_lanes<H>(part, acc, lane);
+      return;
+    }
+    float c[H];
+    bcast<H>(acc, c);
+    softmax_grad<H>(v, da, neg, c, n);
+    store_edges<H, VEC>(a.edge_out, e0, n, lane, v);
+    put_lanes<H>(a.row_out + (int64_t)t * H, fold<H>(s, v, n, lane), lane);
+  } else {
+    int p[kPerLane];
+#pragma unroll
+    for (int j = 0; j < kPerLane; ++j)
+      p[j] = lane + 32 * j < n ? __ldg(a.perm + e0 + lane + 32 * j) : 0;
+#pragma unroll
+    for (int j = 0; j < kPerLane; ++j) {
+      if (lane + 32 * j < n) {
+        load_heads<H, VEC>(a.vals + (int64_t)p[j] * H, v[j]);
+      } else {
+#pragma unroll
+        for (int h = 0; h < H; ++h) v[j][h] = 0.f;
+      }
+    }
+    const float acc = fold<H>(s, v, n, lane);
+    put_lanes<H>(whole ? a.row_out + (int64_t)t * H : part, acc, lane);
   }
 }
 
-// Hub row long_rows[blockIdx.x]: its segments k = 0, 1, ... (edges
-// [rb + k*segment, min(rb + (k+1)*segment, re))), partial slots
-// long_ptr[i] + k; warp w takes segments w, w + kHubWarps, ...
-template <int OP, int H>
-__global__ void __launch_bounds__(kHubWarps * 32)
-rows_hub_kernel(RowArgs a) {
-  __shared__ float red_s[H];
-  const int i = blockIdx.x;
+// Phases 2 and 3 over the segments of long rows, a warp per partial slot.
+// kSoftmax, PASS 2: m = the maximum of the row's first partials; ex =
+//   exp(score - m) over the segment (scores from edge_out, ex back to it);
+//   their sum to the second partials.
+// kSoftmax, PASS 3: z = the row's second partials added left to right;
+//   alpha = ex / max(z, 1e-16) over the segment.
+// kSoftmaxBwd (PASS 2): c = the row's first partials added left to right;
+//   dx over the segment; its sum to the second partials.
+template <int OP, int H, bool VEC, int PASS>
+__global__ void __launch_bounds__(kRowWarps * 32)
+rows_segment_kernel(RowArgs a) {
+  __shared__ __align__(16) float stage[kRowWarps][kUnitEdges * H];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int slot = blockIdx.x * kRowWarps + warp;
+  if (slot >= a.n_partials) return;
+  const int i = long_row_of(a, slot, lane);
   const int r = __ldg(a.long_rows + i);
   const int s0 = __ldg(a.long_ptr + i), ns = __ldg(a.long_ptr + i + 1) - s0;
-  const int rb = __ldg(a.row_ptr + r), re = __ldg(a.row_ptr + r + 1);
-  float red1[H] = {}, p[H];
-  if constexpr (OP != kRowSum) {
-    for (int k = warp; k < ns; k += kHubWarps) {
-      const int e0 = rb + k * a.segment;
-      const int e1 = e0 + a.segment < re ? e0 + a.segment : re;
-      run_range<OP, H, 1>(a, e0, e1, r, red1, p);
-      if (lane == 0) {
+  const int re = __ldg(a.row_ptr + r + 1);
+  const int e0 = __ldg(a.row_ptr + r) + (slot - s0) * a.segment;
+  const int n = (e0 + a.segment < re ? e0 + a.segment : re) - e0;
+  const float* first = a.part;
+  float* second = a.part + (int64_t)a.n_partials * H;
+  float* s = stage[warp];
+  Terms<H> v;
+  if constexpr (OP == kSoftmax && PASS == 2) {
+    float m[H];
 #pragma unroll
-        for (int h = 0; h < H; ++h) a.part[(int64_t)(s0 + k) * H + h] = p[h];
-      }
-    }
-    __syncthreads();
-    if (threadIdx.x < H) {
-      const int h = threadIdx.x;
-      float acc = a.part[(int64_t)s0 * H + h];
-      for (int k = 1; k < ns; ++k) {
-        const float q = a.part[(int64_t)(s0 + k) * H + h];
-        acc = OP == kSoftmax ? fmaxf(acc, q) : __fadd_rn(acc, q);
-      }
-      red_s[h] = acc;
-    }
-    __syncthreads();
+    for (int h = 0; h < H; ++h) m[h] = neg_inf();
+    for (int k = lane; k < ns; k += 32) {
 #pragma unroll
-    for (int h = 0; h < H; ++h) red1[h] = red_s[h];
-    __syncthreads();  // red_s is written again below
-  }
-  for (int k = warp; k < ns; k += kHubWarps) {
-    const int e0 = rb + k * a.segment;
-    const int e1 = e0 + a.segment < re ? e0 + a.segment : re;
-    run_range<OP, H, 2>(a, e0, e1, r, red1, p);
-    if (lane == 0) {
-#pragma unroll
-      for (int h = 0; h < H; ++h) a.part[(int64_t)(s0 + k) * H + h] = p[h];
+      for (int h = 0; h < H; ++h)
+        m[h] = fmaxf(m[h], first[(int64_t)(s0 + k) * H + h]);
     }
-  }
-  __syncthreads();
-  if (threadIdx.x < H) {
-    const int h = threadIdx.x;
-    float acc = a.part[(int64_t)s0 * H + h];
-    for (int k = 1; k < ns; ++k)
-      acc = __fadd_rn(acc, a.part[(int64_t)(s0 + k) * H + h]);
-    if (OP == kSoftmax) red_s[h] = fmaxf(acc, 1e-16f);
-    else a.row_out[(int64_t)r * H + h] = acc;
-  }
-  if constexpr (OP == kSoftmax) {
-    __syncthreads();
+#pragma unroll
+    for (int h = 0; h < H; ++h) m[h] = warp_max(m[h]);
+    load_edges<H, VEC>(a.edge_out, e0, n, lane, v);
+#pragma unroll
+    for (int j = 0; j < kPerLane && 32 * j < n; ++j)
+#pragma unroll
+      for (int h = 0; h < H; ++h)
+        v[j][h] = lane + 32 * j < n ? expf(__fsub_rn(v[j][h], m[h])) : 0.f;
+    store_edges<H, VEC>(a.edge_out, e0, n, lane, v);
+    put_lanes<H>(second + (int64_t)slot * H, fold<H>(s, v, n, lane), lane);
+  } else if constexpr (OP == kSoftmax) {
     float z[H];
+    bcast<H>(combine<H>(s, second, s0, ns, lane), z);
+    load_edges<H, VEC>(a.edge_out, e0, n, lane, v);
 #pragma unroll
-    for (int h = 0; h < H; ++h) z[h] = red_s[h];
-    for (int k = warp; k < ns; k += kHubWarps) {
-      const int e0 = rb + k * a.segment;
-      const int e1 = e0 + a.segment < re ? e0 + a.segment : re;
-      run_range<OP, H, 3>(a, e0, e1, r, z, p);
-    }
+    for (int j = 0; j < kPerLane && 32 * j < n; ++j)
+#pragma unroll
+      for (int h = 0; h < H; ++h)
+        v[j][h] = __fdiv_rn(v[j][h], fmaxf(z[h], 1e-16f));
+    store_edges<H, VEC>(a.edge_out, e0, n, lane, v);
+  } else {
+    float c[H];
+    bcast<H>(combine<H>(s, first, s0, ns, lane), c);
+    Terms<H> da;
+    bool neg[kPerLane][H];
+    load_edges<H, VEC>(a.alpha, e0, n, lane, v);
+    load_edges<H, VEC>(a.dalpha, e0, n, lane, da);
+    negatives<H, VEC>(a, e0, n, r, lane, neg);
+    softmax_grad<H>(v, da, neg, c, n);
+    store_edges<H, VEC>(a.edge_out, e0, n, lane, v);
+    put_lanes<H>(second + (int64_t)slot * H, fold<H>(s, v, n, lane), lane);
   }
 }
 
-template <int OP, int H>
+// The last phase of the row sums, a warp per long row: row_out[r] = the
+// row's partials (first or second) added left to right.
+template <int H>
+__global__ void __launch_bounds__(kRowWarps * 32)
+rows_long_kernel(RowArgs a, int second) {
+  __shared__ __align__(16) float stage[kRowWarps][kUnitEdges * H];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int i = blockIdx.x * kRowWarps + warp;
+  if (i >= a.n_long) return;
+  const int s0 = __ldg(a.long_ptr + i), ns = __ldg(a.long_ptr + i + 1) - s0;
+  const float* part = a.part + (int64_t)second * a.n_partials * H;
+  put_lanes<H>(a.row_out + (int64_t)__ldg(a.long_rows + i) * H,
+               combine<H>(stage[warp], part, s0, ns, lane), lane);
+}
+
+unsigned row_grid(int n) {
+  return (unsigned)((n + kRowWarps - 1) / kRowWarps);
+}
+
+// The phases of OP, each a launch over all units, the segments or the long
+// rows: no grid-wide barrier, no atomics, and a hub's segments run on as
+// many warps as it has.
+template <int OP, int H, bool VEC>
 int launch_rows(const RowArgs& a, cudaStream_t s) {
+  const unsigned block = kRowWarps * 32;
   if (a.n_units > 0) {
-    const unsigned grid = (unsigned)((a.n_units + kWarpsPerBlock - 1) /
-                                     kWarpsPerBlock);
-    rows_unit_kernel<OP, H><<<grid, kWarpsPerBlock * 32, 0, s>>>(a);
-    cudaError_t err = cudaGetLastError();
+    rows_unit_kernel<OP, H, VEC><<<row_grid(a.n_units), block, 0, s>>>(a);
+    const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
-  if (a.n_long > 0)
-    rows_hub_kernel<OP, H><<<(unsigned)a.n_long, kHubWarps * 32, 0, s>>>(a);
+  if (a.n_long == 0) return (int)cudaSuccess;
+  if constexpr (OP == kRowSum) {
+    rows_long_kernel<H><<<row_grid(a.n_long), block, 0, s>>>(a, 0);
+  } else {
+    rows_segment_kernel<OP, H, VEC, 2>
+        <<<row_grid(a.n_partials), block, 0, s>>>(a);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    if constexpr (OP == kSoftmax)
+      rows_segment_kernel<OP, H, VEC, 3>
+          <<<row_grid(a.n_partials), block, 0, s>>>(a);
+    else
+      rows_long_kernel<H><<<row_grid(a.n_long), block, 0, s>>>(a, 1);
+  }
   return (int)cudaGetLastError();
+}
+
+// VEC: every per-edge or per-row float array a kernel reads or writes by
+// head rows is aligned for 16-byte (H a multiple of 4) or 8-byte (H = 2)
+// accesses.
+template <int OP, int H>
+int launch_aligned(const RowArgs& a, cudaStream_t s) {
+  const uintptr_t need = H % 4 == 0 ? 16 : H == 2 ? 8 : 4;
+  const uintptr_t ptrs = (uintptr_t)a.s_src | (uintptr_t)a.s_dst |
+                         (uintptr_t)a.alpha | (uintptr_t)a.dalpha |
+                         (uintptr_t)a.vals | (uintptr_t)a.edge_out;
+  if (ptrs % need == 0) return launch_rows<OP, H, true>(a, s);
+  return launch_rows<OP, H, false>(a, s);
 }
 
 template <int OP>
 int dispatch_heads(const RowArgs& a, int n_heads, cudaStream_t s) {
+  if (a.segment <= 0 || a.segment > kUnitEdges)
+    return (int)cudaErrorInvalidValue;
   switch (n_heads) {
-    case 1: return launch_rows<OP, 1>(a, s);
-    case 2: return launch_rows<OP, 2>(a, s);
-    case 4: return launch_rows<OP, 4>(a, s);
-    case 8: return launch_rows<OP, 8>(a, s);
+    case 1: return launch_aligned<OP, 1>(a, s);
+    case 2: return launch_aligned<OP, 2>(a, s);
+    case 4: return launch_aligned<OP, 4>(a, s);
+    case 8: return launch_aligned<OP, 8>(a, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 RowArgs plan_args(const int* row_ptr, const int* col, const int* units,
                   int n_units, const int* long_rows, const int* long_ptr,
-                  int n_long, int segment, int n_rows, float* part) {
+                  int n_long, int segment, int n_partials, int n_rows,
+                  float* part) {
   RowArgs a = {};
   a.row_ptr = row_ptr;
   a.col = col;
@@ -332,6 +594,7 @@ RowArgs plan_args(const int* row_ptr, const int* col, const int* units,
   a.long_ptr = long_ptr;
   a.n_long = n_long;
   a.segment = segment;
+  a.n_partials = n_partials;
   a.n_rows = n_rows;
   a.part = part;
   return a;
@@ -592,18 +855,20 @@ const char* repro_error_string(int err) {
 
 // The CSR and its plan as spmm.cu::spmm_csr takes them (row_ptr (n_rows+1,),
 // col (nnz,), units (n_units, 3), long_rows (n_long,), long_ptr
-// (n_long+1,), int32) plus the plan's segment length; part: (n_partials,
-// n_heads) float32 workspace. n_heads is 1, 2, 4 or 8.
+// (n_long+1,), int32) plus the plan's segment length (at most 128) and its
+// number of partial slots; part: (2 * n_partials, n_heads) float32
+// workspace. n_heads is 1, 2, 4 or 8. Each call launches its phases on
+// stream, one after another.
 //
 // s_src: (n_src, n_heads), s_dst: (n_rows, n_heads) float32 -> alpha:
 // (nnz, n_heads) float32 in CSR order.
 int gat_softmax(const float* s_src, const float* s_dst, const int* row_ptr,
                 const int* col, const int* units, int n_units,
                 const int* long_rows, const int* long_ptr, int n_long,
-                int segment, float* part, float* alpha, int n_rows,
-                int n_heads, void* stream) {
+                int segment, int n_partials, float* part, float* alpha,
+                int n_rows, int n_heads, void* stream) {
   RowArgs a = plan_args(row_ptr, col, units, n_units, long_rows, long_ptr,
-                        n_long, segment, n_rows, part);
+                        n_long, segment, n_partials, n_rows, part);
   a.s_src = s_src;
   a.s_dst = s_dst;
   a.edge_out = alpha;
@@ -620,11 +885,11 @@ int gat_softmax_bwd(int mode, const float* alpha, const float* dalpha,
                     const float* s_src, const float* s_dst, const float* vals,
                     const int* perm, const int* row_ptr, const int* col,
                     const int* units, int n_units, const int* long_rows,
-                    const int* long_ptr, int n_long, int segment, float* part,
-                    float* edge_out, float* row_out, int n_rows, int n_heads,
-                    void* stream) {
+                    const int* long_ptr, int n_long, int segment,
+                    int n_partials, float* part, float* edge_out,
+                    float* row_out, int n_rows, int n_heads, void* stream) {
   RowArgs a = plan_args(row_ptr, col, units, n_units, long_rows, long_ptr,
-                        n_long, segment, n_rows, part);
+                        n_long, segment, n_partials, n_rows, part);
   a.alpha = alpha;
   a.dalpha = dalpha;
   a.s_src = s_src;

@@ -4,7 +4,9 @@ A CPU tensor goes to the plain version in ``ref.py``; a CUDA tensor launches
 the kernel on the current stream or raises. ``GAT_SOFTMAX``,
 ``GAT_SOFTMAX_BWD`` and ``SDDMM_HEADS`` count their launches (one each per
 call; ``gat_softmax_bwd`` serves :func:`softmax_bwd` in mode 0 and
-:func:`row_sums_t` in mode 1).
+:func:`row_sums_t` in mode 1). One call of the softmax or its backward runs
+up to three CUDA kernels, its phases: every unit of the plan, then the
+segments of the CSR's long rows, then their combination.
 """
 from __future__ import annotations
 
@@ -19,11 +21,11 @@ from . import ref as _r
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
 GAT_SOFTMAX = Kernel("gat_softmax", "gat.cu",
-                     [_P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _P, _P, _I, _I,
-                      _P])
+                     [_P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _P, _P, _I,
+                      _I, _P])
 GAT_SOFTMAX_BWD = Kernel("gat_softmax_bwd", "gat.cu",
                          [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P,
-                          _I, _I, _P, _P, _P, _I, _I, _P])
+                          _I, _I, _I, _P, _P, _P, _I, _I, _P])
 SDDMM_HEADS = Kernel("sddmm_heads", "gat.cu",
                      [_P, _P, _P, _P, _I, _P, _P, _I, _P, _I, _I, _I, _P])
 # the head counts the CUDA kernels are built for
@@ -61,7 +63,14 @@ def _on_cuda(ref: torch.Tensor, csr: CSR, n_heads: int, floats=(),
 def _plan(csr: CSR) -> tuple:
     return (csr.row_ptr.data_ptr(), csr.col.data_ptr(), csr.units.data_ptr(),
             csr.units.shape[0], csr.long_rows.data_ptr(),
-            csr.long_ptr.data_ptr(), csr.long_rows.shape[0], SEGMENT)
+            csr.long_ptr.data_ptr(), csr.long_rows.shape[0], SEGMENT,
+            csr.n_partials)
+
+
+def _partials(csr: CSR, n_heads: int, device) -> torch.Tensor:
+    """The row kernels' workspace: two sets of a partial per segment."""
+    return torch.empty((2 * csr.n_partials, n_heads), dtype=torch.float32,
+                       device=device)
 
 
 def _stream(t: torch.Tensor) -> int:
@@ -86,8 +95,7 @@ def softmax(s_src: torch.Tensor, s_dst: torch.Tensor, csr: CSR
         return _r.gat_softmax_ref(s_src, s_dst, csr)
     alpha = torch.empty((csr.nnz, n_heads), dtype=torch.float32,
                         device=s_src.device)
-    part = torch.empty((csr.n_partials, n_heads), dtype=torch.float32,
-                       device=s_src.device)
+    part = _partials(csr, n_heads, s_src.device)
     GAT_SOFTMAX(s_src.data_ptr(), s_dst.data_ptr(), *_plan(csr),
                 part.data_ptr(), alpha.data_ptr(), csr.n_rows, n_heads,
                 _stream(s_src))
@@ -113,8 +121,7 @@ def softmax_bwd(alpha: torch.Tensor, dalpha: torch.Tensor,
     dx = torch.empty_like(alpha)
     ds_dst = torch.empty((csr.n_rows, n_heads), dtype=torch.float32,
                          device=dev)
-    part = torch.empty((csr.n_partials, n_heads), dtype=torch.float32,
-                       device=dev)
+    part = _partials(csr, n_heads, dev)
     GAT_SOFTMAX_BWD(0, alpha.data_ptr(), dalpha.data_ptr(), s_src.data_ptr(),
                     s_dst.data_ptr(), None, None, *_plan(csr),
                     part.data_ptr(), dx.data_ptr(), ds_dst.data_ptr(),
@@ -136,8 +143,7 @@ def row_sums_t(dx: torch.Tensor, csr_t: CSR,
         return _r.row_sums_t_ref(dx, csr_t, perm_t)
     out = torch.empty((csr_t.n_rows, n_heads), dtype=torch.float32,
                       device=dx.device)
-    part = torch.empty((csr_t.n_partials, n_heads), dtype=torch.float32,
-                       device=dx.device)
+    part = _partials(csr_t, n_heads, dx.device)
     GAT_SOFTMAX_BWD(1, None, None, None, None, dx.data_ptr(),
                     perm_t.data_ptr(), *_plan(csr_t), part.data_ptr(), None,
                     out.data_ptr(), csr_t.n_rows, n_heads, _stream(dx))

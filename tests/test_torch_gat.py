@@ -20,9 +20,12 @@ and in its transpose) and padding rows without edges:
   absolutely); padding rows get 0 in both; the backward calls no
   ``torch.index_select``, and hands the per-head SpMM over the transposed
   CSR the forward's alpha with ``w_idx = perm_t``;
-* the plain versions sum in the order the CSR's plan fixes: bit for bit an
-  explicit loop over each row's edges, a split row by 128-edge segments
-  whose partials add left to right; ``spmm_heads`` at one head equals
+* the plain versions sum in the order the CSR's plan fixes (the order the
+  CUDA kernels keep): softmax, softmax_bwd, row_sums_t and the SDDMM bit
+  for bit an explicit loop over each row's edges, a split row by 128-edge
+  segments whose partials add left to right, at 1, 4 and 8 heads, over the
+  300-edge hub and over rows of 1,300 (11 segments), 0, 1, 128 and 129
+  edges; ``spmm_heads`` at one head equals
   ``spmm_ref`` bit for bit, and at four heads equals four one-head SpMMs;
   with ``w_idx`` it equals ``spmm_heads`` of ``w[w_idx]`` bit for bit, and
   the wrapper refuses a ``w_idx`` of another length, dtype or device; the
@@ -211,16 +214,40 @@ def _loop_rows(csr, value, reduce):
     return out
 
 
-def test_plain_versions_reduce_in_csr_order():
-    csr, rng = _small_csr()
-    assert csr.long_rows.tolist() == [4]
-    s_src = torch.from_numpy(rng.normal(0, 1, (30, H)).astype(np.float32))
-    s_dst = torch.from_numpy(rng.normal(0, 1, (12, H)).astype(np.float32))
+def _hub_csr():
+    """Rows of 1,300 edges (11 segments, more than the 8 a hub-row block of
+    the CUDA kernels once walked), 0, 1, 128 (one whole unit) and 129 (two
+    segments) edges, then 40 short rows, over 50 sources; each row's edges
+    in a random order of sources."""
+    rng = np.random.default_rng(5)
+    lengths = np.concatenate([[1300, 0, 1, 128, 129], rng.integers(0, 40, 40)])
+    dst = np.repeat(np.arange(lengths.size), lengths)
+    src = rng.integers(0, 50, dst.size)
+    return csr_from_edges(src, dst, np.ones(dst.size), lengths.size, 50), rng
+
+
+@pytest.mark.parametrize("n_heads", [1, 4, 8])
+@pytest.mark.parametrize("make_csr,long_rows", [(_small_csr, [4]),
+                                                (_hub_csr, [0, 4])],
+                         ids=["small", "hub"])
+def test_plain_versions_reduce_in_csr_order(make_csr, long_rows, n_heads):
+    """The order the CUDA kernels keep, bit for bit: softmax, softmax_bwd,
+    row_sums_t (over the CSR, a random edge permutation standing for
+    perm_t) and the SDDMM against explicit loops over each row's edges, a
+    row of more than SEGMENT edges by segments whose partials combine left
+    to right."""
+    csr, rng = make_csr()
+    assert csr.long_rows.tolist() == long_rows
+    h, n_rows = n_heads, csr.n_rows
+    s_src = torch.from_numpy(rng.normal(0, 1, (csr.n_cols, h)).astype(
+        np.float32))
+    s_dst = torch.from_numpy(rng.normal(0, 1, (n_rows, h)).astype(
+        np.float32))
     col, rows = csr.col.long(), gref.edge_rows(csr)
     x = s_src[col] + s_dst[rows]
     score = torch.where(x >= 0, x, 0.2 * x)
     m = _loop_rows(csr, lambda e, r: score[e], torch.maximum)
-    m = torch.stack([t if t is not None else torch.zeros(H) for t in m])
+    m = torch.stack([t if t is not None else torch.zeros(h) for t in m])
     ex = torch.exp(score - m[rows])      # exp as the plain version takes it
     z = _loop_rows(csr, lambda e, r: ex[e], torch.add)
     alpha = gops.softmax(s_src, s_dst, csr)
@@ -235,20 +262,28 @@ def test_plain_versions_reduce_in_csr_order():
         d = alpha[e] * (dalpha[e] - c[r])
         assert torch.equal(dx[e], torch.where(x[e] < 0, 0.2 * d, d))
     want = _loop_rows(csr, lambda e, r: dx[e], torch.add)
-    for r in range(12):
+    for r in range(n_rows):
         assert torch.equal(ds_dst[r], want[r] if want[r] is not None
-                           else torch.zeros(H))
+                           else torch.zeros(h))
 
-    g = torch.from_numpy(rng.normal(0, 1, (12, H * DH)).astype(np.float32))
-    table = torch.from_numpy(rng.normal(0, 1, (30, H * DH)).astype(
+    perm = torch.from_numpy(rng.permutation(csr.nnz).astype(np.int32))
+    got = gops.row_sums_t(dx, csr, perm)
+    want = _loop_rows(csr, lambda e, r: dx[perm[e]], torch.add)
+    for r in range(n_rows):
+        assert torch.equal(got[r], want[r] if want[r] is not None
+                           else torch.zeros(h))
+
+    g = torch.from_numpy(rng.normal(0, 1, (n_rows, h * DH)).astype(
         np.float32))
-    da = gops.sddmm_heads(g, table, csr, H)
+    table = torch.from_numpy(rng.normal(0, 1, (csr.n_cols, h * DH)).astype(
+        np.float32))
+    da = gops.sddmm_heads(g, table, csr, h)
     for e, r in enumerate(rows.tolist()):
-        for h in range(H):
+        for k in range(h):
             acc = torch.zeros(())
-            for k in range(DH):
-                acc = acc + g[r, h * DH + k] * table[col[e], h * DH + k]
-            assert torch.equal(da[e, h], acc)
+            for i in range(DH):
+                acc = acc + g[r, k * DH + i] * table[col[e], k * DH + i]
+            assert torch.equal(da[e, k], acc)
 
 
 def test_row_sums_over_the_transposed_csr(blocks):

@@ -30,10 +30,17 @@ the plain version over ``alpha[perm_t]``.
 transposed CSR stays as it is), so the rows the forward kernels gather fit
 in L2: their times then show what the kernels cost apart from misses.
 
-Prints CUDA-event milliseconds of each kernel (50 launches after a warm-up)
-and one JSON line of them (also written to ``FILE`` when given). Exits
-non-zero on the first disagreement.
-"""
+Prints CUDA-event milliseconds of each wrapper call (50 calls after a
+warm-up: the call's wall time on the card, gaps between its launches
+included) and one JSON line of them (also written to ``FILE`` when given).
+For the softmax and both modes of its backward it also prints the device
+time of each CUDA kernel the call launches, its phases (``torch.profiler``
+over 20 calls, ``torch_timing.kernel_times``: whole rows and segments,
+hub segments, combines; the parent's hub-row blocks) and their sum, the
+call's device time, and times ``torch.sparse.softmax``, its backward and
+``index_add_`` (mode 1) on the same inputs
+(``torch_timing.softmax_library_ms``). Exits non-zero on the first
+disagreement."""
 from __future__ import annotations
 
 import argparse
@@ -45,21 +52,10 @@ import sys
 from pathlib import Path
 
 import torch
+from torch_timing import cuda_ms, kernel_times, softmax_library_ms
 
 HERE = Path(__file__).resolve().parents[1]
-
-
-def cuda_ms(fn, iters: int = 50) -> float:
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / iters
+ITERS = 50
 
 
 def main(argv=None) -> int:
@@ -141,7 +137,7 @@ def main(argv=None) -> int:
             print(f"[check] {name} {tuple(a.shape)}: max abs err {err:.3g}, "
                   f"bit-equal {same}, same bits twice {twice}")
             ok = ok and close and twice
-        times[name] = cuda_ms(kernel)
+        times[name] = cuda_ms(kernel, ITERS, warmup=1)
         print(f"[time] {name}: {times[name]:.4f} ms")
 
     alpha = gops.softmax(s_src, s_dst, csr)
@@ -159,7 +155,8 @@ def main(argv=None) -> int:
                 lambda: sops.spmm_heads(g, csr_t, alpha, w_idx=perm),
                 lambda: sref.spmm_heads_ref(g, csr_t, alpha_t))
     times["index_select"] = cuda_ms(lambda: torch.index_select(alpha, 0,
-                                                               perm))
+                                                               perm),
+                                    ITERS, warmup=1)
     w0 = alpha[:, :1].contiguous()
     compare("spmm_csr_heads at H = 1 vs spmm_csr",
             lambda: sops.spmm_heads(table, csr, w0),
@@ -182,8 +179,27 @@ def main(argv=None) -> int:
     compare("gat_softmax_bwd (mode 1)", lambda: gops.row_sums_t(dx, csr_t,
                                                                 perm),
             lambda: gref.row_sums_t_ref(dx, csr_t, perm))
+    phases = {}
+    for name, fn in (
+            ("gat_softmax", lambda: gops.softmax(s_src, s_dst, csr)),
+            ("gat_softmax_bwd (mode 0)",
+             lambda: gops.softmax_bwd(alpha, dalpha, s_src, s_dst, csr)),
+            ("gat_softmax_bwd (mode 1)",
+             lambda: gops.row_sums_t(dx, csr_t, perm))):
+        phases[name] = kernel_times(fn)
+        times[f"{name} device"] = sum(v[0] for v in phases[name].values())
+        print(f"[phases] {name}: call {times[name]:.4f} ms, device "
+              f"{times[name + ' device']:.4f} ms; " + "; ".join(
+                  f"{k} {v[0]:.4f} ms x {v[1]:g}"
+                  for k, v in phases[name].items()))
+    lib = softmax_library_ms(csr, s_src, s_dst, alpha, alpha, dalpha, s_src,
+                             s_dst, dx, gops.row_sums_t(dx, csr_t, perm))
+    for call, r in lib.items():
+        times[f"library {call}"] = r["ms"]
+    print(f"[library] torch.sparse.softmax, its backward, index_add_ (mode "
+          f"1): {json.dumps(lib)}")
     line = json.dumps({"tree": str(tree), "card": card, "ok": ok,
-                       "fold": args.fold, "ms": times})
+                       "fold": args.fold, "ms": times, "phases": phases})
     if args.out:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(line + "\n")
