@@ -71,6 +71,46 @@ Phases, each of which raises (and exits non-zero) on failure:
             ``generate``), the card line, and the last line ``{"ok": true,
             "device": {...}}``.
 
+After phase 8 (``flash``) the serving front runs (``serve_front_phase``),
+last, so that its host work (checkpoints written and restored, the store's
+host tables) cannot shift the host-clock times of the phases before it;
+every count is zeroed just before each ``serve_once`` and read just after
+it:
+
+serve-front — ``python -m repro_torch.launch.serve``'s ``serve_once`` on the
+            card: (1) GCN 256x2 on ``reddit_like@paper`` (P=4, 1 bit),
+            trained 3 epochs into a temporary checkpoint, then a closed loop
+            of 8 clients x 400 requests x 16 ids with a 64-node delta
+            refresh every 50 completions; every sweep launches exactly
+            ``SERVE_LAUNCHES``, the 3 epochs 3 x ``TRAIN_LAUNCHES``' Sylvie-S
+            step, all 400 requests complete, the measured delta ships fewer
+            bytes than ``full_sweep_wire_bytes()`` and equals a full sweep
+            bit for bit. (2) GraphSAGE and GAT the same way (100 requests),
+            each sweep pinned by ``SERVE_LAUNCHES``, delta == full bit for
+            bit. (3) ``gdelt_like@paper`` through the store (4,096 kB hot-node
+            cache) and 2 replicas: a closed loop of 1,000 requests measures
+            QPS, then an open loop offers half of it with Zipf skew 1.1 and
+            60 mutation-stream events in 50 ms windows (both from the same
+            checkpoint and settings): completed + lost = 1,000, ``verify_store()`` passes,
+            the store's hits + misses equal the rows looked up; prints hit
+            rate, miss bytes, refresh lag p50/p99, escalations and
+            ``slo_pass`` at 50 ms (a speed: printed, not gated), and
+            profiles one store-backed delta refresh. (4) Degraded mode on
+            (1)'s engine: partition 1 down, a delta refresh leaves its
+            logits bit for bit, its staleness 1; after ``set_up`` and a full
+            sweep the logits equal a fresh engine's bit for bit. In every
+            ``serve_once`` run the load generator's refreshes all ran (8 in
+            (1), one per stream batch in (3)), none failed and the server
+            stayed healthy; (3)'s lag p50/p99 come from the loop's own clock
+            reads, checked against its reported max and mean. (5) (1)
+            again, restored (not trained), untraced and then under
+            ``obs.enable()``, and 3 epochs of GCN Sylvie-A untraced and
+            traced: the same launches, logits and losses bit for bit; the span tree is ``epoch > decide > step``
+            and ``request > lookup``, ``admit``, ``refresh > plan > sweep``;
+            ``wall_s >= seconds``; the trace and metrics JSON go to
+            ``artifacts/torch/obs/chip_smoke/``, span counts and median host
+            ms are printed.
+
 Between phases 5 and 6 (``lm``) four training phases run:
 
 train     — GCN 256x2, GraphSAGE 256x2 and GAT (4 heads x 64, 2 layers),
@@ -180,6 +220,14 @@ TRAIN_LAUNCHES = {
     ("gat", "sylvie_s", "sync"): (4, 4, 2, 4, 2, 2, 4),
     ("gat", "sylvie_a", "sync"): (4, 4, 2, 4, 2, 2, 4),
     ("gat", "sylvie_a", "async"): (4, 4, 2, 4, 2, 2, 4)}
+# kernel launches per serving sweep (full or delta), in TRAIN_KERNELS order:
+# one quantize and one dequantize per exchange site; GCN and GraphSAGE
+# aggregate by one SpMM per layer, GAT by one softmax and one per-head SpMM
+# (tests/test_torch_serve_front.py holds the plain versions to the same
+# counts)
+SERVE_LAUNCHES = {"gcn": (2, 2, 2, 0, 0, 0, 0),
+                  "graphsage": (2, 2, 2, 0, 0, 0, 0),
+                  "gat": (2, 2, 0, 2, 2, 0, 0)}
 
 def log(msg: str) -> None:
     print(msg, flush=True)
@@ -1102,6 +1150,459 @@ def train_parity_phase() -> dict:
     return res
 
 
+# the parent span each span of the serving front and the trainer must sit
+# in (None: top level); a sweep outside a refresh is a full_sweep() call
+SPAN_PARENTS = {"epoch": {None}, "decide": {"epoch"}, "step": {"epoch"},
+                "admit": {None}, "request": {None}, "lookup": {"request"},
+                "refresh": {None}, "plan": {"refresh"},
+                "sweep": {"refresh", None}}
+
+
+def span_tree(events: list) -> dict:
+    """Check every span's innermost enclosing span against ``SPAN_PARENTS``
+    (a delta sweep must sit in a refresh); return {name: [count, median host
+    ms]}."""
+    spans = sorted((e for e in events if e["ph"] == "X"),
+                   key=lambda e: (e["ts"], -e["dur"]))
+    stack: list = []
+    durs: dict = {}
+    for e in spans:
+        while stack and stack[-1]["ts"] + stack[-1]["dur"] < e["ts"]:
+            stack.pop()
+        parent = stack[-1]["name"] if stack and (
+            e["ts"] + e["dur"] <= stack[-1]["ts"] + stack[-1]["dur"]) \
+            else None
+        allowed = SPAN_PARENTS.get(e["name"], set())
+        if e["name"] == "sweep" and e.get("args", {}).get("kind") == "delta":
+            allowed = {"refresh"}
+        check(parent in allowed, f"[serve-front] span {e['name']} sits in "
+              f"{parent}, expected one of {allowed}")
+        durs.setdefault(e["name"], []).append(e["dur"] * 1e3)
+        stack.append(e)
+    return {k: [len(v), float(np.median(v))] for k, v in sorted(durs.items())}
+
+
+def serve_front_phase(all_kernels: dict) -> dict:
+    """The serving front through ``python -m repro_torch.launch.serve``'s
+    ``serve_once`` at the paper's widths (see the module docstring)."""
+    import tempfile
+
+    from repro_torch import configs, obs
+    from repro_torch.core.sylvie import SylvieConfig
+    from repro_torch.launch import serve as launch
+    from repro_torch.policy import BoundedStaleness
+    from repro_torch.serve import InferenceEngine
+    from repro_torch.serve import loadgen
+    from repro_torch.train.trainer import GNNTrainer
+
+    names = list(all_kernels)
+
+    def snap() -> np.ndarray:
+        return np.array([all_kernels[k]["k"].launches for k in names])
+
+    def zero() -> None:
+        for meta in all_kernels.values():
+            meta["k"].launches = 0
+
+    def pinned(diff: np.ndarray) -> tuple:
+        check(diff[names.index("flash_fwd")] == 0, "a sweep launched flash")
+        return tuple(int(diff[names.index(k)]) for k in TRAIN_KERNELS)
+
+    @contextlib.contextmanager
+    def watching(sweeps: list):
+        """Record each sweep (engine, kind, launches, report) of the
+        engines built inside, by launch counts read around ``_run``."""
+        real = InferenceEngine._run
+
+        def run(self, *args, **kw):
+            before = snap()
+            rep = real(self, *args, **kw)
+            sweeps.append((self, kw["kind"], pinned(snap() - before), rep))
+            return rep
+        InferenceEngine._run = run
+        try:
+            yield
+        finally:
+            InferenceEngine._run = real
+
+    @contextlib.contextmanager
+    def probing(loops: list):
+        """Record each load generator run inside as (server, refreshes
+        expected, refresh lags): the loop gets a clock that logs its reads
+        (the loop reads it once at its start and once right after each
+        refresh returns) and the server's refresh is wrapped to mark them."""
+        real = {k: getattr(loadgen, k) for k in ("closed_loop", "open_loop")}
+
+        def probed(name):
+            def run(server, n_nodes, **kw):
+                reads: list = []
+                after: list = []        # index of the read after a refresh
+
+                def clock() -> float:
+                    reads.append(server.clock())
+                    return reads[-1]
+
+                def refresh(*args, **k):
+                    rep = type(server).refresh(server, *args, **k)
+                    after.append(len(reads))
+                    return rep
+                server.refresh = refresh
+                try:
+                    load = real[name](server, n_nodes, clock=clock, **kw)
+                finally:
+                    del server.refresh
+                feed = sorted(kw.get("feed") or [], key=lambda b: b[0])
+                every = kw.get("refresh_every")
+                # the closed loop refreshes once per refresh_every
+                # completions (its clients, fewer, finish at most that many
+                # a step); the open loop once per feed batch (none is empty)
+                want = len(feed) if name == "open_loop" else \
+                    kw["requests"] // every if every else 0
+                lags = [reads[i] - reads[0] - b[0]
+                        for i, b in zip(after, feed)]
+                loops.append((server, want, lags))
+                return load
+            return run
+        for k in real:
+            setattr(loadgen, k, probed(k))
+        try:
+            yield
+        finally:
+            for k, fn in real.items():
+                setattr(loadgen, k, fn)
+
+    def serve(*argv) -> tuple:
+        """serve_once on the card with its counts zeroed just before and
+        read just after: (report, sweeps, launches, seconds, refresh lags
+        of the open loop's stream in s). Fails unless every refresh the load
+        generator asked for ran and the server stayed healthy."""
+        sweeps: list = []
+        loops: list = []
+        zero()
+        t0 = time.perf_counter()
+        with watching(sweeps), probing(loops):
+            rep = launch.serve_once(launch.build_parser().parse_args(argv))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        load = rep["load"]
+        check(len(loops) == 1, f"[serve-front] {len(loops)} load runs")
+        server, want, lags = loops[0]
+        check(load["refresh_failures"] == 0 and server.refresh_failures == 0
+              and server.health == "healthy",
+              f"[serve-front] {argv}: {load['refresh_failures']} refreshes "
+              f"failed, server {server.health}")
+        check(load["refreshes"] == want, f"[serve-front] {argv}: "
+              f"{load['refreshes']} refreshes, expected {want}")
+        if "refresh_lag_max_s" in load:
+            check(max(lags, default=0.0) == load["refresh_lag_max_s"]
+                  and float(np.mean(lags) if lags else 0.0)
+                  == load["refresh_lag_mean_s"],
+                  f"[serve-front] refresh lags read back {lags} disagree "
+                  f"with the report's max and mean")
+        return rep, sweeps, snap(), secs, lags
+
+    def same(a: np.ndarray, b: np.ndarray) -> bool:
+        return a.shape == b.shape and a.dtype == b.dtype and \
+            np.array_equal(a.view(np.uint32), b.view(np.uint32))
+
+    def delta_equals_full(eng, tag: str) -> None:
+        """The engine's last sweep was a delta refresh: a full sweep from
+        the same features must give the same bits everywhere."""
+        d_logits = eng._logits_host.copy()
+        d_caches = eng._layers + eng._halos
+        eng.full_sweep()
+        check(same(d_logits, eng._logits_host),
+              f"[serve-front] {tag}: delta refresh logits == full sweep's")
+        for a, b in zip(d_caches, eng._layers + eng._halos):
+            check(same_bits(a, b), f"[serve-front] {tag}: delta refresh "
+                  f"caches == full sweep's")
+
+    out: dict = {"launches": {}}
+    train_step = np.array(TRAIN_LAUNCHES[("gcn", "sylvie_s", "sync")])
+    with tempfile.TemporaryDirectory(prefix="serve_front_") as tmp:
+        tmp = Path(tmp)
+        # -- 1. GCN 256x2 serve_once on reddit_like@paper --------------------
+        gcn_argv = ("--graph", "reddit_like@paper", "--arch", "gcn",
+                    "--ckpt-dir", str(tmp / "gcn"), "--train-epochs", "3",
+                    "--clients", "8", "--requests", "400", "--batch", "16",
+                    "--refresh-every", "50", "--refresh-nodes", "64",
+                    "--seed", str(SEED))
+        rep, sweeps, total, secs, _ = serve(*gcn_argv)
+        eng = sweeps[-1][0]
+        check(sweeps[0][1] == "full" and sweeps[0][2] == SERVE_LAUNCHES["gcn"],
+              f"[serve-front] gcn first sweep launches {sweeps[0][2]}, "
+              f"expected {SERVE_LAUNCHES['gcn']}")
+        check(all(s[2] == SERVE_LAUNCHES["gcn"] for s in sweeps),
+              "[serve-front] gcn: every sweep launches SERVE_LAUNCHES")
+        served = sum(np.array(s[2]) for s in sweeps)
+        trained = total[[names.index(k) for k in TRAIN_KERNELS]] - served
+        check(np.array_equal(trained, 3 * train_step),
+              f"[serve-front] gcn: 3 training epochs launched {trained}, "
+              f"expected 3 x {train_step}")
+        load = rep["load"]
+        check(load["requests"] == 400, f"[serve-front] gcn: "
+              f"{load['requests']} of 400 requests completed")
+        check(rep["delta_refresh"]["kind"] == "delta"
+              and rep["delta_refresh"]["wire_bytes"]
+              < rep["full_sweep_wire_bytes"],
+              "[serve-front] gcn: the measured delta ships less than a full "
+              "sweep")
+        full_ms = sorted(s[3].seconds * 1e3 for s in sweeps
+                         if s[1] == "full")
+        delta_ms = sorted(s[3].seconds * 1e3 for s in sweeps
+                          if s[1] == "delta")
+        res = out["gcn"] = dict(
+            qps=load["qps"], p50_ms=load["p50_ms"], p99_ms=load["p99_ms"],
+            requests=load["requests"], refreshes=load["refreshes"],
+            refresh_failures=load["refresh_failures"],
+            first_sweep_ms=rep["sweep_seconds"] * 1e3,
+            full_sweep_ms=full_ms,
+            delta_ms_median=delta_ms[len(delta_ms) // 2],
+            refresh_wire_bytes=load["refresh_wire_bytes"],
+            delta_wire_bytes=rep["delta_refresh"]["wire_bytes"],
+            full_sweep_wire_bytes=rep["full_sweep_wire_bytes"],
+            sweeps=len(sweeps), seconds=secs)
+        out["launches"]["gcn_serve_front_sweep"] = dict(
+            zip(TRAIN_KERNELS, sweeps[0][2]))
+        log(f"[serve-front] gcn reddit_like@paper serve_once (3 epochs "
+            f"trained, 8 clients x 400 requests x 16 ids, 64-node delta "
+            f"every 50): {json.dumps(res)}")
+        final_logits = eng._logits_host.copy()
+        delta_equals_full(eng, "gcn")
+
+        # -- 4. degraded mode on the same engine -----------------------------
+        before = eng._logits_host.copy()
+        eng.set_down([1])
+        rng = np.random.default_rng(SEED + 5)
+        ids = rng.choice(eng.pg.part_of.size, size=64, replace=False)
+        rows = rng.normal(0, 1, (64, eng.pg.x.shape[-1])).astype(np.float32)
+        dsweeps: list = []
+        with watching(dsweeps):
+            drep = eng.refresh(ids, rows)
+        check(drep.kind == "delta" and dsweeps[0][2] == SERVE_LAUNCHES["gcn"],
+              f"[serve-front] degraded refresh ran {drep.kind} with launches "
+              f"{dsweeps[0][2]}")
+        check(same(eng._logits_host[1], before[1]),
+              "[serve-front] partition 1's logits frozen bit for bit")
+        check(eng.part_staleness.tolist() == [0, 1, 0, 0],
+              f"[serve-front] staleness {eng.part_staleness.tolist()}")
+        p1 = eng.pg.global_ids[1][eng.pg.node_mask[1]][:32]
+        check(eng.query(p1).staleness.tolist() == [1] * 32,
+              "[serve-front] partition 1's answers stamped stale")
+        eng.set_up([1])
+        eng.full_sweep()
+        torch.manual_seed(SEED)
+        fresh, _ = InferenceEngine.from_checkpoint(
+            tmp / "gcn", configs.get("gcn").config().make(
+                eng.pg.x.shape[-1], eng.pg.n_classes),
+            dataclasses.replace(eng.pg, x=eng._x_host.copy()),
+            config=eng.config, runtime=eng.runtime, seed=SEED)
+        fresh.full_sweep()
+        check(eng.part_staleness.tolist() == [0] * 4
+              and same(eng._logits_host, fresh._logits_host),
+              "[serve-front] after set_up + full_sweep the logits equal a "
+              "fresh engine's bit for bit")
+        log(f"[serve-front] degraded: partition 1 down, a 64-node delta "
+            f"refresh ({drep.seconds * 1e3:.3f} ms, launches "
+            f"{dsweeps[0][2]}) left its {int(eng.pg.node_mask[1].sum())} "
+            f"logits rows frozen bit for bit, staleness [0, 1, 0, 0]; after "
+            f"set_up + full_sweep the logits equal a fresh engine's bit for "
+            f"bit")
+        gcn_pg = eng.pg
+        del eng, fresh, sweeps, dsweeps
+        torch.cuda.empty_cache()
+
+        # -- 2. GraphSAGE and GAT served the same way ------------------------
+        for arch in ("graphsage", "gat"):
+            rep, sweeps, total, secs, _ = serve(
+                "--graph", "reddit_like@paper", "--arch", arch,
+                "--ckpt-dir", str(tmp / arch), "--train-epochs", "3",
+                "--requests", "100", "--refresh-nodes", "64",
+                "--seed", str(SEED))
+            check(all(s[2] == SERVE_LAUNCHES[arch] for s in sweeps),
+                  f"[serve-front] {arch}: sweep launches "
+                  f"{[s[2] for s in sweeps]}, expected "
+                  f"{SERVE_LAUNCHES[arch]}")
+            check(rep["load"]["requests"] == 100
+                  and rep["delta_refresh"]["kind"] == "delta",
+                  f"[serve-front] {arch}: 100 requests and a delta refresh")
+            delta_equals_full(sweeps[-1][0], arch)
+            out["launches"][f"{arch}_serve_front_sweep"] = dict(
+                zip(TRAIN_KERNELS, sweeps[0][2]))
+            res = out[arch] = dict(
+                qps=rep["load"]["qps"], p50_ms=rep["load"]["p50_ms"],
+                p99_ms=rep["load"]["p99_ms"],
+                refresh_failures=rep["load"]["refresh_failures"],
+                first_sweep_ms=rep["sweep_seconds"] * 1e3,
+                delta_ms=rep["delta_refresh"]["seconds"] * 1e3,
+                delta_wire_bytes=rep["delta_refresh"]["wire_bytes"],
+                full_sweep_wire_bytes=rep["full_sweep_wire_bytes"],
+                seconds=secs)
+            log(f"[serve-front] {arch} reddit_like@paper serve_once: "
+                f"{json.dumps(res)}; delta == full bit for bit")
+            del sweeps
+            torch.cuda.empty_cache()
+
+        # -- 3. store, 2 replicas, open loop, mutation stream on gdelt --------
+        base = ("--graph", "gdelt_like@paper", "--arch", "gcn",
+                "--ckpt-dir", str(tmp / "gdelt"), "--train-epochs", "3",
+                "--store", "--replicas", "2", "--requests", "1000",
+                "--batch", "16", "--seed", str(SEED))
+        closed, sweeps, *_ = serve(*base)
+        qps = closed["load"]["qps"]
+        obs.reset_metrics()
+        # 50 ms consumption windows, so the stream's refreshes fall among
+        # the requests (at 0.25 s the first is due after the last arrival)
+        rep, sweeps, total, secs, lags = serve(
+            *base, "--open-loop", "--qps", repr(qps / 2), "--skew", "1.1",
+            "--stream-events", "60", "--stream-window", "0.05",
+            "--slo-ms", "50")
+        eng = sweeps[-1][0]
+        load, st = rep["load"], rep["store"]
+        check(len(lags) == load["refreshes"] > 0,
+              f"[serve-front] open loop: {len(lags)} stream refreshes")
+        check(load["completed"] + load["lost"] == 1000,
+              f"[serve-front] open loop: {load['completed']} completed + "
+              f"{load['lost']} lost != 1000")
+        n_rows = eng.verify_store()
+        lookups = load["completed"] * 16
+        check(st["hits"] + st["misses"] == lookups
+              and obs.snapshot()["counters"]["store.hits"] == st["hits"],
+              f"[serve-front] store hits {st['hits']} + misses "
+              f"{st['misses']} != {lookups} row lookups")
+        check(all(s[2] == SERVE_LAUNCHES["gcn"] for s in sweeps),
+              "[serve-front] gdelt: every sweep launches SERVE_LAUNCHES")
+        # what the store adds to a sweep: the emb table's copy to the host
+        t = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            eng._publish(None)
+            t.append((time.perf_counter() - t0) * 1e3)
+        emb = eng._layers[-1]
+        res = out["gdelt"] = dict(
+            closed_qps=qps, closed_p99_ms=closed["load"]["p99_ms"],
+            offered_qps=load["qps_offered"],
+            achieved_qps=load["qps_achieved"], completed=load["completed"],
+            lost=load["lost"], p50_ms=load["p50_ms"], p99_ms=load["p99_ms"],
+            slo_ms=load["slo_ms"], slo_pass=load["slo_pass"],
+            hit_rate=st["hit_rate"], miss_bytes=st["miss_bytes"],
+            cached_bytes=st["cached_bytes"], shard_bytes=st["shard_bytes"],
+            refreshes=load["refreshes"],
+            escalations=load["refresh_escalations"],
+            refresh_failures=load["refresh_failures"],
+            refresh_lag_p50_ms=float(np.percentile(lags, 50)) * 1e3,
+            refresh_lag_p99_ms=float(np.percentile(lags, 99)) * 1e3,
+            refresh_lag_max_ms=load["refresh_lag_max_s"] * 1e3,
+            verified_rows=n_rows, emb_table_mb=emb.numel() * 4 / 1e6,
+            publish_full_ms_median=sorted(t)[2],
+            delta_ms=rep["delta_refresh"]["seconds"] * 1e3,
+            replicas=rep["replicas"], seconds=secs)
+        log(f"[serve-front] gdelt_like@paper store (4,096 kB cache), 2 "
+            f"replicas, open loop at half the closed loop's QPS, Zipf 1.1, "
+            f"60 stream events: {json.dumps(res)}")
+        ids = rng.choice(eng.pg.part_of.size, size=64, replace=False)
+        rows = rng.normal(0, 1, (64, eng.pg.x.shape[-1])).astype(np.float32)
+        _, wall, busy, groups, _ = profile_device(
+            lambda: eng.refresh(ids, rows),
+            "one store-backed 64-node delta refresh on gdelt_like@paper")
+        out["gdelt"]["profiled_delta"] = dict(host_ms=wall, busy_ms=busy,
+                                              groups=groups)
+        del eng, sweeps
+        torch.cuda.empty_cache()
+
+        # -- 5. tracing on: item 1's serving and 3 epochs of Sylvie-A --------
+        # (1) again, restored (no training): untraced, then traced
+        warm, wsweeps, wtotal, *_ = serve(*gcn_argv)
+        obs.reset_metrics()
+        obs.enable()
+        rep5, sweeps5, total5, *_ = serve(*gcn_argv)
+        serve_events = obs.drain()
+        obs.disable()
+        for tag, r, sw, tot in (("untraced", warm, wsweeps, wtotal),
+                                ("traced", rep5, sweeps5, total5)):
+            check(np.array_equal(tot, wtotal)
+                  and np.array_equal(tot[[names.index(k)
+                                          for k in TRAIN_KERNELS]], served)
+                  and [s[2] for s in sw] == [SERVE_LAUNCHES["gcn"]] * len(sw)
+                  and len(sw) == out["gcn"]["sweeps"],
+                  f"[serve-front] {tag} serving launched {tot}, the first "
+                  f"run's sweeps {served}")
+            check(same(sw[-1][0]._logits_host, final_logits),
+                  f"[serve-front] {tag} serving logits == the first run's, "
+                  f"bit for bit")
+            for k in ("requests", "refreshes", "refresh_wire_bytes"):
+                check(r["load"][k] == out["gcn"][k],
+                      f"[serve-front] {tag} {k} {r['load'][k]}")
+        full_ms = sorted(s[3].seconds * 1e3 for s in wsweeps
+                         if s[1] == "full")
+        delta_ms = sorted(s[3].seconds * 1e3 for s in wsweeps
+                          if s[1] == "delta")
+        out["gcn"].update(warm_qps=warm["load"]["qps"],
+                          warm_p50_ms=warm["load"]["p50_ms"],
+                          warm_p99_ms=warm["load"]["p99_ms"],
+                          warm_full_sweep_ms=full_ms,
+                          warm_delta_ms_median=delta_ms[len(delta_ms) // 2])
+        log(f"[serve-front] gcn serve_once again, restored, untraced: "
+            f"{json.dumps({k: v for k, v in out['gcn'].items() if k.startswith('warm')})}")
+        serve_spans = span_tree(serve_events)
+        for name in ("admit", "request", "lookup", "refresh", "plan",
+                     "sweep"):
+            check(name in serve_spans, f"[serve-front] no {name} span")
+        del sweeps5, wsweeps
+
+        def sylvie_a(traced: bool) -> tuple:
+            torch.manual_seed(SEED)
+            model = configs.get("gcn").config().make(gcn_pg.x.shape[-1],
+                                                     gcn_pg.n_classes)
+            tr = GNNTrainer(model, gcn_pg, SylvieConfig(mode="async", bits=1),
+                            policy=BoundedStaleness(eps_s=4, bits=1),
+                            seed=SEED)
+            (obs.enable if traced else obs.disable)()
+            hist = []
+            for _ in range(3):
+                zero()
+                m = tr.train_epoch()
+                got = pinned(snap())
+                check(got == TRAIN_LAUNCHES[("gcn", "sylvie_a", m.mode)],
+                      f"[serve-front] Sylvie-A epoch {m.epoch} ({m.mode}, "
+                      f"traced {traced}) launched {got}")
+                hist.append(m)
+            events = obs.drain()
+            obs.disable()
+            return hist, events
+        plain, _ = sylvie_a(False)
+        traced, train_events = sylvie_a(True)
+        check([m.loss for m in plain] == [m.loss for m in traced]
+              and [m.mode for m in traced] == ["sync", "async", "async"],
+              f"[serve-front] traced losses {[m.loss for m in traced]} == "
+              f"untraced {[m.loss for m in plain]}, bit for bit")
+        check(all(m.wall_s >= m.seconds > 0.0 for m in plain + traced),
+              "[serve-front] EpochMetrics.wall_s >= seconds")
+        train_spans = span_tree(train_events)
+        check({k: v[0] for k, v in train_spans.items()}
+              == {"decide": 3, "epoch": 3, "step": 3},
+              f"[serve-front] training spans {train_spans}")
+        obs_dir = obs.default_obs_dir() / "chip_smoke"
+        for run, events in (("serve", serve_events),
+                            ("train", train_events)):
+            trace = obs.write_trace(obs_dir / f"{run}.trace.json", events)
+            obs.write_metrics(obs_dir / f"{run}.metrics.json",
+                              metrics=obs.snapshot(),
+                              run=f"chip_smoke/{run}",
+                              trace_path=str(trace))
+        out["spans"] = dict(serve=serve_spans, train=train_spans,
+                            traced_qps=rep5["load"]["qps"],
+                            traced_p50_ms=rep5["load"]["p50_ms"],
+                            traced_p99_ms=rep5["load"]["p99_ms"],
+                            untraced_qps=warm["load"]["qps"],
+                            wall_ms=[m.wall_s * 1e3 for m in traced],
+                            step_ms=[m.seconds * 1e3 for m in traced])
+        log(f"[serve-front] traced (obs on): launches and logits / losses "
+            f"bit-equal to the untraced runs; spans [count, median host ms] "
+            f"{json.dumps(out['spans'])}; trace and metrics -> {obs_dir}")
+    return out
+
+
 def main() -> int:
     # -- 1. card -------------------------------------------------------------
     if not torch.cuda.is_available():
@@ -1411,6 +1912,12 @@ def main() -> int:
 
     # -- 11. the flash kernel vs its plain versions on layer 0's q/k/v ---------
     fl = flash_phase(*lm.pop("qkv"))
+    torch.cuda.empty_cache()
+
+    # -- 11b. the serving front: serve_once, store, degraded mode, tracing -----
+    # last: its host work (checkpoints written and restored, the store's
+    # host tables) must not shift the host-clock times of the phases above
+    sf = serve_front_phase(all_kernels)
 
     # -- 12. summary ----------------------------------------------------------
     s0 = detail[0]
@@ -1426,10 +1933,11 @@ def main() -> int:
         "unpack_dequantize": ("event_ms",),
         "spmm_csr": (),
     }
-    # launches per path: one serving sweep, one training step of each kind,
-    # one LM generate
+    # launches per path: one serving sweep (the slice's, and the serving
+    # front's of each arch), one training step of each kind, one LM generate
     per_path = {name: dict(
         gcn_serve_sweep=serve_launches[name],
+        **{path: n.get(name, 0) for path, n in sf["launches"].items()},
         **{path: n[name] for path, n in tr["launches"].items()},
         lm_generate=lm["launches"][name]) for name in all_kernels}
     summary = []

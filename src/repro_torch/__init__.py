@@ -7,10 +7,18 @@ need no JAX are kept as copies here). Only the parity tests import both packages
 
 The device is fixed in one place, :func:`repro_torch.dist.runtime.resolve_device`
 (used by ``Runtime.simulated`` and the LM entry point): CUDA unless the caller
-asks for the CPU. Two slices are ported:
+asks for the CPU. Ported so far:
 
-* GCN serving through ``serve.InferenceEngine``: the Low-bit Module
-  (quantize + pack, unpack + dequantize) and the aggregation (CSR SpMM);
+* full-graph training of GCN, GraphSAGE and GAT (``train.GNNTrainer``,
+  ``python -m repro_torch.launch.train``) with Sylvie's quantized halo
+  exchange: the Low-bit Module (quantize + pack, unpack + dequantize), the
+  aggregation (CSR SpMM) and GAT's kernels;
+* GNN serving: ``serve.InferenceEngine`` (full sweep, k-hop delta refresh,
+  degraded mode), the request path and load generators around it
+  (``serve.server``, ``serve.loadgen``), the sharded embedding store
+  (``store``) and ``python -m repro_torch.launch.serve``;
+* the spans and metrics they report through (``obs``,
+  ``python -m repro_torch.obs``);
 * batched LM serving (prefill + greedy decode,
   ``python -m repro_torch.launch.train --arch granite-3-2b --serve``): every
   prefill layer's attention is the flash-attention kernel.

@@ -1,6 +1,6 @@
 """repro_torch.api — the one-import facade of the port, as ``repro.api``
-(limited to what is ported: partitioning and full-graph GCN / GraphSAGE /
-GAT training).
+(limited to what is ported: partitioning, full-graph GCN / GraphSAGE / GAT
+training, and the embedding store's names).
 
     import repro_torch.api as repro
     from repro_torch import datasets
@@ -28,6 +28,8 @@ from .graph import partition as partlib
 from .policy import (AdaQPVariance, BoundedStaleness, Chain,  # noqa: F401
                      CommPolicy, EpochDecision, SiteDecision, SiteStats,
                      Telemetry, Uniform, Warmup)
+from .store import (LRUCache, Mutation, MutationStream,  # noqa: F401
+                    ShardedEmbeddingStore, StoreBackend, StoreStats)
 from .train.trainer import GNNTrainer
 
 

@@ -50,6 +50,10 @@ class WorkloadSpec:
     tiers: Mapping[str, dict]           # tier -> generator kwargs
     description: str = ""
     target: Optional[TargetStats] = None
+    # temporal workloads: tier -> MutationStream kwargs (rate in events/s,
+    # feat_frac, skew) of the seeded node-feature/edge mutation feed; empty
+    # for static graphs (``repro_torch.store.stream``)
+    stream: Mapping[str, dict] = dataclasses.field(default_factory=dict)
 
     def load(self, tier: str = DEFAULT_TIER, seed: int = 0) -> Graph:
         """Generate the graph at ``tier`` (deterministic in ``(tier, seed)``)."""
@@ -159,4 +163,26 @@ register(WorkloadSpec(
                       p_in=0.75, gamma=1.0),
         "paper": dict(n_nodes=30_000, avg_degree=96, d_feat=200,
                       n_classes=107, p_in=0.75, gamma=1.0),
+    }))
+
+register(WorkloadSpec(
+    name="gdelt_like", generator="powerlaw_community",
+    description="GDELT stand-in: temporal event knowledge graph whose "
+                "node features and edges mutate continuously — the "
+                "calibration source of the store's streaming feeds.",
+    target=TargetStats(n_nodes=16_682, n_edges=191_290_882,
+                       avg_degree=11_467.0, d_feat=413, n_classes=81),
+    tiers={
+        "smoke": dict(n_nodes=600, avg_degree=12, d_feat=32, n_classes=8,
+                      p_in=0.8, gamma=0.9),
+        "small": dict(n_nodes=12_000, avg_degree=16, d_feat=64,
+                      n_classes=16, p_in=0.8, gamma=0.9),
+        "paper": dict(n_nodes=16_682, avg_degree=64, d_feat=413,
+                      n_classes=81, p_in=0.8, gamma=0.9),
+    },
+    # tens of mutations a second, ~70% feature refreshes and ~30% edge
+    # events, heavily skewed toward hub entities
+    stream={
+        "smoke": dict(rate=40.0, feat_frac=0.7, skew=1.1),
+        "small": dict(rate=80.0, feat_frac=0.7, skew=1.1),
     }))

@@ -102,8 +102,9 @@ def plan_full(pg: PartitionedGraph, n_sites: int) -> RefreshPlan:
 @dataclasses.dataclass(frozen=True)
 class RefreshReport:
     """What one refresh (full sweep or delta) cost on the wire, and its
-    host-clock seconds (``time.perf_counter`` around the sweep, ending after
-    the logits reached the host)."""
+    host-clock seconds (``repro_torch.obs.clock`` around the sweep, ending
+    after the logits reached the host and, with a store attached, after the
+    publish)."""
 
     kind: str                       # "full" | "delta"
     forced: bool                    # delta request escalated by the bound

@@ -16,17 +16,19 @@ versions on the CPU). Once per epoch, on the host:
 
 ``SylvieConfig(bits=...)`` without a policy is the ``Uniform`` policy; the
 paper's Bounded Staleness Adaptor (§3.3) is ``policy=BoundedStaleness(eps_s)``.
-Not ported: fault plans (``repro.faults``), ``repro.obs`` spans, the overlap
-schedule and its modeled comm split, the deprecated ``eps_s=`` shim.
+Each epoch is traced as ``epoch > decide > step`` spans
+(``repro_torch.obs``; free when tracing is off) and timed on ``obs.clock``.
+Not ported: fault plans (``repro.faults``), the overlap schedule and its
+modeled comm split, the deprecated ``eps_s=`` shim.
 """
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import Optional
 
 import torch
 
+from .. import obs
 from ..core.exchange import exchange_bytes, wire_bytes
 from ..core.sylvie import SylvieConfig
 from ..dist.runtime import Runtime
@@ -57,6 +59,9 @@ class EpochMetrics:
     bits_per_site: tuple = ()
     policy: str = ""
     ef_bits: Optional[int] = None
+    # the whole epoch on the obs clock (decide + step + telemetry and byte
+    # accounting), against ``seconds`` = the step call alone
+    wall_s: float = 0.0
 
 
 class GNNTrainer:
@@ -219,24 +224,33 @@ class GNNTrainer:
         return (self.seed, self.epoch)
 
     def train_epoch(self) -> EpochMetrics:
-        decision = self._decide()
-        ts, ta = self._steps_for(decision)
-        fn = ts if decision.sync else ta
-        t0 = time.perf_counter()
-        masks = self.bns_masks(self.epoch) if self.bns_masks else None
-        self.state, loss = fn(self.state, self.block, self.x, self.y,
-                              self.train_mask, self._epoch_key(), masks)
-        loss = float(loss)                   # a device sync
-        dt = time.perf_counter() - t0
-        self._needs_sync = False
-        self._last_decision = decision
-        self._absorb_site_stats()
-        pb, eb = self.comm_bytes_per_epoch(decision)
-        m = EpochMetrics(self.epoch, loss, dt,
-                         "sync" if decision.sync else "async",
-                         pb / 1e6, eb / 1e6, schedule=decision.schedule,
-                         bits_per_site=decision.bits_per_site(),
-                         policy=self.policy.name, ef_bits=decision.ef_bits)
+        w0 = obs.clock()
+        with obs.span("epoch", {"epoch": self.epoch}):
+            with obs.span("decide"):
+                decision = self._decide()
+            ts, ta = self._steps_for(decision)
+            fn = ts if decision.sync else ta
+            t0 = obs.clock()
+            with obs.span("step",
+                          {"mode": "sync" if decision.sync else "async"}):
+                masks = self.bns_masks(self.epoch) if self.bns_masks \
+                    else None
+                self.state, loss = fn(self.state, self.block, self.x, self.y,
+                                      self.train_mask, self._epoch_key(),
+                                      masks)
+                loss = float(loss)           # a device sync
+            dt = obs.clock() - t0
+            self._needs_sync = False
+            self._last_decision = decision
+            self._absorb_site_stats()
+            pb, eb = self.comm_bytes_per_epoch(decision)
+            m = EpochMetrics(self.epoch, loss, dt,
+                             "sync" if decision.sync else "async",
+                             pb / 1e6, eb / 1e6, schedule=decision.schedule,
+                             bits_per_site=decision.bits_per_site(),
+                             policy=self.policy.name,
+                             ef_bits=decision.ef_bits)
+        m.wall_s = obs.clock() - w0
         self.history.append(m)
         self.epoch += 1
         return m

@@ -47,8 +47,17 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 20
-    gat = ROOT / "src" / "repro_torch" / "kernels" / "gat"
+    port = ROOT / "src" / "repro_torch"
+    gat = port / "kernels" / "gat"
     assert {gat / "ops.py", gat / "ref.py"} <= set(files)
+    front = {port / "obs" / f for f in ("__init__.py", "__main__.py",
+                                          "spans.py", "metrics.py",
+                                          "export.py")}
+    front |= {port / "store" / f for f in ("__init__.py", "backend.py",
+                                            "cache.py", "stream.py")}
+    front |= {port / "serve" / "server.py", port / "serve" / "loadgen.py",
+              port / "launch" / "serve.py"}
+    assert front <= set(files)
     bad = [f"{f.relative_to(ROOT)}:{line} imports {mod}"
            for f in files for line, mod in _imported_roots(f)
            if mod in FORBIDDEN]
