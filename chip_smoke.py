@@ -111,6 +111,32 @@ serve-front — ``python -m repro_torch.launch.serve``'s ``serve_once`` on the
             ``artifacts/torch/obs/chip_smoke/``, span counts and median host
             ms are printed.
 
+chaos     — after serve-front (last: it spawns processes and writes
+            checkpoints); every count is zeroed before each epoch and read
+            after it. (a) GCN 256x2 and GAT 4x64 on ``reddit_like@paper``,
+            P=4, Sylvie-S (``Uniform(1)``) and Sylvie-A
+            (``BoundedStaleness(4, 1)``), ``CHAOS_EPOCHS`` epochs under the
+            ``chaos_smoke`` fault spec (``CHAOS_FAULT``), in turns with the
+            same runs fault-free: every epoch ``faults_injected == halos_reused +
+            forced_syncs`` and equal to what the host plan draws, some
+            fault injected, losses finite, launches per step as
+            ``TRAIN_LAUNCHES`` (a forced recovery epoch runs at 32 bits:
+            vanilla's); the median epoch ms faulted and clean side by
+            side, and the median of their paired ratios.
+            (b) GCN Sylvie-S under a rate-zero plan: parameters bit-equal to
+            no plan's after 3 epochs. (c) GCN and GAT, sync and async
+            (``Uniform(1)``), 3 epochs under each exchange schedule:
+            parameters and losses bit-equal, launches equal epoch by epoch;
+            one more async epoch of each profiled: device-busy ms and the ms
+            in which side-stream and main-stream kernels ran at once
+            (``stream_profile``, from the trace's stream ids; printed, not
+            gated). (d) ``python -m repro_torch.launch.chaos --kill-resume
+            --dataset reddit_like@paper --epochs 4``: ``"bit_exact": true``,
+            its second and third legs plan-cache hits. (e)
+            ``run_scenario("chaos_smoke")`` on the card, the accounting on
+            every cell; one ``smoke`` cell traced: the full report key set
+            and its trace file.
+
 Between phases 5 and 6 (``lm``) four training phases run:
 
 train     — GCN 256x2, GraphSAGE 256x2 and GAT (4 heads x 64, 2 layers),
@@ -157,7 +183,7 @@ train-parity — deterministic 6-epoch Sylvie-S and Sylvie-A (eps_s=2) of each
             for at most 1% of their rows, counted (``train_parity_phase``;
             GAT at 1 bit epoch by epoch from the CPU's state).
 
-Run time on an H100: about three minutes, the kernels' build included.
+Run time on an H100: about three and a half minutes, the kernels' build included.
 """
 from __future__ import annotations
 
@@ -165,6 +191,7 @@ import contextlib
 import dataclasses
 import inspect
 import json
+import os
 import subprocess
 import sys
 import time
@@ -613,7 +640,7 @@ def train_phase(all_kernels: dict) -> dict:
     from repro_torch.policy import BoundedStaleness, Uniform
     from repro_torch.train.trainer import GNNTrainer
 
-    pg = datasets.load_partitioned("reddit_like@paper", n_parts=4)
+    pg, _ = datasets.load_partitioned("reddit_like@paper", n_parts=4)
     d_in, n_cls = pg.x.shape[-1], pg.n_classes
     runs = {"vanilla": (SylvieConfig(mode="vanilla"), None),
             "sylvie_s": (SylvieConfig(mode="sync", bits=1), Uniform(bits=1)),
@@ -1098,7 +1125,7 @@ def train_parity_phase() -> dict:
     from repro_torch.train import optimizer as optlib
     from repro_torch.train.trainer import GNNTrainer
 
-    pg = datasets.load_partitioned("yelp_like@small", n_parts=4)
+    pg, _ = datasets.load_partitioned("yelp_like@small", n_parts=4)
     dims = (pg.x.shape[-1], pg.n_classes)
     res = {}
     for arch in TRAIN_ARCHS:
@@ -1603,6 +1630,281 @@ def serve_front_phase(all_kernels: dict) -> dict:
     return out
 
 
+CHAOS_EPOCHS = 20     # chaos_smoke's 6, extended for the epoch medians
+CHAOS_FAULT = "drop=0.15,corrupt=0.05,seed=7"     # the chaos_smoke spec
+CHAOS_ARCHS = ("gcn", "gat")
+
+
+def stream_profile(fn, label: str) -> dict:
+    """Run ``fn`` once under ``torch.profiler`` and read its trace's device
+    activities (kernels, copies, memsets) by CUDA stream: the device-busy ms
+    (the union of every stream's intervals), each stream's busy ms, and the
+    ms during which the main stream (the one with the most device time) and
+    any other stream ran at once. The trace goes to ``build/``."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    path = ROOT / "build" / f"chaos_profile_{label}.json"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(path))
+    events = json.loads(path.read_text())
+    events = events.get("traceEvents", events)
+    by_stream: dict = {}
+    for e in events:
+        if e.get("ph") == "X" and e.get("cat") in ("kernel", "gpu_memcpy",
+                                                   "gpu_memset"):
+            sid = e.get("args", {}).get("stream", e.get("tid"))
+            by_stream.setdefault(sid, []).append(
+                (float(e["ts"]), float(e["ts"]) + float(e["dur"])))
+
+    def union(iv):
+        out = []
+        for a, b in sorted(iv):
+            if out and a <= out[-1][1]:
+                out[-1][1] = max(out[-1][1], b)
+            else:
+                out.append([a, b])
+        return out
+
+    def length(iv):
+        return sum(b - a for a, b in iv)
+
+    merged = {s: union(iv) for s, iv in by_stream.items()}
+    main = max(merged, key=lambda s: length(merged[s])) if merged else None
+    others = union([i for s, iv in merged.items() if s != main for i in iv])
+    both, j = 0.0, 0
+    for a, b in merged.get(main, []):
+        while j < len(others) and others[j][1] <= a:
+            j += 1
+        k = j
+        while k < len(others) and others[k][0] < b:
+            both += min(b, others[k][1]) - max(a, others[k][0])
+            k += 1
+    res = dict(host_ms=wall,
+               busy_ms=length(union([i for iv in by_stream.values()
+                                     for i in iv])) / 1e3,
+               streams={str(s): dict(busy_ms=length(iv) / 1e3,
+                                     activities=len(by_stream[s]))
+                        for s, iv in merged.items()},
+               concurrent_ms=both / 1e3)
+    log(f"[chaos] profile {label}: {json.dumps(res)}")
+    return res
+
+
+def chaos_phase(all_kernels: dict) -> dict:
+    """Fault-tolerant training, the overlap schedule, kill-and-resume and
+    the scenario runner on the card (see the module docstring)."""
+    from repro_torch import configs, datasets
+    from repro_torch.core.sylvie import SylvieConfig
+    from repro_torch.launch import scenarios
+    from repro_torch.policy import BoundedStaleness, Uniform
+    from repro_torch.train import optimizer as optlib
+    from repro_torch.train.trainer import GNNTrainer
+
+    t_phase = time.perf_counter()
+    names = list(all_kernels)
+
+    def zero() -> None:
+        for meta in all_kernels.values():
+            meta["k"].launches = 0
+
+    def counts() -> tuple:
+        return tuple(all_kernels[k]["k"].launches for k in TRAIN_KERNELS)
+
+    pg, _ = datasets.load_partitioned("reddit_like@paper", n_parts=4)
+    d_in, n_cls = pg.x.shape[-1], pg.n_classes
+    plan = scenarios.parse_fault(CHAOS_FAULT)
+    runs = {"sylvie_s": (SylvieConfig(mode="sync", bits=1),
+                         lambda: Uniform(bits=1)),
+            "sylvie_a": (SylvieConfig(mode="async", bits=1),
+                         lambda: BoundedStaleness(eps_s=4, bits=1))}
+    out: dict = dict(launches={})
+
+    def trainer(arch, cfg, pol, **kw):
+        torch.manual_seed(SEED)
+        model = configs.get(arch).config().make(d_in, n_cls)
+        return GNNTrainer(model, pg, cfg, policy=pol, seed=SEED, **kw)
+
+    # (a) faulted training at full width, beside the same runs fault-free,
+    # their epochs in turns
+    for arch in CHAOS_ARCHS:
+        for name, (cfg, pol) in runs.items():
+            trs = {key: trainer(arch, cfg, pol(), fault_plan=fp)
+                   for key, fp in (("faulted", plan), ("clean", None))}
+            for _ in range(CHAOS_EPOCHS):
+                for key, tr in trs.items():
+                    zero()
+                    m = tr.train_epoch()
+                    got = counts()
+                    tag = f"[chaos] {arch} {name} {key} epoch {m.epoch} " \
+                          f"({m.mode})"
+                    recovery = m.forced_syncs > 0
+                    want = TRAIN_LAUNCHES[(arch, "vanilla", "sync")
+                                          if recovery else (arch, name,
+                                                            m.mode)]
+                    check(got == want and all_kernels["flash_fwd"]["k"]
+                          .launches == 0,
+                          f"{tag}: launches {got}, expected {want}")
+                    drawn = plan.events(m.epoch, tr.n_sites, 4).n_injected \
+                        if key == "faulted" else 0
+                    check(m.faults_injected == drawn == m.halos_reused
+                          + m.forced_syncs,
+                          f"{tag}: injected {m.faults_injected} (the plan "
+                          f"draws {drawn}) != reused {m.halos_reused} + "
+                          f"forced {m.forced_syncs}")
+                    if key == "faulted" and not recovery:
+                        out["launches"][
+                            f"{arch}_train_faulted_{name}_{m.mode}_step"] = {
+                            k: all_kernels[k]["k"].launches for k in names}
+            hist = {key: tr.history for key, tr in trs.items()}
+            del trs
+            for key, h in hist.items():
+                check(all(np.isfinite([m.loss for m in h])),
+                      f"[chaos] {arch} {name} {key}: losses finite "
+                      f"{[m.loss for m in h]}")
+            check(sum(m.faults_injected for m in hist["faulted"]) > 0,
+                  f"[chaos] {arch} {name}: no fault injected")
+            # epochs 1.. in the same mode in both runs, recovery epochs out
+            pairs = [(f.seconds * 1e3, c.seconds * 1e3, f.mode)
+                     for f, c in zip(hist["faulted"][1:], hist["clean"][1:])
+                     if f.mode == c.mode and not f.forced_syncs]
+            med = {}
+            for mode in ("sync", "async"):
+                fs = sorted(f for f, _, md in pairs if md == mode)
+                cs = sorted(c for _, c, md in pairs if md == mode)
+                ratio = sorted(f / c for f, c, md in pairs if md == mode)
+                if fs:
+                    med[mode] = dict(
+                        faulted_ms=fs[len(fs) // 2],
+                        clean_ms=cs[len(cs) // 2],
+                        overhead=ratio[len(ratio) // 2] - 1.0,
+                        epochs=len(fs))
+            res = out[f"{arch}_{name}"] = dict(
+                median=med,
+                accounting=[(m.faults_injected, m.halos_reused,
+                             m.forced_syncs, m.mode)
+                            for m in hist["faulted"]],
+                loss_faulted=[m.loss for m in hist["faulted"]],
+                loss_clean=[m.loss for m in hist["clean"]])
+            log(f"[chaos] {arch} {name} under {CHAOS_FAULT}, {CHAOS_EPOCHS} "
+                f"epochs in turns with the same run fault-free: median epoch "
+                f"ms by mode (epochs 1.., recovery epochs left out; overhead "
+                f"= the median of the paired ratios - 1) "
+                f"{json.dumps(med)}; per epoch (injected, reused, forced, "
+                f"mode) {res['accounting']}; losses faulted "
+                f"{[round(x, 4) for x in res['loss_faulted']]} clean "
+                f"{[round(x, 4) for x in res['loss_clean']]}")
+    torch.cuda.empty_cache()
+
+    # (b) a rate-zero plan against no plan: the parameters bit for bit
+    cfg, pol = runs["sylvie_s"]
+    params = []
+    for fp in (None, scenarios.parse_fault("seed=7")):
+        tr = trainer("gcn", cfg, pol(), fault_plan=fp)
+        tr.fit(3)
+        params.append(optlib.tree_leaves(tr.state.params))
+        del tr
+    check(all(same_bits(a, b) for a, b in zip(*params)),
+          "[chaos] a rate-zero plan trains the parameters of no plan")
+    log("[chaos] GCN Sylvie-S, 3 epochs: a rate-zero plan's parameters equal "
+        "no plan's bit for bit")
+
+    # (c) overlap against blocking: bit-equal parameters, equal launches;
+    # then one profiled async epoch under each schedule
+    for arch in CHAOS_ARCHS:
+        for mode in ("sync", "async"):
+            res = {}
+            for sched in ("blocking", "overlap"):
+                tr = trainer(arch, SylvieConfig(mode=mode, bits=1,
+                                                schedule=sched),
+                             Uniform(bits=1))
+                seen = []
+                for _ in range(3):
+                    zero()
+                    m = tr.train_epoch()
+                    seen.append((m.mode, tuple(
+                        all_kernels[k]["k"].launches for k in names)))
+                    if sched == "overlap":
+                        out["launches"][f"{arch}_train_overlap_{m.mode}_"
+                                        f"step"] = dict(zip(names,
+                                                            seen[-1][1]))
+                res[sched] = (seen, optlib.tree_leaves(tr.state.params),
+                              [m.loss for m in tr.history],
+                              [round(m.seconds * 1e3, 3) for m in tr.history])
+                if mode == "async":
+                    res[sched] += (stream_profile(
+                        tr.train_epoch, f"{arch}_{sched}_async"),)
+                del tr
+            (sb, pb, lb), (so, po, lo) = (res["blocking"][:3],
+                                          res["overlap"][:3])
+            check(sb == so, f"[chaos] {arch} {mode}: launches per epoch "
+                  f"blocking {sb} != overlap {so}")
+            check(lb == lo and all(same_bits(a, b) for a, b in zip(pb, po)),
+                  f"[chaos] {arch} {mode}: overlap parameters and losses "
+                  f"{lo} bit-equal to blocking {lb}")
+            log(f"[chaos] {arch} {mode}: 3 epochs, overlap == blocking bit "
+                f"for bit (losses {lb}), launches equal {sb}; epoch ms "
+                f"blocking {res['blocking'][3]} overlap "
+                f"{res['overlap'][3]}")
+            if mode == "async":
+                out[f"{arch}_overlap_profile"] = {
+                    s: res[s][4] for s in ("blocking", "overlap")}
+    torch.cuda.empty_cache()
+
+    # (d) kill-and-resume on the card, in worker processes
+    t0 = time.perf_counter()
+    cmd = [sys.executable, "-m", "repro_torch.launch.chaos", "--kill-resume",
+           "--dataset", "reddit_like@paper", "--epochs", "4"]
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT / "src")
+    kr = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                        text=True, timeout=600)
+    check(kr.returncode == 0, f"[chaos] kill-resume exited {kr.returncode}:"
+          f"\n{kr.stdout}\n{kr.stderr}")
+    report = json.loads(kr.stdout[kr.stdout.index("{"):])
+    check('"bit_exact": true' in kr.stdout and report["bit_exact"],
+          f"[chaos] kill-resume not bit-exact: {kr.stdout}")
+    check(report["plan_cache_hits"][1:] == [True, True],
+          f"[chaos] kill-resume legs 2 and 3 plan-cache hits: "
+          f"{report['plan_cache_hits']}")
+    out["kill_resume"] = dict(report, seconds=time.perf_counter() - t0)
+    log(f"[chaos] kill-resume on reddit_like@paper (uniform:1 sync, 4 "
+        f"epochs): {json.dumps(out['kill_resume'])}")
+
+    # (e) the scenario runner on the card
+    t0 = time.perf_counter()
+    art = ROOT / "artifacts" / "torch" / "chip_smoke"
+    reps = scenarios.run_scenario("chaos_smoke", out_dir=art / "scenarios")
+    for rep in reps:
+        check(rep["faults_injected"] == rep["halos_reused"]
+              + rep["forced_syncs"] and rep["faults_injected"] > 0,
+              f"[chaos] {rep['cell']}: accounting {rep['faults_injected']} "
+              f"== {rep['halos_reused']} + {rep['forced_syncs']} > 0")
+    cell = scenarios.resolve("smoke").cells()[0].cell_id
+    (rep,) = scenarios.run_scenario("smoke", only=cell,
+                                    out_dir=art / "scenarios",
+                                    obs_trace=True, obs_dir=art / "obs")
+    check(set(rep) == scenarios.REPORT_KEYS and rep["obs"]["enabled"]
+          and Path(rep["trace_path"]).is_file(),
+          f"[chaos] traced smoke cell: keys {sorted(rep)}, trace "
+          f"{rep['trace_path']}")
+    out["scenarios"] = dict(
+        chaos_smoke={r["cell"]: [r["faults_injected"], r["halos_reused"],
+                                 r["forced_syncs"], r["final_loss"]]
+                     for r in reps},
+        smoke_cell=cell, trace=rep["trace_path"],
+        seconds=time.perf_counter() - t0)
+    log(f"[chaos] scenarios: {json.dumps(out['scenarios'])}")
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[chaos] phase done in {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     # -- 1. card -------------------------------------------------------------
     if not torch.cuda.is_available():
@@ -1674,7 +1976,7 @@ def main() -> int:
 
     # -- 3. the slice: GCN 256x2 serving reddit_like@paper, P=4, 1 bit --------
     t0 = time.perf_counter()
-    pg = datasets.load_partitioned("reddit_like@paper", n_parts=4)
+    pg, _ = datasets.load_partitioned("reddit_like@paper", n_parts=4)
     d_in, n_cls = pg.x.shape[-1], pg.n_classes
     log(f"[slice] reddit_like@paper: {pg.part_of.size} nodes, d_feat {d_in}, "
         f"{n_cls} classes, n_local {pg.plan.n_local}, halo rows "
@@ -1765,7 +2067,7 @@ def main() -> int:
     log(f"[slice] stochastic 1-bit sweep {srep.seconds * 1e3:.3f} ms (first)")
 
     # -- 4. small input: card vs the CPU's plain versions ----------------------
-    spg = datasets.load_partitioned("yelp_like@smoke", n_parts=4)
+    spg, _ = datasets.load_partitioned("yelp_like@smoke", n_parts=4)
     small = GCN(spg.x.shape[-1], 16, spg.n_classes, n_layers=2,
                 generator=torch.Generator().manual_seed(SEED))
     params = params_to_numpy(small)
@@ -1919,6 +2221,11 @@ def main() -> int:
     # host tables) must not shift the host-clock times of the phases above
     sf = serve_front_phase(all_kernels)
 
+    # -- 11c. chaos: faults, the overlap schedule, kill-and-resume, scenarios --
+    # last: it spawns processes and writes checkpoints
+    torch.cuda.empty_cache()
+    ch = chaos_phase(all_kernels)
+
     # -- 12. summary ----------------------------------------------------------
     s0 = detail[0]
     times = {
@@ -1939,6 +2246,7 @@ def main() -> int:
         gcn_serve_sweep=serve_launches[name],
         **{path: n.get(name, 0) for path, n in sf["launches"].items()},
         **{path: n[name] for path, n in tr["launches"].items()},
+        **{path: n[name] for path, n in ch["launches"].items()},
         lm_generate=lm["launches"][name]) for name in all_kernels}
     summary = []
     for name, meta in kernels.items():

@@ -21,7 +21,11 @@ asks for the CPU. Ported so far:
   ``python -m repro_torch.obs``);
 * batched LM serving (prefill + greedy decode,
   ``python -m repro_torch.launch.train --arch granite-3-2b --serve``): every
-  prefill layer's attention is the flash-attention kernel.
+  prefill layer's attention is the flash-attention kernel;
+* fault-tolerant training (``faults``, ``python -m
+  repro_torch.launch.chaos``), the overlap schedule on a side CUDA stream
+  (``dist.overlap``), the scenario matrix (``launch.scenarios``, ``--scenario``)
+  and the partition-plan cache (``datasets.plans``).
 
 Each kernel runs as hand-written CUDA on a CUDA tensor and as its plain
 PyTorch version on a CPU tensor (``repro_torch/kernels``).

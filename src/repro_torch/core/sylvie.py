@@ -32,8 +32,12 @@ noise: the Functions take ``u_fwd`` / ``u_bwd``, and ``SylvieComm`` takes
 per-site BNS keep-masks, ``bns_masks``). Without a key, every site shares
 the one ``generator`` (the serving sweep's stream).
 
-Not ported: the ``"overlap"`` schedule (``dist/overlap.py``) and fault-armed
-sites (``repro.faults``); both raise here rather than run blocking.
+``SylvieComm.halo`` dispatches as the reference does: fault-armed sites
+(``fault_sites``, masks of ``repro_torch.faults``) run the blocking faulty
+primitives of ``faults/comm.py`` whatever the schedule (the recovery blend
+needs the landed exchange at once, DESIGN §14); otherwise the ``"overlap"``
+schedule runs the issue/land twins of ``dist/overlap.py`` (a side CUDA
+stream on the card), and ``"blocking"`` the Functions below.
 """
 from __future__ import annotations
 
@@ -43,7 +47,9 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..dist.backend import SimulatedBackend
+from ..dist import overlap as olap
+from ..dist.backend import Inflight, SimulatedBackend
+from ..faults import comm as fcomm
 from ..policy.base import SiteDecision
 from . import quantization as qlib
 from .exchange import (PlanArrays, exchange_quantized_halo, gather_boundary,
@@ -54,7 +60,6 @@ Mode = str  # "vanilla" | "sync" | "async"
 # Exchange schedules: "blocking" consumes each halo exchange where it is
 # produced; "overlap" issues it early and lands it through a backend fence.
 SCHEDULES = ("blocking", "overlap")
-NOT_PORTED = "not ported yet (ROADMAP queue A)"
 BNS_STREAM = 999
 
 
@@ -205,7 +210,13 @@ class SylvieComm:
     produced (``new_feat_caches``: the Sylvie-A caches of the next step) and,
     when ``collect_stats``, per-site boundary range statistics.
     ``bns_masks`` (one (P, halo_rows) 0/1 keep-mask per site) replaces the
-    BNS draws of a synchronous pass where sampling is on."""
+    BNS draws of a synchronous pass where sampling is on. ``fault_sites``
+    (one :class:`~repro_torch.faults.plan.SiteFaults` per site; ``None`` =
+    fault-free) arms every site with its masks; a synchronous pass then also
+    needs ``feat_caches``, the fallback of a condemned row. Under the overlap
+    schedule an async pass's fresh exchange of a site is issued at the next
+    site (the last one's by :meth:`issue_pending`, before the backward) and
+    stays in flight until :meth:`land`."""
 
     def __init__(self, cfg: SylvieConfig, plan: PlanArrays,
                  generator: Optional[torch.Generator] = None, backend=None,
@@ -213,8 +224,6 @@ class SylvieComm:
                  collect_stats: bool = False, feat_caches=None,
                  grad_ins=None, gslots=None, fault_sites=None,
                  bns_masks=None):
-        if fault_sites is not None:
-            raise NotImplementedError(f"fault-armed sites: {NOT_PORTED}")
         self.cfg = cfg
         self.plan = plan
         self.generator = generator
@@ -226,7 +235,9 @@ class SylvieComm:
         self.grad_ins = grad_ins
         self.gslots = gslots
         self.bns_masks = bns_masks
+        self.fault_sites = fault_sites
         self.new_feat_caches: list = []
+        self._pending: list = []      # (cache index, deferred fresh issue)
         self.site_stats: list = []
         self._site = 0
 
@@ -279,32 +290,77 @@ class SylvieComm:
                                                 live.sum()]))
 
     def halo(self, h: torch.Tensor) -> torch.Tensor:
+        self.issue_pending()
         cfg = self.cfg
         i = self._site
         self._site += 1
-        if self.schedule == "overlap":
-            raise NotImplementedError(f"schedule 'overlap': {NOT_PORTED}")
         sd = self._site_decision(i)
         self._record_stats(h)
         gen_f, gen_b = self._stream(2 * i, h.device), \
             self._stream(2 * i + 1, h.device)
+        sf = self.fault_sites[i] if self.fault_sites is not None else None
+        # fault-armed sites always run the blocking faulty primitives: the
+        # recovery blend needs the landed exchange immediately (DESIGN §14)
+        overlap = self.schedule == "overlap" and sf is None
+        args = (sd.stochastic, cfg.scale_dtype, self.backend)
         if cfg.mode in ("vanilla", "sync"):
-            halo = quantized_halo(h, self.plan, sd.fwd_bits, sd.bwd_bits,
-                                  sd.stochastic, cfg.scale_dtype, self.backend,
-                                  gen_f, gen_b)
+            if sf is not None:
+                halo = fcomm.faulty_quantized_halo(
+                    h, self.feat_caches[i], sf, self.plan, sd.fwd_bits,
+                    sd.bwd_bits, *args, gen_f, gen_b)
+            elif overlap:
+                halo = olap.overlap_quantized_halo(
+                    h, self.plan, sd.fwd_bits, sd.bwd_bits, *args, gen_f,
+                    gen_b)
+            else:
+                halo = quantized_halo(h, self.plan, sd.fwd_bits, sd.bwd_bits,
+                                      *args, gen_f, gen_b)
             bns = self._bns_mask(i, sd.boundary_sample_p, h.device)
             if bns is not None:
                 halo = halo * bns[..., None]
             # a synchronous step doubles as a cache refresh for Sylvie-A
             self.new_feat_caches.append(halo.detach())
             return halo
-        halo = stale_halo(h, self.feat_caches[i], self.grad_ins[i],
-                          self.gslots[i], self.plan, sd.bwd_bits,
-                          sd.stochastic, cfg.scale_dtype, self.backend, gen_b)
-        self.new_feat_caches.append(
-            fresh_halo(h, self.plan, sd.fwd_bits, sd.stochastic,
-                       cfg.scale_dtype, self.backend, gen_f))
+        # async: consume stale, emit fresh
+        stale = (h, self.feat_caches[i], self.grad_ins[i], self.gslots[i])
+        if sf is not None:
+            halo = fcomm.faulty_stale_halo(*stale, sf, self.plan, sd.bwd_bits,
+                                           *args, gen_b)
+            fresh = fcomm.faulty_fresh_halo(h, self.feat_caches[i], sf,
+                                            self.plan, sd.fwd_bits, *args,
+                                            gen_f)
+        elif overlap:
+            halo = olap.overlap_stale_halo(*stale, self.plan, sd.bwd_bits,
+                                           *args, gen_b)
+            # issued once this layer's aggregation is enqueued, so that the
+            # side stream runs beside it; h is ready here
+            ready = olap.mark(h)
+            self._pending.append((len(self.new_feat_caches), lambda: (
+                olap.overlap_fresh_halo(h, self.plan, sd.fwd_bits, *args,
+                                        gen_f, ready=ready))))
+            fresh = None
+        else:
+            halo = stale_halo(*stale, self.plan, sd.bwd_bits, *args, gen_b)
+            fresh = fresh_halo(h, self.plan, sd.fwd_bits, *args, gen_f)
+        self.new_feat_caches.append(fresh)
         return halo
+
+    def issue_pending(self) -> None:
+        """Issue the deferred fresh exchanges (the overlap schedule's async
+        pass); the step calls it after the forward, before the backward."""
+        for idx, issue in self._pending:
+            self.new_feat_caches[idx] = issue()
+        self._pending.clear()
+
+    def land(self) -> tuple:
+        """The halos this pass produced (the next step's feature caches),
+        landed: an in-flight fresh exchange of the overlap schedule is fenced
+        and dequantized here, so the caller lands them once the rest of its
+        step is enqueued."""
+        self.issue_pending()
+        return tuple(olap.land_fresh(c, self.plan, self.backend)
+                     if isinstance(c, Inflight) else c
+                     for c in self.new_feat_caches)
 
     @property
     def n_sites(self) -> int:

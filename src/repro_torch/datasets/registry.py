@@ -15,7 +15,7 @@ arrays as ``repro.datasets`` for the same reference::
 
     from repro_torch import datasets
     g = datasets.load("reddit_like@paper")
-    pg = datasets.load_partitioned("reddit_like@paper", n_parts=4)
+    pg, hit = datasets.load_partitioned("reddit_like@paper", n_parts=4)
 """
 from __future__ import annotations
 

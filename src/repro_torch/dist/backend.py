@@ -11,9 +11,16 @@ device and moves halo buffers by reindexing it:
 
 Quantized exchanges move the payload and its error compensation (scale,
 zero) together. ``psum`` is the identity (the stacked axis is already
-global), ``fence`` lands an in-flight exchange (identity: PyTorch runs in
-order on one stream) and ``axis_index`` is ``None`` (the whole stack is
-present). A multi-process backend over ``torch.distributed`` is later work.
+global) and ``axis_index`` is ``None`` (the whole stack is present).
+
+The overlap schedule (``dist/overlap.py``) issues an exchange on a side
+CUDA stream that the backend owns (:meth:`SimulatedBackend.side_stream`, one
+per device) and gets an :class:`Inflight` back; :meth:`SimulatedBackend.fence`
+lands it: the consuming stream waits on the event the side stream recorded,
+and the received tensors are marked as used there (``record_stream``), so
+the caching allocator cannot hand their memory to the side stream while the
+consumer still reads it. On the CPU there is no event and the fence is the
+identity. A multi-process backend over ``torch.distributed`` is later work.
 """
 from __future__ import annotations
 
@@ -43,12 +50,25 @@ def _bucket_slices(bucket_sizes: tuple[int, ...]):
     return out
 
 
+@dataclasses.dataclass
+class Inflight:
+    """An issued halo exchange: the received payload and, on CUDA, the event
+    the side stream recorded after enqueueing the exchange (``None`` on the
+    CPU, where the exchange has already run)."""
+
+    qt: QuantizedTensor
+    event: Optional[torch.cuda.Event] = None
+
+
 @dataclasses.dataclass(frozen=True)
 class SimulatedBackend:
     """Stacked single-device semantics (``P`` partitions, one device).
-    ``n_parts`` is optional metadata; the exchange reads ``P`` off the buffer."""
+    ``n_parts`` is optional metadata; the exchange reads ``P`` off the buffer.
+    ``_side`` holds the side stream of each device, made at first use."""
 
     n_parts: Optional[int] = None
+    _side: dict = dataclasses.field(default_factory=dict, compare=False,
+                                    repr=False)
 
     def exchange(self, buf: torch.Tensor) -> torch.Tensor:
         p = buf.shape[0]
@@ -77,7 +97,25 @@ class SimulatedBackend:
     def psum(self, x: torch.Tensor) -> torch.Tensor:
         return x
 
+    def side_stream(self, device) -> torch.cuda.Stream:
+        """The side CUDA stream of ``device`` that overlapped exchanges are
+        issued on (one per device, made at first use)."""
+        dev = torch.device(device)
+        if dev not in self._side:
+            self._side[dev] = torch.cuda.Stream(dev)
+        return self._side[dev]
+
     def fence(self, tree: Any) -> Any:
+        """Land every :class:`Inflight` in ``tree`` (one, or a tuple): the
+        current stream waits on its event and its received tensors are
+        recorded on that stream. Identity on values."""
+        for x in tree if isinstance(tree, tuple) else (tree,):
+            if isinstance(x, Inflight) and x.event is not None:
+                stream = torch.cuda.current_stream(x.qt.data.device)
+                stream.wait_event(x.event)
+                for t in (x.qt.data, x.qt.scale, x.qt.zero):
+                    if t.numel():
+                        t.record_stream(stream)
         return tree
 
     def axis_index(self) -> None:

@@ -40,8 +40,8 @@ Examples::
         --device cpu
 
 Without ``--device cpu`` they run on the CUDA card (and raise where there is
-none). ``--runtime sharded`` is not ported yet (ROADMAP queue A); nor is the
-reference's partition-plan cache: the graph is partitioned on every run.
+none). ``--runtime sharded`` is not ported yet (ROADMAP queue A, item 6).
+Partitions come through the plan cache (``artifacts/torch/plans/``).
 """
 from __future__ import annotations
 
@@ -56,7 +56,7 @@ import numpy as np
 
 from .. import obs
 
-NOT_PORTED = "not ported yet (ROADMAP queue A)"
+NOT_PORTED = "not ported yet (ROADMAP queue A, item 6)"
 
 
 def _root() -> Path:
@@ -80,7 +80,7 @@ def _load(ref: str, parts: int, seed: int, reduced: bool = False):
     paper's models (``repro_torch.configs``; d_hidden 16 when reduced)."""
     from .. import configs as configlib
     from .. import datasets
-    pg = datasets.load_partitioned(ref, parts, seed=seed)
+    pg, _ = datasets.load_partitioned(ref, parts, seed=seed)
     archs = {}
     for arch in ("gcn", "graphsage", "gat"):
         spec = configlib.get(arch)

@@ -11,12 +11,16 @@ exchange, and batched LM serving (prefill + greedy decode).
     python -m repro_torch.launch.train --arch granite-3-2b --serve
     python -m repro_torch.launch.train --arch granite-3-2b --serve --reduced \\
         --device cpu
+    python -m repro_torch.launch.train --scenario smoke [--obs]
 
 Without ``--device cpu`` they run on the CUDA card (and raise where there is
 none); ``--device cpu`` runs the kernels' plain PyTorch versions on the CPU.
-LM parameters are float32 from a seeded generator; prompts are random tokens
-from the same seed. LM and DLRM training, ``--scenario`` and ``--schedule
-overlap`` are not ported yet (ROADMAP queue A).
+``--scenario`` runs a named arch x dataset x policy x mode matrix
+(``launch/scenarios.py``) and writes its reports under
+``artifacts/torch/scenarios/``; ``--schedule overlap`` issues each halo
+exchange on a side CUDA stream (``dist/overlap.py``). LM parameters are
+float32 from a seeded generator; prompts are random tokens from the same
+seed. LM and DLRM training are not ported yet (ROADMAP queue A).
 """
 from __future__ import annotations
 
@@ -121,8 +125,6 @@ def train_gnn(args):
     from ..graph import formats, partition, synthetic
     from ..train.trainer import GNNTrainer
 
-    if args.schedule == "overlap":
-        raise SystemExit(f"--schedule overlap: {NOT_PORTED}")
     dev = resolve_device(args.device)
     spec = configlib.get(args.arch)
     arch = spec.reduced() if args.reduced else spec.config()
@@ -133,7 +135,8 @@ def train_gnn(args):
     g, ew = formats.gcn_normalize(g)
     pg = partition.partition_graph(g, args.parts, edge_weight=ew)
     model = arch.make(g.x.shape[1], g.n_classes)
-    cfg = SylvieConfig(mode=args.mode, bits=args.bits)
+    cfg = SylvieConfig(mode=args.mode, bits=args.bits,
+                       schedule=args.schedule or "blocking")
     tr = GNNTrainer(model, pg, cfg, policy=build_policy(args), device=dev,
                     seed=args.seed, ckpt_dir=args.ckpt_dir)
     if args.resume and tr.resume():
@@ -156,13 +159,30 @@ def train_gnn(args):
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default=None,
-                    help=f"architecture id; the port runs "
-                         f"{sorted(configlib.REGISTRY)}")
+                    help=f"architecture id (required unless --scenario); "
+                         f"the port runs {sorted(configlib.REGISTRY)}")
     ap.add_argument("--reduced", action="store_true",
                     help="use the smoke-scale config (CPU-sized)")
     ap.add_argument("--serve", action="store_true",
                     help="LM: batched prefill + greedy decode")
-    ap.add_argument("--scenario", default=None, help=NOT_PORTED)
+    # scenario-matrix runner (repro_torch.launch.scenarios)
+    ap.add_argument("--scenario", default=None,
+                    help="run a named arch x dataset x policy x mode matrix "
+                         "end to end (smoke | policies | paper | "
+                         "chaos_smoke); writes "
+                         "artifacts/torch/scenarios/<name>/*.json")
+    ap.add_argument("--only", default=None,
+                    help="with --scenario: substring filter over cell ids")
+    ap.add_argument("--scenario-dir", default=None,
+                    help="with --scenario: report directory override")
+    ap.add_argument("--obs", action="store_true",
+                    help="with --scenario: arm span tracing per cell and "
+                         "write artifacts/torch/obs/<name>/<cell>."
+                         "{trace,metrics}.json (render: python -m "
+                         "repro_torch.obs summarize)")
+    ap.add_argument("--obs-dir", default=None,
+                    help="with --scenario --obs: obs artifact directory "
+                         "override")
     # GNN
     ap.add_argument("--graph", default="planted",
                     help="named workload ('reddit_like@paper', see "
@@ -173,7 +193,11 @@ def main(argv=None) -> None:
     ap.add_argument("--bits", type=int, default=1)
     ap.add_argument("--schedule", default=None,
                     choices=["blocking", "overlap"],
-                    help=f"halo-exchange schedule; overlap: {NOT_PORTED}")
+                    help="halo-exchange schedule: blocking, or issue/land "
+                         "with each exchange on a side CUDA stream "
+                         "(dist/overlap.py; bit-equal to blocking). With "
+                         "--scenario, overrides the scenario's schedule for "
+                         "every cell")
     ap.add_argument("--policy", default="uniform",
                     choices=["uniform", "warmup", "bounded_staleness",
                              "adaqp"],
@@ -197,9 +221,14 @@ def main(argv=None) -> None:
     args = ap.parse_args(argv)
 
     if args.scenario:
-        raise SystemExit(f"--scenario: {NOT_PORTED}")
+        from .scenarios import run_scenario
+        run_scenario(args.scenario, only=args.only,
+                     out_dir=args.scenario_dir, schedule=args.schedule,
+                     obs_trace=args.obs, obs_dir=args.obs_dir,
+                     device=resolve_device(args.device))
+        return
     if args.arch is None:
-        ap.error("--arch is required")
+        ap.error("--arch is required (or pass --scenario)")
     if args.arch not in configlib.REGISTRY:
         raise SystemExit(f"--arch {args.arch}: {NOT_PORTED}; the port runs "
                          f"{sorted(configlib.REGISTRY)}")

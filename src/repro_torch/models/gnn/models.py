@@ -158,3 +158,19 @@ class GAT(_Model):
             if i < self.n_layers - 1:
                 h = torch.nn.functional.elu(h)
         return linear(params["out"], h)
+
+
+# The paper's three architectures at the reference's benchmark widths
+# (``repro.models.gnn.models.PAPER_ARCHS``: GCN and GraphSAGE 64 x 2, GAT 4
+# heads x 16, 2 layers). The scenario runner and the chaos harness resolve
+# "gcn" / "graphsage" / "gat" through it, so a port report and a reference
+# report of one cell are one model. (The registry's ``configs/paper_gnn.py``
+# holds the paper's own widths, 256 and 4 x 64.) Keywords (``generator=``,
+# ``device=``) go to the constructor.
+PAPER_ARCHS = {
+    "gcn": lambda d_in, d_out, **kw: GCN(d_in, 64, d_out, n_layers=2, **kw),
+    "graphsage": lambda d_in, d_out, **kw: GraphSAGE(d_in, 64, d_out,
+                                                     n_layers=2, **kw),
+    "gat": lambda d_in, d_out, **kw: GAT(d_in, 16, d_out, n_layers=2,
+                                         heads=4, **kw),
+}

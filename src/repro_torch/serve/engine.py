@@ -46,6 +46,7 @@ from ..core.exchange import (exchange_halo, exchange_quantized_halo,
                              gather_boundary)
 from ..core.staleness import HaloState
 from ..core.sylvie import SylvieComm, SylvieConfig
+from ..dist import overlap as olap
 from ..dist.runtime import Runtime
 from ..graph.partition import PartitionedGraph, global_to_slot, khop_frontier
 from ..models.convert import params_from_numpy, params_to_numpy
@@ -65,7 +66,9 @@ class ServeConfig:
     the delta-refresh exactness guarantee needs. ``max_staleness`` is the
     number of consecutive delta refreshes served before the next refresh is
     forced to a full sweep. ``schedule`` is ``"blocking"`` or ``"overlap"``
-    (bit-identical here: the simulated backend's fence is the identity)."""
+    (bit-identical: on the card the overlap schedule issues each site's
+    exchange on the backend's side stream and lands it through the fence of
+    ``dist/overlap.py``)."""
 
     bits: int = 1
     stochastic: bool = False
@@ -98,15 +101,23 @@ class ServeComm(SylvieComm):
         self._site += 1
         sd = self._site_decision(i)
         self.layer_inputs.append(h)
-        buf = gather_boundary(h, self.plan)
-        qt = qlib.quantize(buf, sd.fwd_bits, self.generator, sd.stochastic,
-                           cfg.scale_dtype)
-        inflight = exchange_quantized_halo(qt, self.plan, self.backend)
-        aff = exchange_halo(self.send_affected[i][..., None], self.plan,
-                            self.backend)
+        aff_send = self.send_affected[i][..., None]
         if self.schedule == "overlap":
-            inflight, aff = self.backend.fence((inflight, aff))
-        fresh = qlib.dequantize(inflight)
+            # gather, quantize and exchange on the side stream; the mask's
+            # exchange runs meanwhile; the fence lands the payload
+            inflight = olap._issue(h, lambda t: gather_boundary(t, self.plan),
+                                   sd.fwd_bits, sd.stochastic,
+                                   cfg.scale_dtype, self.backend, self.plan,
+                                   self.generator)
+            aff = exchange_halo(aff_send, self.plan, self.backend)
+            fresh = olap._land(inflight, self.backend)
+        else:
+            buf = gather_boundary(h, self.plan)
+            qt = qlib.quantize(buf, sd.fwd_bits, self.generator,
+                               sd.stochastic, cfg.scale_dtype)
+            qr = exchange_quantized_halo(qt, self.plan, self.backend)
+            aff = exchange_halo(aff_send, self.plan, self.backend)
+            fresh = qlib.dequantize(qr)
         fresh = torch.where(self.plan.recv_mask[..., None], fresh, 0.0)
         halo = torch.where(aff > 0, fresh, self.cached_halos[i])
         self.new_feat_caches.append(halo)
@@ -136,7 +147,7 @@ class InferenceEngine:
 
     Example::
 
-        pg = datasets.load_partitioned("reddit_like@paper", n_parts=4)
+        pg, _ = datasets.load_partitioned("reddit_like@paper", n_parts=4)
         model = GCN(602, 256, 41, generator=torch.Generator().manual_seed(0))
         eng = InferenceEngine(model, pg, config=ServeConfig(bits=1),
                               runtime=Runtime.simulated(4))

@@ -14,7 +14,13 @@ Three step flavors over one :class:`GNNTrainState`, as
 
 What each exchange site does comes from an
 :class:`~repro_torch.policy.base.EpochDecision` fixed when the steps are
-built. The steps emit ``site_stats``, a ``(n_sites, 2)`` tensor of [sum of
+built; so is the exchange schedule (``"overlap"``: the issue/land twins of
+``dist/overlap.py``; an async step's fresh exchanges are issued a layer
+later, the last before the backward, and land once the rest of the step is
+enqueued). ``state.faults`` (a
+:class:`~repro_torch.faults.plan.FaultCtl`, set by the trainer each chaos
+epoch; ``None`` = fault-free) arms every site with that epoch's wire masks.
+The steps emit ``site_stats``, a ``(n_sites, 2)`` tensor of [sum of
 squared boundary-row ranges, live rows] per site, for the policy loop.
 Weight gradients come from ``torch.autograd.grad``; on the simulated stack
 the all-reduce (Alg. 2 line 16) is the identity. With ``decision.ef_bits``
@@ -48,6 +54,9 @@ class GNNTrainState:
     step: torch.Tensor          # () int32
     ef: EFState
     site_stats: torch.Tensor    # (n_sites, 2) float32
+    # the epoch's fault masks (repro_torch.faults.plan.FaultCtl); None =
+    # fault-free, the clean primitives
+    faults: Optional[object] = None
 
     @staticmethod
     def create(params: dict, opt: optlib.Optimizer, plan, dims,
@@ -100,7 +109,10 @@ def make_gnn_steps(model, cfg: SylvieConfig, opt: optlib.Optimizer,
     sync_cfg = cfg if cfg.mode != "async" else cfg.replace(mode="sync")
     async_cfg = cfg.replace(mode="async")
 
-    def _finish(state, grads, loss, new_halo, comm):
+    def _finish(state, grads, loss, comm, halo_grads=None):
+        """The all-reduce, EF21, clipping and the optimizer; then the halo
+        caches land (an in-flight exchange has run under all of this). A
+        synchronous step (``halo_grads`` None) drains the grad caches."""
         stats = backend.psum(torch.stack(comm.site_stats))
         with torch.no_grad():
             grads = optlib.tree_map(backend.psum, grads)
@@ -114,8 +126,13 @@ def make_gnn_steps(model, cfg: SylvieConfig, opt: optlib.Optimizer,
             updates, new_opt = opt.update(grads, state.opt_state,
                                           state.params)
             new_params = optlib.apply_updates(state.params, updates)
-        return GNNTrainState(new_params, new_opt, new_halo, state.step + 1,
-                             new_ef, stats), loss.detach()
+        feats = comm.land()
+        if halo_grads is None:
+            halo_grads = tuple(torch.zeros_like(f) for f in feats)
+        return GNNTrainState(new_params, new_opt,
+                             HaloState(feats=feats, grads=tuple(halo_grads)),
+                             state.step + 1, new_ef, stats,
+                             state.faults), loss.detach()
 
     def _grads(loss, params, extra=()):
         leaves = optlib.tree_leaves(params)
@@ -126,16 +143,16 @@ def make_gnn_steps(model, cfg: SylvieConfig, opt: optlib.Optimizer,
     def train_step_sync(state: GNNTrainState, block, x, y, mask, key,
                         bns_masks=None):
         params = _leaves_requiring_grad(state.params)
+        armed = state.faults is not None
         comm = SylvieComm(sync_cfg, block.plan, backend=backend,
                           decision=decision, key=key, collect_stats=True,
-                          bns_masks=bns_masks)
+                          bns_masks=bns_masks,
+                          feat_caches=state.halo.feats if armed else None,
+                          fault_sites=state.faults.sites if armed else None)
         loss = _masked_loss(model.apply(params, block, x, comm), y, mask,
                             backend)
         grads, _ = _grads(loss, params)
-        caches = tuple(comm.new_feat_caches)
-        new_halo = HaloState(feats=caches,
-                             grads=tuple(torch.zeros_like(f) for f in caches))
-        return _finish(state, grads, loss, new_halo, comm)
+        return _finish(state, grads, loss, comm)
 
     def train_step_async(state: GNNTrainState, block, x, y, mask, key,
                          bns_masks=None):
@@ -144,13 +161,14 @@ def make_gnn_steps(model, cfg: SylvieConfig, opt: optlib.Optimizer,
         comm = SylvieComm(async_cfg, block.plan, backend=backend,
                           decision=decision, key=key, collect_stats=True,
                           feat_caches=state.halo.feats,
-                          grad_ins=state.halo.grads, gslots=gslots)
+                          grad_ins=state.halo.grads, gslots=gslots,
+                          fault_sites=(state.faults.sites
+                                       if state.faults is not None else None))
         loss = _masked_loss(model.apply(params, block, x, comm), y, mask,
                             backend)
-        grads, ggrads = _grads(loss, params, gslots)
-        new_halo = HaloState(feats=tuple(comm.new_feat_caches),
-                             grads=tuple(ggrads))
-        return _finish(state, grads, loss, new_halo, comm)
+        comm.issue_pending()        # under the overlap schedule: beside the
+        grads, ggrads = _grads(loss, params, gslots)      # backward
+        return _finish(state, grads, loss, comm, ggrads)
 
     def eval_step(params, block, x, y, mask, key):
         comm = SylvieComm(sync_cfg.replace(mode="vanilla", stochastic=False),

@@ -24,7 +24,10 @@ class Optimizer(NamedTuple):
 def tree_map(fn, tree, *rest):
     """``fn`` over the leaves of nested dicts, tuples and dataclasses
     (``rest`` shaped like ``tree``); dict keys in sorted order, as
-    ``jax.tree`` walks them."""
+    ``jax.tree`` walks them. ``None`` is an empty subtree (no leaves), as in
+    ``jax.tree``: a fault-free state's ``faults``."""
+    if tree is None:
+        return None
     if isinstance(tree, dict):
         return {k: tree_map(fn, tree[k], *(r[k] for r in rest))
                 for k in sorted(tree)}

@@ -82,7 +82,8 @@ def test_partition_copy_matches_jax(skewed):
 @pytest.mark.parametrize("ref", ["yelp_like@smoke", "reddit_like@smoke",
                                  "amazon_like@smoke"])
 def test_registry_copy_matches_jax(ref, tmp_path):
-    pg = datasets.load_partitioned(ref, n_parts=4)
+    pg, _ = datasets.load_partitioned(ref, n_parts=4,
+                                      cache_dir=tmp_path / "t")
     jpg, _ = jdatasets.load_partitioned(ref, n_parts=4, cache_dir=tmp_path)
     _assert_same_fields(pg, jpg)
     name = ref.split("@")[0]

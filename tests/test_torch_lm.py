@@ -275,7 +275,10 @@ def test_entry_point_needs_a_card_unless_asked_for_the_cpu(monkeypatch,
     launch.main(argv + ["--device", "cpu"])
     out = capsys.readouterr().out
     assert "decoded 2x3 tokens" in out and "sample:" in out
-    for bad in (["--arch", "pna"], ["--arch", "granite-3-2b"],
-                ["--scenario", "smoke"]):
+    for bad in (["--arch", "pna"], ["--arch", "granite-3-2b"]):
         with pytest.raises(SystemExit, match="not ported yet"):
             launch.main(bad)
+    # --scenario is ported: it trains on the card, so without one it raises
+    # (tests/test_torch_scenarios.py runs it on the CPU)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        launch.main(["--scenario", "smoke"])

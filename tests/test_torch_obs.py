@@ -189,7 +189,8 @@ def test_default_directory_is_the_ports_own():
 
 @pytest.fixture(scope="module")
 def graphs(tmp_path_factory):
-    pg = datasets.load_partitioned(REF, n_parts=4)
+    pg, _ = datasets.load_partitioned(
+        REF, n_parts=4, cache_dir=tmp_path_factory.mktemp("tplans"))
     jpg, _ = jdatasets.load_partitioned(
         REF, n_parts=4, cache_dir=tmp_path_factory.mktemp("plans"))
     return pg, jpg

@@ -10,9 +10,13 @@
 * A kernel wrapper runs the plain version only for a CPU tensor; any other
   device that is not CUDA is refused, never served by a fallback.
 * ``Kernel`` counts a launch only when the C side reports success.
+* The launchers that start or name modules (``launch/chaos.py``, whose
+  worker is ``-m repro_torch.launch.chaos``, and ``launch/scenarios.py``)
+  name only ``repro_torch`` modules, never the JAX package's.
 """
 import ast
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -185,3 +189,33 @@ def test_chip_smoke_fails_without_the_repo(tmp_path):
                        capture_output=True, text=True, timeout=120)
     assert r.returncode != 0
     assert '"ok": true' not in r.stdout
+
+
+def _code_strings(path: Path):
+    """String constants of ``path`` that are not docstrings."""
+    tree = ast.parse(path.read_text())
+    docs = {id(n.body[0].value) for n in ast.walk(tree)
+            if isinstance(n, (ast.Module, ast.FunctionDef, ast.ClassDef))
+            and n.body and isinstance(n.body[0], ast.Expr)
+            and isinstance(n.body[0].value, ast.Constant)}
+    return [n.value for n in ast.walk(tree)
+            if isinstance(n, ast.Constant) and isinstance(n.value, str)
+            and id(n) not in docs]
+
+
+def test_launchers_spawn_and_name_only_port_modules():
+    from repro_torch.launch import chaos
+    launch = ROOT / "src" / "repro_torch" / "launch"
+    for name in ("chaos.py", "scenarios.py"):
+        strings = _code_strings(launch / name)
+        bad = [v for v in strings if re.search(r"\brepro\.", v)]
+        assert not bad, (name, bad)
+    assert chaos.WORKER == "repro_torch.launch.chaos"
+    args = chaos.build_parser().parse_args(["--kill-resume", "--device",
+                                            "cpu"])
+    cmd = chaos._worker_cmd(args, "ckpt", [])
+    assert cmd[:4] == [sys.executable, "-m", "repro_torch.launch.chaos",
+                       "--worker"]
+    assert cmd[cmd.index("--device") + 1] == "cpu"
+    # the worker runs from this checkout's src/, whatever the caller's path
+    assert chaos.SRC == ROOT / "src"

@@ -42,7 +42,8 @@ D_HIDDEN = 16
 
 @pytest.fixture(scope="module")
 def setup(tmp_path_factory):
-    pg = datasets.load_partitioned(REF, n_parts=4)
+    pg, _ = datasets.load_partitioned(
+        REF, n_parts=4, cache_dir=tmp_path_factory.mktemp("tplans"))
     jpg, _ = jdatasets.load_partitioned(
         REF, n_parts=4, cache_dir=tmp_path_factory.mktemp("plans"))
     jmodel = JGCN(pg.x.shape[-1], D_HIDDEN, pg.n_classes, n_layers=2)

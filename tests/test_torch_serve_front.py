@@ -60,8 +60,16 @@ D_HIDDEN = 32
 CPU = Runtime.simulated(4, device="cpu")
 
 
+@pytest.fixture(autouse=True)
+def _plans_in_tmp(tmp_path, monkeypatch):
+    """The serving launcher's partition-plan cache writes under the test's
+    temporary directory, not the repository's ``artifacts/torch/plans``."""
+    monkeypatch.setattr(datasets.plans, "default_cache_dir",
+                        lambda: tmp_path / "tplans")
+
+
 def _graphs(ref, tmp):
-    pg = datasets.load_partitioned(ref, n_parts=4)
+    pg, _ = datasets.load_partitioned(ref, n_parts=4, cache_dir=tmp / "t")
     jpg, _ = jdatasets.load_partitioned(ref, n_parts=4, cache_dir=tmp)
     return pg, jpg
 

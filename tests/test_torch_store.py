@@ -198,7 +198,8 @@ def test_gdelt_like_graph_and_stream_match_reference(tier):
 
 
 def test_gdelt_like_partition_matches_reference(tmp_path):
-    pg = datasets.load_partitioned("gdelt_like@smoke", n_parts=4)
+    pg, _ = datasets.load_partitioned("gdelt_like@smoke", n_parts=4,
+                                      cache_dir=tmp_path / "t")
     jpg, _ = jdatasets.load_partitioned("gdelt_like@smoke", n_parts=4,
                                         cache_dir=tmp_path)
     for f in ("part_of", "global_ids", "node_mask", "x", "edge_mask"):

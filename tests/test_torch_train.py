@@ -84,7 +84,8 @@ def _one_torch_thread():
 
 @pytest.fixture(scope="module")
 def graphs(tmp_path_factory):
-    pg = datasets.load_partitioned(REF, n_parts=4)
+    pg, _ = datasets.load_partitioned(
+        REF, n_parts=4, cache_dir=tmp_path_factory.mktemp("tplans"))
     jpg, _ = jdatasets.load_partitioned(
         REF, n_parts=4, cache_dir=tmp_path_factory.mktemp("plans"))
     return pg, jpg
@@ -285,7 +286,8 @@ def test_elastic_resume_forces_a_sync_epoch(graphs, tmp_path):
     _, jtr = _trainers(graphs, "sylvie_a", ckpt_dir=str(tmp_path),
                        ckpt_every=3)
     jtr.fit(3)
-    pg2 = datasets.load_partitioned(REF, n_parts=2)
+    pg2, _ = datasets.load_partitioned(REF, n_parts=2,
+                                       cache_dir=tmp_path / "plans")
     tr = GNNTrainer(_models(pg2)[0], pg2, SylvieConfig(mode="async", bits=1),
                     policy=tpol.BoundedStaleness(eps_s=4),
                     runtime=Runtime.simulated(2, device="cpu"),
@@ -337,11 +339,23 @@ def test_training_runs_each_kernel_as_documented(graphs, monkeypatch):
 
 
 def test_overlap_schedule_is_not_ported(graphs):
+    """The overlap schedule, which this test once found refused, is ported
+    (``dist/overlap.py``): the trainer runs it, with the same losses as the
+    blocking schedule bit for bit (``tests/test_torch_overlap.py`` holds it
+    to blocking and to JAX in full)."""
     pg, _ = graphs
-    tr = GNNTrainer(_models(pg)[0], pg, SylvieConfig(schedule="overlap"),
-                    runtime=CPU)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        tr.train_epoch()
+    cfg, pol, _ = CONFIGS["sylvie_a"]
+    params = jax.tree.map(np.asarray, _models(pg)[1].init(
+        jax.random.PRNGKey(0)))
+    losses = {}
+    for sched in ("overlap", "blocking"):
+        tr = GNNTrainer(_models(pg)[0], pg,
+                        SylvieConfig(**cfg, schedule=sched),
+                        policy=pol(tpol), runtime=CPU, params=params)
+        ms = tr.fit(2)
+        assert [m.schedule for m in ms] == [sched] * 2
+        losses[sched] = [m.loss for m in ms]
+    assert losses["overlap"] == losses["blocking"]
 
 
 def test_entry_points_need_a_card_unless_asked_for_the_cpu(
@@ -363,11 +377,14 @@ def test_entry_points_need_a_card_unless_asked_for_the_cpu(
     assert sum(ln.startswith("epoch ") for ln in lines) == 3
     assert "[async]" in out and "test acc" in out
     assert ckpt.latest_step(tmp_path) == 3
-    for bad in (["--arch", "pna"], ["--arch", "schnet"],
-                ["--arch", "gcn", "--schedule", "overlap", "--device",
-                 "cpu"]):
+    for bad in (["--arch", "pna"], ["--arch", "schnet"]):
         with pytest.raises(SystemExit, match="not ported yet"):
             launch.main(bad)
+    # the overlap schedule trains (it was refused before it was ported)
+    launch.main(["--arch", "gcn", "--reduced", "--graph", "yelp_like@smoke",
+                 "--schedule", "overlap", "--epochs", "2", "--log-every",
+                 "1", "--device", "cpu"])
+    assert "test acc" in capsys.readouterr().out
     for arch in ("graphsage", "gat"):
         argv = ["--arch", arch, "--reduced", "--graph", "yelp_like@smoke",
                 "--mode", "async", "--eps-s", "2", "--epochs", "2",

@@ -126,7 +126,8 @@ REFS = ((qref, "quantize_pack_ref"), (qref, "unpack_dequantize_ref"),
 
 @pytest.fixture(scope="module")
 def graphs(tmp_path_factory):
-    pg = datasets.load_partitioned(REF, n_parts=4)
+    pg, _ = datasets.load_partitioned(
+        REF, n_parts=4, cache_dir=tmp_path_factory.mktemp("tplans"))
     jpg, _ = jdatasets.load_partitioned(
         REF, n_parts=4, cache_dir=tmp_path_factory.mktemp("plans"))
     return pg, jpg

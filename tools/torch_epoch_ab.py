@@ -97,7 +97,7 @@ def main(argv=None) -> int:
                           text=True, timeout=60).stdout.strip()
     print(f"[card] {card}")
     build.build_all()
-    pg = datasets.load_partitioned("reddit_like@paper", n_parts=4)
+    pg, _ = datasets.load_partitioned("reddit_like@paper", n_parts=4)
     d_in, n_cls = pg.x.shape[-1], pg.n_classes
     runs = {"sylvie_s": lambda: (SylvieConfig(mode="sync", bits=1),
                                  Uniform(bits=1)),

@@ -104,7 +104,7 @@ def main(argv=None) -> int:
             print(log)
             return 1
 
-    pg = datasets.load_partitioned(args.graph, n_parts=4)
+    pg, _ = datasets.load_partitioned(args.graph, n_parts=4)
     blk = B.build_block(pg, "cuda")
     csr, csr_t, perm = blk.csr, blk.csr_t, blk.perm_t
     if args.fold:

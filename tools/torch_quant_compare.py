@@ -148,7 +148,7 @@ def main() -> int:
         build, args.out.with_suffix(".sass") if args.out else None)}
     build.build_all(("quant.cu", "spmm.cu"))
 
-    pg = datasets.load_partitioned("reddit_like@paper", n_parts=4)
+    pg, _ = datasets.load_partitioned("reddit_like@paper", n_parts=4)
     model = GCN(pg.x.shape[-1], 256, pg.n_classes, n_layers=2,
                 generator=torch.Generator().manual_seed(0))
     eng = InferenceEngine(model, pg, config=ServeConfig(bits=1),
