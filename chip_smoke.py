@@ -137,6 +137,36 @@ chaos     — after serve-front (last: it spawns processes and writes
             every cell; one ``smoke`` cell traced: the full report key set
             and its trace file.
 
+sharded   — last, after chaos (``sharded_phase``): the multi-process runtime,
+            four ranks spawned by ``repro_torch.dist.spawn`` on ``cuda:0``
+            over ``gloo`` (by design: NCCL refuses two ranks on one device,
+            so the NCCL path, a card per rank, is not run here), each
+            training its own partition through ``Runtime.sharded(4,
+            device="cuda:0")``; every count is zeroed before each epoch and
+            read after it, in each rank. (a) Every exchange on
+            ``reddit_like@paper``'s ring buckets and dense blocks (uint8,
+            bfloat16, float32; compact forward and reversed) equals each
+            rank's row of ``SimulatedBackend`` on the stacked CUDA tensor
+            bit for bit. (b) GCN 256x2 vanilla, Sylvie-S and Sylvie-A,
+            ``SHARDED_EPOCHS`` deterministic epochs with SGD, against
+            ``Runtime.simulated(4)`` trained on the card by rank 0 first:
+            losses rtol 1e-5 at 32 bits, ``SHARDED_ONE_BIT_RTOL`` at 1 bit;
+            bytes per epoch equal; the gathered halo caches' rows apart
+            counted (0 at 32 bits, at most ``SHARDED_ROWS_APART`` of them at
+            1 bit); launches per step as ``TRAIN_LAUNCHES`` on every rank.
+            GCN vanilla again with the trainer's default Adam: losses rtol
+            1e-5, bytes and launches as above, its halo rows apart and the
+            first step's parameter gap per leaf (beside SGD's) recorded.
+            (c) GAT 4x64 Sylvie-A, deterministic, a sync and an async epoch
+            with SGD, held to the simulated runtime by (b)'s gates.
+            launches exact. (d) 3 epochs under ``CHAOS_FAULT``: the
+            accounting identity, equal to the plan's draws on every rank;
+            GCN sync and async under the overlap schedule bit-equal to
+            blocking with equal launches. (e) Each rank's median epoch ms
+            and each collective's bytes and ms, labelled host-staged
+            ``gloo`` with the card line: no gain or wire speed is claimed.
+            A rank's failed check fails ``spawn`` and the script.
+
 Between phases 5 and 6 (``lm``) four training phases run:
 
 train     — GCN 256x2, GraphSAGE 256x2 and GAT (4 heads x 64, 2 layers),
@@ -1905,6 +1935,392 @@ def chaos_phase(all_kernels: dict) -> dict:
     return out
 
 
+SHARDED_PARTS = 4
+SHARDED_EPOCHS = 5
+SHARDED_LABEL = "gloo, host-staged, four ranks on one card"
+# the tolerance of a deterministic 1-bit run held against the simulated
+# runtime: losses rtol 1e-4, halo rows apart (halo_rows_apart: rtol 1e-4;
+# atol 1e-6 of the largest feature, 1e-3 of the largest gradient) at most
+# 1% of the stack's rows (each rank multiplies its own rows, so cuBLAS may
+# round a product otherwise and flip a 1-bit code, as in [train-parity]);
+# at 32 bits losses rtol 1e-5
+SHARDED_ONE_BIT_RTOL = 1e-4
+SHARDED_ROWS_APART = 0.01
+SHARDED_SGD_LR = 1e-1
+SHARDED_ADAM_LR = 1e-2                 # the trainer's default optimizer
+
+
+def sharded_runs() -> dict:
+    """The training runs of [sharded] (b) and (c), each held against
+    ``Runtime.simulated(4)`` on the card: name -> (arch, the run of
+    ``TRAIN_LAUNCHES`` it launches as, config, policy, optimizer,
+    epochs). Deterministic rounding, so that neither runtime draws noise.
+    They train with SGD, as the reference's backend-parity test does, but
+    for ``vanilla_adam``: the trainer's default Adam, gated on its losses
+    and bytes and not on its halos. Adam divides each gradient by its own
+    running magnitude, so a weight whose gradient is cancellation noise
+    moves by about its learning rate either way, and the all-reduce's other
+    order of sums (four partial sums, not one) can become differences of
+    that size; (b) records the witness, the first step's parameter gap per
+    leaf under either optimizer."""
+    from repro_torch.core.sylvie import SylvieConfig
+    from repro_torch.policy import BoundedStaleness, Uniform
+    det = dict(bits=1, stochastic=False)
+    sync = (SylvieConfig(mode="sync", **det), Uniform(**det))
+    asyn = (SylvieConfig(mode="async", **det),
+            BoundedStaleness(eps_s=4, **det))
+    vanilla = (SylvieConfig(mode="vanilla"), None)
+    return {"vanilla": ("gcn", "vanilla", *vanilla, "sgd", SHARDED_EPOCHS),
+            "vanilla_adam": ("gcn", "vanilla", *vanilla, "adam",
+                             SHARDED_EPOCHS),
+            "sylvie_s": ("gcn", "sylvie_s", *sync, "sgd", SHARDED_EPOCHS),
+            "sylvie_a": ("gcn", "sylvie_a", *asyn, "sgd", SHARDED_EPOCHS),
+            "gat_sylvie_a": ("gat", "sylvie_a", *asyn, "sgd", 2)}
+
+
+def _sharded_opt(name: str):
+    """(optimizer, learning rate) of a [sharded] run."""
+    from repro_torch.train import optimizer as optlib
+    if name == "adam":
+        return optlib.adam(SHARDED_ADAM_LR), SHARDED_ADAM_LR
+    return optlib.sgd(SHARDED_SGD_LR), SHARDED_SGD_LR
+
+
+def _median(xs):
+    xs = sorted(xs)
+    return xs[len(xs) // 2] if xs else None
+
+
+def sharded_rank(graph: str, device: str) -> dict:
+    """One rank of [sharded], inside ``dist.spawn`` (see ``sharded_phase``),
+    on ``graph`` and ``device`` ("cuda:0"; "cpu" runs the plain versions).
+    Raises on any failed check; returns, on rank 0, every rank's results."""
+    import torch.distributed as dist
+
+    from repro_torch import configs, datasets
+    from repro_torch.core.sylvie import SylvieConfig
+    from repro_torch.dist.backend import SimulatedBackend
+    from repro_torch.dist.runtime import Runtime
+    from repro_torch.kernels.gat import ops as gops
+    from repro_torch.kernels.quant import ops as qops
+    from repro_torch.kernels.spmm import ops as sops
+    from repro_torch.launch import scenarios
+    from repro_torch.policy import Uniform
+    from repro_torch.train import optimizer as optlib
+    from repro_torch.train.trainer import GNNTrainer
+
+    kernels = {k.name: k for k in (
+        qops.QUANTIZE_PACK, qops.UNPACK_DEQUANTIZE, sops.SPMM,
+        sops.SPMM_HEADS, gops.GAT_SOFTMAX, gops.SDDMM_HEADS,
+        gops.GAT_SOFTMAX_BWD)}
+    rt = Runtime.sharded(SHARDED_PARTS, device=device)
+    r, dev = rt.rank, rt.device
+    be = rt.backend
+    sync = torch.cuda.synchronize if dev.type == "cuda" else lambda: None
+    out: dict = dict(rank=r, device=str(dev), backend=dist.get_backend(),
+                     current=(f"cuda:{torch.cuda.current_device()}"
+                              if dev.type == "cuda" else "cpu"))
+    t0 = time.perf_counter()
+    pg, hit = datasets.load_partitioned(graph, SHARDED_PARTS,
+                                        group=dist.group.WORLD)
+    out["load_s"], out["plan_cache_hit"] = time.perf_counter() - t0, hit
+    d_in, n_cls = pg.x.shape[-1], pg.n_classes
+
+    def zero():
+        for k in kernels.values():
+            k.launches = 0
+
+    def counts():
+        return tuple(kernels[k].launches for k in TRAIN_KERNELS)
+
+    def launched(want) -> bool:
+        """The kernels launched as ``want`` (on the CPU, the plain
+        versions: no kernel at all)."""
+        return counts() == (want if dev.type == "cuda" else (0,) * len(want))
+
+    # (a) the exchanges on the graph's own bucket sizes, bit for bit against
+    # SimulatedBackend on the stacked CUDA tensor; each timed (host clock,
+    # ending in a sync) with the bytes this rank sends
+    sim = SimulatedBackend()
+    buckets = tuple(int(b) for b in pg.plan.bucket_sizes)
+    rows = {"dense": SHARDED_PARTS * int(pg.plan.h_pad),
+            "compact": sum(buckets)}
+    widths = {torch.uint8: 32, torch.bfloat16: 1, torch.float32: 256}
+    gen = torch.Generator().manual_seed(SEED)
+    exch = {}
+    for layout in ("dense", "compact"):
+        for dtype, w in widths.items():
+            full = torch.randn((SHARDED_PARTS, rows[layout], w),
+                               generator=gen) * 50
+            full = (full.abs().to(torch.uint8) if dtype == torch.uint8
+                    else full.to(dtype)).to(dev)
+            mine = full[r:r + 1].contiguous()
+            for rev in ((False,) if layout == "dense" else (False, True)):
+                if layout == "dense":
+                    want = sim.exchange(full)[r:r + 1]
+                    fn = lambda: be.exchange(mine)  # noqa: E731
+                    sent = mine.numel() * (SHARDED_PARTS - 1) \
+                        // SHARDED_PARTS
+                else:
+                    want = sim.exchange_compact(full, buckets, rev)[r:r + 1]
+                    fn = lambda: be.exchange_compact(  # noqa: E731
+                        mine, buckets, rev)
+                    sent = mine.numel() - buckets[0] * w
+                got = fn()
+                tag = f"{layout}{'-reversed' if rev else ''}-" \
+                      f"{str(dtype).split('.')[1]}"
+                check(same_bits(got, want), f"[sharded] rank {r} exchange "
+                      f"{tag}: equals SimulatedBackend's row bit for bit")
+                times = []
+                for _ in range(5):
+                    sync()
+                    t = time.perf_counter()
+                    fn()
+                    sync()
+                    times.append((time.perf_counter() - t) * 1e3)
+                exch[tag] = dict(rows=rows[layout], width=w,
+                                 bytes_sent=sent * mine.element_size(),
+                                 median_ms=_median(times))
+    out.update(exchange=exch, buckets=list(buckets),
+               h_pad=int(pg.plan.h_pad))
+    dist.barrier()
+
+    # (b) GCN 256x2 and (c) GAT 4x64, deterministic, against the simulated
+    # runtime: rank 0 trains each run on the whole stack first (the others
+    # wait), then every rank trains its partition; the sharded state is
+    # gathered (the checkpoints' gather) and held against the simulated one
+    # on rank 0, with the parameters after the first step and the last
+    def leaves(tr):
+        return [p.detach().cpu().clone()
+                for p in optlib.tree_leaves(tr.state.params)]
+
+    out["train"] = {}
+    for name, (arch, run, cfg, pol, opt, epochs) in sharded_runs().items():
+        ref = None
+        if r == 0:
+            torch.manual_seed(SEED)
+            tr = GNNTrainer(configs.get(arch).config().make(d_in, n_cls),
+                            pg, cfg, policy=pol, seed=SEED,
+                            opt=_sharded_opt(opt)[0],
+                            runtime=Runtime.simulated(SHARDED_PARTS,
+                                                      device=dev))
+            ref = dict(p0=leaves(tr))
+            for e in range(epochs):
+                tr.train_epoch()
+                if e == 0:
+                    ref["p1"] = leaves(tr)
+            ref.update(losses=[m.loss for m in tr.history],
+                       mb=[(m.comm_payload_mb, m.comm_ec_mb)
+                           for m in tr.history],
+                       epoch_ms=[m.seconds * 1e3 for m in tr.history],
+                       halo=tr.state.halo, pn=leaves(tr))
+            del tr
+        dist.barrier()
+        torch.manual_seed(SEED)
+        model = configs.get(arch).config().make(d_in, n_cls)
+        tr = GNNTrainer(model, pg, cfg, policy=pol, runtime=rt, seed=SEED,
+                        opt=_sharded_opt(opt)[0])
+        p0, p1, launches = leaves(tr), None, []
+        for _ in range(epochs):
+            zero()
+            m = tr.train_epoch()
+            got, want = counts(), TRAIN_LAUNCHES[(arch, run, m.mode)]
+            check(launched(want) and np.isfinite(m.loss),
+                  f"[sharded] rank {r} {name} epoch {m.epoch} ({m.mode}): "
+                  f"loss {m.loss}, launches {got}, expected {want}")
+            launches.append((m.mode, dict(zip(TRAIN_KERNELS, got))))
+            p1 = leaves(tr) if p1 is None else p1
+        halo = rt.gather_state(tr.state).halo
+        res = out["train"][name] = dict(
+            losses=[m.loss for m in tr.history],
+            rows=SHARDED_PARTS * int(tr.block.plan.halo_rows),
+            mb=[(m.comm_payload_mb, m.comm_ec_mb) for m in tr.history],
+            epoch_ms=[m.seconds * 1e3 for m in tr.history],
+            median_ms={mode: _median([m.seconds * 1e3
+                                      for m in tr.history[1:]
+                                      if m.mode == mode])
+                       for mode in ("sync", "async")},
+            launches=launches)
+        if ref is not None:
+            lr = _sharded_opt(opt)[1]
+            check(all(same_bits(a, b) for a, b in zip(p0, ref["p0"])),
+                  f"[sharded] {name}: the initial parameters are the "
+                  "simulated run's")
+            res["simulated"] = {k: ref[k] for k in ("losses", "mb",
+                                                    "epoch_ms")}
+            res["rows_apart"] = dict(
+                feats=[halo_rows_apart(a, b, 1e-6) for a, b in zip(
+                    halo.feats, ref["halo"].feats)],
+                grads=[halo_rows_apart(a, b, 1e-3) for a, b in zip(
+                    halo.grads, ref["halo"].grads)])
+            res["max_rel_diff"] = {k: [
+                float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+                for a, b in zip(getattr(halo, k), getattr(ref["halo"], k))]
+                for k in ("feats", "grads")}
+            # the witness, per parameter leaf: the first step's gap over the
+            # learning rate (under SGD: the gradients' gap; under Adam a
+            # sign flip of a gradient moves its weight by 2 lr), the largest
+            # first-step move over the learning rate, the weights whose gap
+            # exceeds lr / 10 after the first step, and the last step's gap
+            # over the largest parameter
+            res["param_gap"] = dict(
+                lr=lr,
+                step1_over_lr=[float((a - b).abs().max()) / lr
+                               for a, b in zip(p1, ref["p1"])],
+                step1_move_over_lr=[float((b - c).abs().max()) / lr
+                                    for b, c in zip(ref["p1"], ref["p0"])],
+                step1_over_tenth_lr=[int(((a - b).abs() > lr / 10).sum())
+                                     for a, b in zip(p1, ref["p1"])],
+                last_rel=[float((a - b).abs().max() / b.abs().max())
+                          for a, b in zip(leaves(tr), ref["pn"])])
+        del tr, model, halo, ref
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+
+    # (d) faults under the chaos_smoke schedule; overlap against blocking
+    plan = scenarios.parse_fault(CHAOS_FAULT)
+    torch.manual_seed(SEED)
+    tr = GNNTrainer(configs.get("gcn").config().make(d_in, n_cls), pg,
+                    SylvieConfig(mode="sync", bits=1), policy=Uniform(bits=1),
+                    runtime=rt, seed=SEED, fault_plan=plan)
+    acct = []
+    for _ in range(3):
+        zero()
+        m = tr.train_epoch()
+        drawn = plan.events(m.epoch, tr.n_sites, SHARDED_PARTS).n_injected
+        want = TRAIN_LAUNCHES[("gcn", "vanilla", "sync") if m.forced_syncs
+                              else ("gcn", "sylvie_s", m.mode)]
+        check(m.faults_injected == drawn == m.halos_reused + m.forced_syncs
+              and launched(want) and np.isfinite(m.loss),
+              f"[sharded] rank {r} faulted epoch {m.epoch}: injected "
+              f"{m.faults_injected} (the plan draws {drawn}) == reused "
+              f"{m.halos_reused} + forced {m.forced_syncs}; launches "
+              f"{counts()} == {want}")
+        acct.append((m.faults_injected, m.halos_reused, m.forced_syncs))
+    check(sum(a[0] for a in acct) > 0, "[sharded] no fault injected")
+    out["faults"] = dict(accounting=acct, losses=[m.loss for m in tr.history])
+    del tr
+    out["overlap"] = {}
+    for mode in ("sync", "async"):
+        res = {}
+        for sched in ("blocking", "overlap"):
+            torch.manual_seed(SEED)
+            tr = GNNTrainer(configs.get("gcn").config().make(d_in, n_cls),
+                            pg, SylvieConfig(mode=mode, bits=1,
+                                             schedule=sched),
+                            policy=Uniform(bits=1), runtime=rt, seed=SEED)
+            seen = []
+            for _ in range(3):
+                zero()
+                tr.train_epoch()
+                seen.append(counts())
+            res[sched] = (seen, optlib.tree_leaves(tr.state.params),
+                          [m.loss for m in tr.history],
+                          [m.seconds * 1e3 for m in tr.history])
+            del tr
+        (sb, pb, lb, _), (so, po, lo, _) = res["blocking"], res["overlap"]
+        check(sb == so and lb == lo
+              and all(same_bits(a, b) for a, b in zip(pb, po)),
+              f"[sharded] rank {r} gcn {mode}: overlap (losses {lo}, "
+              f"launches {so}) bit-equal to blocking ({lb}, {sb})")
+        out["overlap"][mode] = dict(losses=lb,
+                                    blocking_ms=res["blocking"][3],
+                                    overlap_ms=res["overlap"][3])
+    every = [None] * SHARDED_PARTS
+    dist.all_gather_object(every, out)
+    return every
+
+
+def sharded_phase(card_line: str, graph: str = "reddit_like@paper",
+                  device: str = "cuda:0") -> dict:
+    """[sharded]: the multi-process runtime (``Runtime.sharded``), four
+    ranks on ``cuda:0`` over ``gloo`` (NCCL refuses two ranks on one
+    device), spawned by ``repro_torch.dist.spawn``; see the module
+    docstring. The ranks raise on a failed check of their own, and so does
+    ``spawn``; what compares ranks or runtimes is checked here."""
+    from repro_torch.dist.spawn import spawn
+
+    t0 = time.perf_counter()
+    ranks = spawn(sharded_rank, SHARDED_PARTS, device=device,
+                  dist_backend="gloo", args=(graph, device), timeout=600)
+    log("[sharded] " + "; ".join(
+        f"rank {x['rank']}: backend {x['backend']}, device {x['device']} "
+        f"(current {x['current']})" for x in ranks))
+    label = f"{SHARDED_LABEL}; {card_line}"
+    log(f"[sharded] (a) exchanges on {graph}'s ring buckets "
+        f"{ranks[0]['buckets']} and dense blocks (h_pad "
+        f"{ranks[0]['h_pad']}), uint8 / bfloat16 / float32, compact both "
+        f"ways: every rank's row bit-equal to SimulatedBackend on the "
+        f"stacked CUDA tensor")
+    out: dict = dict(launches={}, label=label)
+    for name, (arch, _, cfg, _, opt, epochs) in sharded_runs().items():
+        key = name if name.startswith(arch) else f"{arch}_{name}"
+        got = [x["train"][name] for x in ranks]
+        want = got[0]["simulated"]
+        rtol = 1e-5 if cfg.mode == "vanilla" else SHARDED_ONE_BIT_RTOL
+        err = max(abs(a - b) / abs(b) for a, b in zip(got[0]["losses"],
+                                                        want["losses"]))
+        check(all(g["losses"] == got[0]["losses"] for g in got),
+              f"[sharded] {key}: every rank's losses are the same")
+        check(np.allclose(got[0]["losses"], want["losses"], rtol=rtol,
+                          atol=0),
+              f"[sharded] {key}: sharded losses {got[0]['losses']} vs "
+              f"simulated {want['losses']} (rtol {rtol})")
+        check(all(g["mb"] == want["mb"] for g in got),
+              f"[sharded] {key}: bytes per epoch {got[0]['mb']} vs "
+              f"{want['mb']}")
+        apart, n_rows = got[0]["rows_apart"], got[0]["rows"]
+        # Adam's halos are recorded, not gated (see sharded_runs)
+        bound = (None if opt == "adam" else 0 if cfg.mode == "vanilla"
+                 else SHARDED_ROWS_APART * n_rows)
+        check(bound is None or max(apart["feats"] + apart["grads"]) <= bound,
+              f"[sharded] {key}: halo rows apart {apart} of {n_rows} "
+              f"(bound {bound}; largest difference over the largest value "
+              f"{got[0]['max_rel_diff']})")
+        res = out[key] = dict(
+            loss_max_rel=err, rtol=rtol, rows_apart=apart, rows=n_rows,
+            rows_apart_bound=bound,
+            halo_max_rel_diff=got[0]["max_rel_diff"],
+            param_gap=got[0]["param_gap"],
+            losses=got[0]["losses"], mb=got[0]["mb"][-1],
+            median_epoch_ms={x["rank"]: x["train"][name]["median_ms"]
+                             for x in ranks},
+            simulated_epoch_ms=want["epoch_ms"])
+        run = name.removeprefix(f"{arch}_")
+        for mode, counts in got[0]["launches"]:
+            out["launches"][f"{arch}_train_sharded_{run}_{mode}_step"] = \
+                counts
+        log(f"[sharded] ({'c' if arch == 'gat' else 'b'}) {key} ({opt}), "
+            f"{epochs} epochs against Runtime.simulated(4) on the card: "
+            f"{json.dumps(res)}; launches exact on every rank; epoch ms "
+            f"({label}, host clock)")
+    check(all(x["faults"]["accounting"] == ranks[0]["faults"]["accounting"]
+              for x in ranks), "[sharded] the fault accounting is the same "
+          "on every rank")
+    log(f"[sharded] (d) gcn Sylvie-S under {CHAOS_FAULT}, 3 epochs: "
+        f"(injected, reused, forced) {ranks[0]['faults']['accounting']} on "
+        f"every rank; overlap == blocking bit for bit, sync and async, "
+        f"launches equal: {json.dumps(ranks[0]['overlap'])}")
+    log(f"[sharded] (e) {label}: per rank, median epoch ms (host clock; "
+        f"epochs 1..): " + json.dumps({
+            k: v["median_epoch_ms"] for k, v in out.items()
+            if isinstance(v, dict) and "median_epoch_ms" in v}))
+    coll = {tag: dict(rows=e["rows"], width=e["width"],
+                      bytes_sent=[x["exchange"][tag]["bytes_sent"]
+                                  for x in ranks],
+                      ms=[x["exchange"][tag]["median_ms"] for x in ranks])
+            for tag, e in ranks[0]["exchange"].items()}
+    out["collectives"] = coll
+    log(f"[sharded] (e) one collective ({label}; per rank: the bytes it "
+        f"sends, the median of 5 on the host clock ending in a sync): "
+        f"{json.dumps(coll)}")
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[sharded] phase done in {out['seconds']:.1f} s (their plan load "
+        f"{ranks[0]['load_s']:.1f} s, plan-cache hit "
+        f"{ranks[0]['plan_cache_hit']})")
+    return out
+
+
 def main() -> int:
     # -- 1. card -------------------------------------------------------------
     if not torch.cuda.is_available():
@@ -2226,6 +2642,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     ch = chaos_phase(all_kernels)
 
+    # -- 11d. sharded: the multi-process runtime, four ranks on this card ----
+    torch.cuda.empty_cache()
+    sh = sharded_phase(card_line)
+
     # -- 12. summary ----------------------------------------------------------
     s0 = detail[0]
     times = {
@@ -2247,6 +2667,7 @@ def main() -> int:
         **{path: n.get(name, 0) for path, n in sf["launches"].items()},
         **{path: n[name] for path, n in tr["launches"].items()},
         **{path: n[name] for path, n in ch["launches"].items()},
+        **{path: n.get(name, 0) for path, n in sh["launches"].items()},
         lm_generate=lm["launches"][name]) for name in all_kernels}
     summary = []
     for name, meta in kernels.items():

@@ -14,7 +14,9 @@ training, and the embedding store's names).
 
 ``Runtime.simulated(4, device="cpu")`` (or ``device="cpu"``) runs the
 kernels' plain PyTorch versions on the CPU; without a card the default
-raises.
+raises. Inside each of P processes of ``dist.spawn.spawn`` the same calls
+with ``runtime=repro.Runtime.sharded(P)`` train one partition per process
+and compute what the simulated runtime computes.
 """
 from __future__ import annotations
 
@@ -40,7 +42,8 @@ def partition(g: formats.Graph, n_parts: Optional[int] = None, *,
               alignment: int = 8) -> partlib.PartitionedGraph:
     """Partition a host graph and build its static halo-exchange plan,
     GCN-normalized by default (self-loops, symmetric edge weights).
-    ``n_parts`` may come from ``runtime``."""
+    ``n_parts`` may come from ``runtime`` (a sharded one's: its processes;
+    each builds the same whole plan, and its trainer keeps its partition)."""
     if n_parts is None and runtime is not None:
         n_parts = runtime.n_parts
     if n_parts is None:

@@ -1,9 +1,10 @@
 """Halo exchange primitives: boundary gather + the exchange entry points.
 
 All GNN runtime code operates on *stacked* tensors with a leading partition
-axis ``P`` — e.g. node features ``(P, n_local, d)``. Which collective moves the
-halo buffers is the backend's decision (``repro_torch.dist.backend``); this
-module is the seam. Two buffer layouts exist (see ``graph/partition.py``):
+axis — e.g. node features ``(P, n_local, d)`` on the simulated stack, a
+process's own ``(1, n_local, d)`` under a sharded runtime. Which collective
+moves the halo buffers is the backend's decision
+(``repro_torch.dist.backend``); this module is the seam. Two buffer layouts exist (see ``graph/partition.py``):
 
 * dense pairwise blocks ``(P, P*h_pad, ...)`` — the exchange is a transpose,
   its own inverse;
@@ -23,7 +24,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..dist.backend import SimulatedBackend
+from ..dist.backend import Inflight, as_backend
 from ..kernels.spmm.ops import spmm
 from ..kernels.spmm.ref import CSR, csr_from_edges
 from .quantization import QuantizedTensor, comm_bytes
@@ -31,7 +32,9 @@ from .quantization import QuantizedTensor, comm_bytes
 
 @dataclasses.dataclass(frozen=True)
 class PlanArrays:
-    """Device-side halo plan (stacked, leading axis P). See graph/partition.py.
+    """Device-side halo plan (stacked, leading axis P; a sharded runtime's
+    holds its own partition's row, leading axis 1, and keeps ``n_parts`` =
+    P). See graph/partition.py.
 
     ``bucket_sizes`` is ``None`` for the dense layout and the per-ring-offset
     row counts for the compact layout. ``wire_rows`` / ``real_rows`` are
@@ -56,18 +59,24 @@ class PlanArrays:
         return int(self.send_idx.shape[1])
 
     @staticmethod
-    def from_plan(plan, device=None) -> "PlanArrays":
+    def from_plan(plan, device=None, part: Optional[int] = None
+                  ) -> "PlanArrays":
+        """The host plan on ``device``: the whole stack, or partition
+        ``part``'s row of every array (the byte-accounting totals stay the
+        whole graph's)."""
         p = plan
         buckets = None
         if getattr(p, "layout", "dense") == "compact":
             buckets = tuple(int(b) for b in p.bucket_sizes)
-        send_idx = np.asarray(p.send_idx).reshape(p.n_parts, -1)
-        send_mask = np.asarray(p.send_mask).reshape(p.n_parts, -1)
+        rows = slice(None) if part is None else slice(part, part + 1)
+        send_idx = np.asarray(p.send_idx).reshape(p.n_parts, -1)[rows]
+        send_mask = np.asarray(p.send_mask).reshape(p.n_parts, -1)[rows]
         return PlanArrays(
             send_idx=torch.as_tensor(send_idx, dtype=torch.int64,
                                      device=device),
             send_mask=torch.as_tensor(send_mask, device=device),
-            recv_mask=torch.as_tensor(p.recv_mask, device=device),
+            recv_mask=torch.as_tensor(np.asarray(p.recv_mask)[rows],
+                                      device=device),
             n_local=int(p.n_local), h_pad=int(p.h_pad), n_parts=int(p.n_parts),
             bucket_sizes=buckets, wire_rows=int(p.wire_rows()),
             real_rows=int(p.real_rows()),
@@ -111,7 +120,7 @@ def exchange_halo(x: torch.Tensor, plan: PlanArrays, backend=None,
     """Layout-dispatching halo exchange. Dense plans use the transpose
     (``reverse`` ignored); compact plans run the ring buckets, reversed for
     the backward communication."""
-    be = backend if backend is not None else SimulatedBackend()
+    be = as_backend(backend)
     if plan.bucket_sizes is None:
         return be.exchange(x)
     return be.exchange_compact(x, plan.bucket_sizes, reverse=reverse)
@@ -121,11 +130,18 @@ def exchange_quantized_halo(qt: QuantizedTensor, plan: PlanArrays,
                             backend=None,
                             reverse: bool = False) -> QuantizedTensor:
     """Layout-dispatching quantized exchange (payload + scale/zero together)."""
-    be = backend if backend is not None else SimulatedBackend()
+    be = as_backend(backend)
     if plan.bucket_sizes is None:
         return be.exchange_quantized(qt)
     return be.exchange_quantized_compact(qt, plan.bucket_sizes,
                                          reverse=reverse)
+
+
+def issue_quantized_halo(qt: QuantizedTensor, plan: PlanArrays, backend=None,
+                         reverse: bool = False) -> Inflight:
+    """Start the layout's quantized exchange; ``backend.fence`` lands it."""
+    return as_backend(backend).issue_quantized(qt, plan.bucket_sizes,
+                                               reverse=reverse)
 
 
 def exchange_bytes(plan: PlanArrays, d: int, bits: int,

@@ -30,7 +30,12 @@ layout of JAX's ``fold_in(key, 2i)`` / ``2i+1`` / ``999``, not its values
 (the two PRNGs differ, so stochastic runs match JAX only through injected
 noise: the Functions take ``u_fwd`` / ``u_bwd``, and ``SylvieComm`` takes
 per-site BNS keep-masks, ``bns_masks``). Without a key, every site shares
-the one ``generator`` (the serving sweep's stream).
+the one ``generator`` (the serving sweep's stream). Under a sharded backend
+each process draws only for its own partition, from ``SeedSequence(key +
+(stream, rank))`` — the partition folded in, as the reference's
+``_part_key`` folds it into the key under ``shard_map`` — so stochastic
+sharded runs are held to the simulated ones statistically, and exactly only
+with deterministic rounding (as in the reference).
 
 ``SylvieComm.halo`` dispatches as the reference does: fault-armed sites
 (``fault_sites``, masks of ``repro_torch.faults``) run the blocking faulty
@@ -48,7 +53,7 @@ import numpy as np
 import torch
 
 from ..dist import overlap as olap
-from ..dist.backend import Inflight, SimulatedBackend
+from ..dist.backend import Inflight, as_backend
 from ..faults import comm as fcomm
 from ..policy.base import SiteDecision
 from . import quantization as qlib
@@ -209,8 +214,9 @@ class SylvieComm:
     without it every site draws from ``generator``. Collects the halos it
     produced (``new_feat_caches``: the Sylvie-A caches of the next step) and,
     when ``collect_stats``, per-site boundary range statistics.
-    ``bns_masks`` (one (P, halo_rows) 0/1 keep-mask per site) replaces the
-    BNS draws of a synchronous pass where sampling is on. ``fault_sites``
+    ``bns_masks`` (one (P, halo_rows) 0/1 keep-mask per site, the whole
+    stack's also under a sharded backend) replaces the BNS draws of a
+    synchronous pass where sampling is on. ``fault_sites``
     (one :class:`~repro_torch.faults.plan.SiteFaults` per site; ``None`` =
     fault-free) arms every site with its masks; a synchronous pass then also
     needs ``feat_caches``, the fallback of a condemned row. Under the overlap
@@ -227,7 +233,7 @@ class SylvieComm:
         self.cfg = cfg
         self.plan = plan
         self.generator = generator
-        self.backend = backend if backend is not None else SimulatedBackend()
+        self.backend = as_backend(backend)
         self.decision = decision
         self.key = key
         self.collect_stats = collect_stats
@@ -257,9 +263,14 @@ class SylvieComm:
         return sched
 
     def _stream(self, stream: int, device) -> Optional[torch.Generator]:
+        """The generator of one noise stream; under a sharded backend the
+        partition is folded in after the stream."""
         if self.key is None:
             return self.generator
-        return stream_generator(self.key, stream, device)
+        rank = self.backend.axis_index()
+        if rank is None:
+            return stream_generator(self.key, stream, device)
+        return stream_generator((*self.key, stream), rank, device)
 
     def _bns_mask(self, i: int, p: float, device) -> Optional[torch.Tensor]:
         """BNS-GCN-style boundary sampling: one Bernoulli keep-mask per halo
@@ -269,7 +280,12 @@ class SylvieComm:
         if p <= 0.0:
             return None
         if self.bns_masks is not None:
-            keep = self.bns_masks[i].to(device=device, dtype=torch.float32)
+            # the whole stack's masks: a sharded backend's process takes its
+            # partition's row
+            rank = self.backend.axis_index()
+            keep = self.bns_masks[i] if rank is None \
+                else self.bns_masks[i][rank:rank + 1]
+            keep = keep.to(device=device, dtype=torch.float32)
         else:
             keep = torch.bernoulli(
                 torch.full(tuple(self.plan.recv_mask.shape), 1.0 - p,

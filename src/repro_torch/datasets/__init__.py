@@ -32,8 +32,11 @@ def load_partitioned(ref: str, n_parts: int, *, seed: int = 0,
                      method: str = "block", layout: str = "compact",
                      alignment: int = 8, self_loops: bool = True,
                      gcn_weights: bool = True,
-                     cache_dir: Optional[Path] = None, refresh: bool = False):
+                     cache_dir: Optional[Path] = None, refresh: bool = False,
+                     group=None):
     """Registry load + GCN normalization + cached partition, in one call.
+    ``group``: the process group of a sharded runtime, whose ranks all call
+    this (rank 0 alone touches the cache file).
 
     Returns ``(pg, hit)`` like :func:`.plans.cached_partition`::
 
@@ -47,4 +50,5 @@ def load_partitioned(ref: str, n_parts: int, *, seed: int = 0,
                                   gcn_weights=gcn_weights)
     return cached_partition(g, n_parts, method=method, edge_weight=ew,
                             seed=seed, layout=layout, alignment=alignment,
-                            cache_dir=cache_dir, refresh=refresh)
+                            cache_dir=cache_dir, refresh=refresh,
+                            group=group)

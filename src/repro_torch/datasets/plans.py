@@ -26,6 +26,11 @@ alike (an entry's file format is the same too).
     from repro_torch.datasets import plans
     pg, hit = plans.cached_partition(g, n_parts=8)      # miss: partitions+saves
     pg, hit = plans.cached_partition(g, n_parts=8)      # hit: loads the .npz
+
+Under a process group (``group=``, one process per partition: a sharded
+runtime) rank 0 alone loads or writes the entry while the others wait at a
+barrier, then they load it: no two processes race on one file, and every
+rank reports ``hit`` as rank 0 saw it.
 """
 from __future__ import annotations
 
@@ -136,24 +141,46 @@ def cached_partition(g: Graph, n_parts: int, *, method: str = "block",
                      edge_weight: Optional[np.ndarray] = None, seed: int = 0,
                      layout: str = "compact", alignment: int = 8,
                      cache_dir: Optional[Path] = None,
-                     refresh: bool = False
+                     refresh: bool = False, group=None
                      ) -> tuple[PartitionedGraph, bool]:
     """``partition_graph`` behind the on-disk cache.
 
     Returns ``(pg, hit)`` — ``hit`` is True when the entry was loaded from
     disk. ``refresh=True`` forces a repartition (and rewrites the entry). A
-    corrupt or unreadable entry is treated as a miss and overwritten."""
+    corrupt or unreadable entry is treated as a miss and overwritten.
+    ``group``: a ``torch.distributed`` process group whose ranks all call
+    this (see the module docstring); ``None`` for one process."""
     cache_dir = Path(cache_dir) if cache_dir is not None else \
         default_cache_dir()
     key = plan_key(g, n_parts, method=method, seed=seed, layout=layout,
                    alignment=alignment, edge_weight=edge_weight)
     path = cache_dir / f"{key}.npz"
+    if group is not None:
+        import torch.distributed as dist
+        seen = [None]
+        if dist.get_rank(group) == 0:
+            pg, seen[0] = _cached(g, n_parts, path, refresh, method=method,
+                                  edge_weight=edge_weight, seed=seed,
+                                  layout=layout, alignment=alignment)
+        dist.barrier(group=group)
+        dist.broadcast_object_list(seen, group=group,
+                                   group_src=0)
+        if dist.get_rank(group) != 0:
+            pg = load_partitioned_file(path)
+        return pg, bool(seen[0])
+    return _cached(g, n_parts, path, refresh, method=method,
+                   edge_weight=edge_weight, seed=seed, layout=layout,
+                   alignment=alignment)
+
+
+def _cached(g: Graph, n_parts: int, path: Path, refresh: bool, **kw
+            ) -> tuple[PartitionedGraph, bool]:
+    """Load ``path``, or partition and write it."""
     if not refresh and path.exists():
         try:
             return load_partitioned_file(path), True
         except (OSError, ValueError, KeyError, EOFError):
             pass                        # fall through: repartition + rewrite
-    pg = partition_graph(g, n_parts, method=method, edge_weight=edge_weight,
-                         seed=seed, layout=layout, alignment=alignment)
+    pg = partition_graph(g, n_parts, **kw)
     save_partitioned(path, pg)
     return pg, False

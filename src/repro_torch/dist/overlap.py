@@ -11,13 +11,17 @@ issue/land protocol behind the same backend primitives:
   (``backend.side_stream``), after that stream waits for its input: for
   the work enqueued on the consuming stream so far, or only up to the
   ``ready`` event (:func:`mark`) recorded where the input was made; an
-  event is recorded behind them. Each
+  event is recorded behind them. Under a sharded backend the exchange is
+  an ``async_op=True`` collective started there, whose ``Work`` handles
+  ride in the :class:`Inflight` (on the CPU too). Each
   site issues exactly once per direction, with the blocking schedule's
   kernels (the same launches, the same noise: each site draws from its own
   generator, whose offset advances per call, not per stream).
 * **land** (:func:`_land`) — ``backend.fence`` makes the consuming stream
-  wait on that event (and records the received tensors on it), then the
-  payload is dequantized there. Until the land, the consuming stream runs on:
+  wait on that event and on the collectives' ``Work`` (with ``gloo`` the
+  wait blocks the host until the host-staged copy has landed), records the
+  received tensors on it and puts a compact exchange's rows in bucket
+  order; then the payload is dequantized there. Until the land, the consuming stream runs on:
   work that does not need the halo overlaps the exchange. A stream changes
   when a kernel runs, never what it computes, so every value is bit-equal
   to the blocking schedule. On the CPU the exchange runs in place and the
@@ -59,9 +63,8 @@ import torch
 
 from .. import obs
 from ..core import quantization as qlib
-from ..core.exchange import (PlanArrays, exchange_bytes,
-                             exchange_quantized_halo, gather_boundary,
-                             scatter_boundary_grad)
+from ..core.exchange import (PlanArrays, exchange_bytes, gather_boundary,
+                             issue_quantized_halo, scatter_boundary_grad)
 from .backend import Inflight
 
 
@@ -91,19 +94,19 @@ def _issue(src: torch.Tensor, prep: Callable, bits, stochastic, scale_dtype,
            reverse: bool = False,
            ready: Optional[torch.cuda.Event] = None) -> Inflight:
     """Issue one direction's quantized exchange: ``prep(src)`` (the boundary
-    gather, or the masked gradient), quantize, exchange — on the side stream
-    on CUDA, in place on the CPU. The side stream waits for ``ready`` (a
-    :func:`mark` of ``src``), or for everything enqueued on the current
-    stream so far."""
+    gather, or the masked gradient), quantize, start the exchange — on the
+    side stream on CUDA, on the host's thread on the CPU. The side stream
+    waits for ``ready`` (a :func:`mark` of ``src``), or for everything
+    enqueued on the current stream so far."""
     obs.event("halo.issue", {"bits": int(bits), "reverse": bool(reverse)})
 
     def run():
         qt = qlib.quantize(prep(src), bits, generator, stochastic,
                            scale_dtype, u=u)
-        return exchange_quantized_halo(qt, plan, backend, reverse=reverse)
+        return issue_quantized_halo(qt, plan, backend, reverse=reverse)
 
     if src.device.type != "cuda":
-        return Inflight(run())
+        return run()
     main = torch.cuda.current_stream(src.device)
     side = backend.side_stream(src.device)
     if ready is None:
@@ -111,15 +114,15 @@ def _issue(src: torch.Tensor, prep: Callable, bits, stochastic, scale_dtype,
     else:
         side.wait_event(ready)
     with torch.cuda.stream(side):
-        qr = run()
-        event = torch.cuda.Event()
-        event.record(side)
+        inflight = run()
+        inflight.event = torch.cuda.Event()
+        inflight.event.record(side)
     # made on the consuming stream, read on the side stream: the allocator
     # must not reuse them before the side stream is done
     for t in (src, u):
         if t is not None and t.is_cuda:
             t.record_stream(side)
-    return Inflight(qr, event)
+    return inflight
 
 
 def _land(inflight: Inflight, backend) -> torch.Tensor:

@@ -8,13 +8,17 @@ the exchange. What the wrapper does is bind a
 :class:`~repro_torch.faults.plan.FaultPlan` to a runtime: ``GNNTrainer``
 finds the plan on its runtime's backend and arms the per-epoch schedule, so
 ``Runtime(FaultyBackend(base, plan), device)`` turns a launch path into a
-chaos run.
+chaos run. ``base`` is either backend: over a
+:class:`~repro_torch.dist.backend.ProcessGroupBackend` the checksums travel
+through its collectives like the payload, the masks a process applies are
+its partition's row of the plan's ``(P, rows)`` masks, and the host-side
+``FaultPlan.events`` are drawn alike in every process.
 """
 from __future__ import annotations
 
 import dataclasses
 
-from ..dist.backend import SimulatedBackend
+from ..dist.backend import HaloBackend
 from .plan import FaultPlan
 
 
@@ -22,12 +26,17 @@ from .plan import FaultPlan
 class FaultyBackend:
     """Delegating wrapper binding a :class:`FaultPlan` to a backend."""
 
-    base: SimulatedBackend
+    base: HaloBackend
     plan: FaultPlan = FaultPlan()
 
     @property
     def n_parts(self):
         return self.base.n_parts
+
+    @property
+    def group(self):
+        """The wrapped process-group backend's group."""
+        return self.base.group
 
     def exchange(self, buf):
         return self.base.exchange(buf)
@@ -44,6 +53,9 @@ class FaultyBackend:
 
     def psum(self, x):
         return self.base.psum(x)
+
+    def issue_quantized(self, qt, bucket_sizes=None, reverse=False):
+        return self.base.issue_quantized(qt, bucket_sizes, reverse=reverse)
 
     def fence(self, tree):
         return self.base.fence(tree)

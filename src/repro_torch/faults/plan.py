@@ -219,25 +219,30 @@ class FaultCtl:
 
     @staticmethod
     def expand(events: FaultEvents, geom: RowGeometry, n_sites: int,
-               device=None) -> "FaultCtl":
+               device=None, part: Optional[int] = None) -> "FaultCtl":
         """Pairwise (S, 2, P, P) events -> per-row wire masks, per layout,
-        on ``device``."""
+        on ``device``: the whole stack's, or (``part``, a sharded runtime's
+        rank) that partition's row of them."""
         peer_recv, peer_send = geom.peers()
-        part = np.arange(geom.n_parts, dtype=np.int64)[:, None]
+        parts = np.arange(geom.n_parts, dtype=np.int64)[:, None]
         # vectorized over sites: A[:, X, Y] with X, Y (P, rows) / (P, 1)
         # broadcasts to (S, P, rows)
         stacked = np.stack([
-            events.drop[:, FWD][:, peer_recv, part],
-            events.corrupt[:, FWD][:, part, peer_send],
-            events.drop[:, BWD][:, peer_send, part],
-            events.corrupt[:, BWD][:, part, peer_recv],
+            events.drop[:, FWD][:, peer_recv, parts],
+            events.corrupt[:, FWD][:, parts, peer_send],
+            events.drop[:, BWD][:, peer_send, parts],
+            events.corrupt[:, BWD][:, parts, peer_recv],
         ], axis=1)                                   # (S, 4, P, rows)
-        masks = np.ascontiguousarray(stacked.transpose(2, 0, 1, 3))
-        return FaultCtl(masks=torch.from_numpy(masks).to(device))
+        masks = stacked.transpose(2, 0, 1, 3)
+        if part is not None:
+            masks = masks[part:part + 1]
+        return FaultCtl(masks=torch.from_numpy(
+            np.ascontiguousarray(masks)).to(device))
 
     @staticmethod
-    def clean(geom: RowGeometry, n_sites: int, device=None) -> "FaultCtl":
+    def clean(geom: RowGeometry, n_sites: int, device=None,
+              part: Optional[int] = None) -> "FaultCtl":
         """All-false masks — same structure, zero faults (recovery epochs)."""
         return FaultCtl(masks=torch.zeros(
-            (geom.n_parts, n_sites, 4, geom.halo_rows), dtype=torch.bool,
-            device=device))
+            (geom.n_parts if part is None else 1, n_sites, 4,
+             geom.halo_rows), dtype=torch.bool, device=device))

@@ -28,13 +28,21 @@ gets ``--device`` (default: the CUDA card). SIGKILL, not SIGTERM: *no*
 cleanup code runs — exactly a preemption — and the atomic checkpoint layout
 and the orphan GC still recover.
 
+``--runtime sharded --dist-backend gloo|nccl`` makes every leg a P-process
+job: the worker spawns one process per partition (``dist.spawn``), rank 0
+reads and writes the plan cache and the checkpoints (gathered from every
+rank), and a killed leg SIGKILLs the worker and all its ranks.
+
     python -m repro_torch.launch.chaos --kill-resume --device cpu
+    python -m repro_torch.launch.chaos --kill-resume --device cpu \\
+        --runtime sharded --dist-backend gloo
     python -m repro_torch.launch.chaos --kill-resume \\
         --dataset reddit_like@paper --epochs 4          # on the card
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import signal
@@ -51,23 +59,25 @@ WORKER = "repro_torch.launch.chaos"
 
 def _build_trainer(args):
     import torch
+    import torch.distributed as dist
 
     from .. import datasets
     from ..core.sylvie import SylvieConfig
     from ..dist.runtime import Runtime
     from ..models.gnn.models import PAPER_ARCHS as ARCHS
     from ..train.trainer import GNNTrainer
-    from .scenarios import SHARDED_NOT_PORTED, parse_fault, parse_policy
+    from .scenarios import parse_fault, parse_policy
 
-    if args.runtime == "sharded":
-        raise NotImplementedError(SHARDED_NOT_PORTED)
-    pg, hit = datasets.load_partitioned(args.dataset, args.parts,
-                                        seed=args.seed,
-                                        cache_dir=args.plan_cache)
-    print(f"plan cache hit: {str(hit).lower()}", flush=True)
+    sharded = args.runtime == "sharded"
+    runtime = Runtime.sharded(args.parts, device=args.device) if sharded \
+        else Runtime.simulated(args.parts, device=args.device)
+    pg, hit = datasets.load_partitioned(
+        args.dataset, args.parts, seed=args.seed, cache_dir=args.plan_cache,
+        group=dist.group.WORLD if sharded else None)
+    if runtime.rank in (None, 0):
+        print(f"plan cache hit: {str(hit).lower()}", flush=True)
     model = ARCHS[args.arch](pg.x.shape[-1], pg.n_classes,
                              generator=torch.Generator().manual_seed(args.seed))
-    runtime = Runtime.simulated(args.parts, device=args.device)
     return GNNTrainer(model, pg, SylvieConfig(mode=args.mode),
                       policy=parse_policy(args.policy), runtime=runtime,
                       seed=args.seed, ckpt_dir=args.ckpt, ckpt_every=1,
@@ -75,21 +85,29 @@ def _build_trainer(args):
 
 
 def _worker(args) -> int:
+    if args.runtime == "sharded":
+        import importlib
+
+        from ..dist.spawn import spawn
+
+        # the ranks import the leg by the module's name, not as __main__
+        leg = importlib.import_module(WORKER)._train_leg
+        return spawn(leg, args.parts, device=args.device,
+                     dist_backend=args.dist_backend, args=(args,))
+    return _train_leg(args)
+
+
+def _train_leg(args) -> int:
+    """One leg, in the worker or (sharded) in each of its ranks."""
     tr = _build_trainer(args)
     if args.resume and not tr.resume():
         print("worker: --resume but no checkpoint found", file=sys.stderr)
         return 2
+    lead = tr.rank in (None, 0)
     while tr.epoch < args.epochs:
         tr.train_epoch()
         if args.kill_at is not None and tr.epoch == args.kill_at:
-            # simulate a crash mid-save: leave a partial tmp dir behind (the
-            # orphan the resume leg must GC), then die without cleanup
-            orphan = Path(args.ckpt) / f".tmp_step_{tr.epoch:08d}"
-            orphan.mkdir(parents=True, exist_ok=True)
-            (orphan / "arrays.npz").write_bytes(b"partial garbage")
-            sys.stdout.flush()
-            sys.stderr.flush()
-            os.kill(os.getpid(), signal.SIGKILL)
+            _crash(args, tr)
         tr.save()
     result = dict(epochs=tr.epoch,
                   losses=[m.loss for m in tr.history],
@@ -97,9 +115,31 @@ def _worker(args) -> int:
                   faults_injected=sum(m.faults_injected for m in tr.history),
                   halos_reused=sum(m.halos_reused for m in tr.history),
                   forced_syncs=sum(m.forced_syncs for m in tr.history))
-    if args.out:
+    if args.out and lead:
         Path(args.out).write_text(json.dumps(result, indent=1))
     return 0
+
+
+def _crash(args, tr) -> None:
+    """Simulate a crash mid-save: leave a partial tmp dir behind (the orphan
+    the resume leg must GC), then die without cleanup — under a sharded
+    runtime once every rank has trained the epoch, the worker and all its
+    ranks."""
+    sharded = tr.rank is not None
+    if sharded:
+        import torch.distributed as dist
+        dist.barrier()
+    if tr.rank in (None, 0):
+        orphan = Path(args.ckpt) / f".tmp_step_{tr.epoch:08d}"
+        orphan.mkdir(parents=True, exist_ok=True)
+        (orphan / "arrays.npz").write_bytes(b"partial garbage")
+    sys.stdout.flush()
+    sys.stderr.flush()
+    if sharded:
+        dist.barrier()
+        if tr.rank == 0:
+            os.kill(os.getppid(), signal.SIGKILL)     # the worker
+    os.kill(os.getpid(), signal.SIGKILL)
 
 
 def _worker_cmd(args, ckpt: str, extra: list[str]) -> list[str]:
@@ -109,6 +149,8 @@ def _worker_cmd(args, ckpt: str, extra: list[str]) -> list[str]:
            "--epochs", str(args.epochs), "--mode", args.mode,
            "--policy", args.policy, "--seed", str(args.seed),
            "--runtime", args.runtime, "--keep", str(args.keep)]
+    if args.dist_backend:
+        cmd += ["--dist-backend", args.dist_backend]
     if args.fault:
         cmd += ["--fault", args.fault]
     if args.device:
@@ -118,9 +160,13 @@ def _worker_cmd(args, ckpt: str, extra: list[str]) -> list[str]:
     return cmd + extra
 
 
-def _run_worker(cmd: list[str]) -> subprocess.CompletedProcess:
+def _run_worker(cmd: list[str], tmp: Path) -> subprocess.CompletedProcess:
+    """Run one leg; its temporary files (a sharded leg's rendezvous, which
+    a killed leg cannot remove) go under ``tmp``."""
+    tmp.mkdir(parents=True, exist_ok=True)
     env = dict(os.environ)
     env["PYTHONPATH"] = f"{SRC}{os.pathsep}" + env.get("PYTHONPATH", "")
+    env["TMPDIR"] = str(tmp)
     return subprocess.run(cmd, env=env, capture_output=True, text=True)
 
 
@@ -145,9 +191,8 @@ def _final_arrays(ckpt_dir: str) -> dict[str, np.ndarray]:
 def kill_resume(args) -> dict:
     """Run the reference / killed / resumed legs; return the comparison
     (``plan_cache_hits`` gives each leg's plan-cache outcome, in order)."""
-    if args.runtime == "sharded":
-        from .scenarios import SHARDED_NOT_PORTED
-        raise NotImplementedError(SHARDED_NOT_PORTED)
+    if args.runtime == "sharded" and args.dist_backend is None:
+        raise ValueError("--runtime sharded needs --dist-backend gloo|nccl")
     root = Path(args.out_dir) if args.out_dir else \
         Path(tempfile.mkdtemp(prefix="chaos_"))
     root.mkdir(parents=True, exist_ok=True)
@@ -160,19 +205,21 @@ def kill_resume(args) -> dict:
             tail = f":\n{leg.stdout}\n{leg.stderr}" if leg is not None else ""
             raise RuntimeError(f"kill-resume: {what}{tail}")
 
+    tmp = root / "tmp"
     ref = _run_worker(_worker_cmd(args, ref_dir,
-                                  ["--out", str(root / "ref.json")]))
+                                  ["--out", str(root / "ref.json")]), tmp)
     check(ref.returncode == 0, "reference run failed", ref)
 
     killed = _run_worker(_worker_cmd(args, chaos_dir,
-                                     ["--kill-at", str(kill_at)]))
+                                     ["--kill-at", str(kill_at)]), tmp)
     check(killed.returncode == -signal.SIGKILL,
           f"expected SIGKILL death, got rc={killed.returncode}", killed)
     check(bool(list(Path(chaos_dir).glob(".tmp_step_*"))),
           "killed worker left no .tmp_step_* orphan")
 
     resumed = _run_worker(_worker_cmd(
-        args, chaos_dir, ["--resume", "--out", str(root / "resumed.json")]))
+        args, chaos_dir, ["--resume", "--out", str(root / "resumed.json")]),
+        tmp)
     check(resumed.returncode == 0, "resumed run failed", resumed)
     check(not list(Path(chaos_dir).glob(".tmp_step_*")),
           "resume did not GC the crash orphan")
@@ -201,22 +248,25 @@ def kill_resume(args) -> dict:
 
 
 def _ci(args) -> int:
-    from .scenarios import run_scenario
+    from .scenarios import resolve, run_scenario
 
     # 1) bit-exact kill-and-resume where the policy lattice guarantees it
     kr = argparse.Namespace(
         dataset="yelp_like@smoke", arch="gcn", parts=4, epochs=5,
-        mode="sync", policy="uniform:1", seed=0, runtime="simulated",
-        fault=None, keep=3, out_dir=args.out_dir, device=args.device,
-        plan_cache=args.plan_cache)
+        mode="sync", policy="uniform:1", seed=0, runtime=args.runtime,
+        dist_backend=args.dist_backend, fault=None, keep=3,
+        out_dir=args.out_dir, device=args.device, plan_cache=args.plan_cache)
     result = kill_resume(kr)
     if not result["bit_exact"]:
         raise RuntimeError("uniform/sync kill-resume not bit-exact: "
                            f"{result['max_deviation']}")
     # 2) the chaos scenario matrix: completes under the seeded schedule and
     #    every injected fault is accounted for
-    for rep in run_scenario("chaos_smoke", cache_dir=args.plan_cache,
-                            device=args.device):
+    scn = dataclasses.replace(resolve("chaos_smoke"),
+                              runtimes=(args.runtime,))
+    for rep in run_scenario(scn, cache_dir=args.plan_cache,
+                            device=args.device,
+                            dist_backend=args.dist_backend):
         if rep["faults_injected"] != rep["halos_reused"] + \
                 rep["forced_syncs"]:
             raise RuntimeError(
@@ -246,7 +296,12 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--runtime", default="simulated",
                     choices=("simulated", "sharded"),
-                    help="sharded: not ported yet (ROADMAP item 6)")
+                    help="sharded: one process per partition (needs "
+                         "--dist-backend)")
+    ap.add_argument("--dist-backend", default=None, choices=("gloo", "nccl"),
+                    help="the sharded runtime's torch.distributed backend: "
+                         "nccl for a card per rank, gloo for the CPU or one "
+                         "card")
     ap.add_argument("--fault", default=None,
                     help="scenarios.parse_fault spec, e.g. drop=0.15,seed=7")
     ap.add_argument("--keep", type=int, default=3)

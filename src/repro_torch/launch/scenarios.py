@@ -16,8 +16,11 @@ Policy axis entries are compact specs (``parse_policy``): ``uniform:BITS``,
 Arch names resolve through ``models.gnn.models.PAPER_ARCHS`` (the
 reference's widths), so a port report and a reference report of one cell are
 one model. The runtime axis takes ``simulated`` (the whole stack on one
-device: the CUDA card unless ``device="cpu"``); ``sharded`` needs the
-multi-process backend (ROADMAP item 6) and raises.
+device: the CUDA card unless ``device="cpu"``) and ``sharded`` (one process
+per partition, started by ``dist.spawn`` over the ``dist_backend`` the
+caller names; ``device=None`` is a card per rank, ``"cuda:0"`` every rank on
+one card, which needs ``gloo``). A sharded cell's report is rank 0's, with
+the simulated cell's keys.
 
 The report's key set is the reference's with one change: the modeled comm
 time is the card's — ``modeled_comm_s``, ``modeled_comm_exposed_s`` and
@@ -45,10 +48,6 @@ from ..obs import export as obs_export
 from ..train.trainer import GNNTrainer
 from .cells import _gnn_model_flops
 from .hardware import NVLINK_BW, PEAK_FLOPS_BF16
-
-SHARDED_NOT_PORTED = ("runtime 'sharded' is not ported yet (ROADMAP queue "
-                      "A, item 6: ShardMapBackend over torch.distributed)")
-
 
 def parse_policy(spec: str):
     """Compact policy spec -> CommPolicy. ``uniform:32``, ``warmup:5:1``,
@@ -199,18 +198,11 @@ REPORT_KEYS = frozenset({
 })
 
 
-def _runtime(name: str, parts: int, device) -> Runtime:
-    if name == "sharded":
-        raise NotImplementedError(SHARDED_NOT_PORTED)
-    if name != "simulated":
-        raise KeyError(f"unknown runtime {name!r}")
-    return Runtime.simulated(parts, device=device)
-
-
 def run_cell(scn: Scenario, cell: Cell, *,
              cache_dir: Optional[Path] = None,
              loaded: Optional[dict] = None,
-             obs_dir: Optional[Path] = None, device=None) -> dict:
+             obs_dir: Optional[Path] = None, device=None,
+             dist_backend: Optional[str] = None) -> dict:
     """Train one cell and return its report dict (not yet written).
 
     ``loaded`` memoizes partitioned graphs within one run: cells sharing a
@@ -220,8 +212,21 @@ def run_cell(scn: Scenario, cell: Cell, *,
     writes ``<obs_dir>/<cell_id>.trace.json`` (Perfetto) and
     ``<cell_id>.metrics.json``; the ``obs`` block (measured wall per epoch
     against the modeled exposed/overlapped comm) is in every report.
-    ``device`` is the runtime's (``None``: the CUDA card). Weights come from
-    a generator seeded with the scenario's seed."""
+    ``device`` is the runtime's (``None``: the CUDA card; a card per rank
+    for a sharded cell). A sharded cell runs in ``scn.parts`` processes
+    over ``dist_backend`` (``"gloo"`` or ``"nccl"``, which it needs; rank 0
+    writes the trace). Weights come from a generator seeded with the
+    scenario's seed."""
+    if cell.runtime == "sharded":
+        if dist_backend is None:
+            raise ValueError("a sharded cell needs dist_backend='gloo' or "
+                             "'nccl'")
+        from ..dist.spawn import spawn
+        return spawn(_sharded_cell, scn.parts, device=device,
+                     dist_backend=dist_backend,
+                     args=(scn, cell, cache_dir, obs_dir, device))
+    if cell.runtime != "simulated":
+        raise KeyError(f"unknown runtime {cell.runtime!r}")
     key = (cell.dataset, scn.parts, scn.seed)
     if loaded is None or key not in loaded:
         entry = datasets.load_partitioned(
@@ -230,8 +235,24 @@ def run_cell(scn: Scenario, cell: Cell, *,
             loaded[key] = entry
     else:
         entry = loaded[key]
-    pg, cache_hit = entry
-    runtime = _runtime(cell.runtime, scn.parts, device)
+    return _train_cell(scn, cell, *entry,
+                       Runtime.simulated(scn.parts, device=device), obs_dir)
+
+
+def _sharded_cell(scn: Scenario, cell: Cell, cache_dir, obs_dir,
+                  device) -> dict:
+    """One rank of a sharded cell (runs inside ``dist.spawn``)."""
+    import torch.distributed as dist
+    runtime = Runtime.sharded(scn.parts, device=device)
+    pg, cache_hit = datasets.load_partitioned(
+        cell.dataset, scn.parts, seed=scn.seed, cache_dir=cache_dir,
+        group=dist.group.WORLD)
+    return _train_cell(scn, cell, pg, cache_hit, runtime,
+                       obs_dir if runtime.rank == 0 else None)
+
+
+def _train_cell(scn: Scenario, cell: Cell, pg, cache_hit: bool,
+                runtime: Runtime, obs_dir: Optional[Path]) -> dict:
     model = ARCHS[cell.arch](pg.x.shape[-1], pg.n_classes,
                              generator=torch.Generator().manual_seed(scn.seed))
     policy = parse_policy(cell.policy)
@@ -326,7 +347,8 @@ def run_scenario(scenario, *, out_dir: Optional[Path] = None,
                  only: Optional[str] = None,
                  schedule: Optional[str] = None,
                  obs_trace: bool = False,
-                 obs_dir: Optional[Path] = None, device=None) -> list[dict]:
+                 obs_dir: Optional[Path] = None, device=None,
+                 dist_backend: Optional[str] = None) -> list[dict]:
     """Expand and run a scenario; one report JSON per cell + a summary.
 
     ``only`` is a substring filter over cell ids. A filtered run rewrites
@@ -335,7 +357,8 @@ def run_scenario(scenario, *, out_dir: Optional[Path] = None,
     summary. ``schedule`` overrides the scenario's exchange schedule for
     every cell. ``obs_trace`` arms span tracing per cell and writes
     ``<obs_dir>/<scenario>/<cell_id>.{trace,metrics}.json`` (default
-    ``artifacts/torch/obs/``)."""
+    ``artifacts/torch/obs/``). ``dist_backend`` serves the sharded cells
+    (see :func:`run_cell`)."""
     scn = resolve(scenario)
     if schedule is not None:
         scn = dataclasses.replace(scn, schedule=schedule)
@@ -354,7 +377,8 @@ def run_scenario(scenario, *, out_dir: Optional[Path] = None,
     for i, cell in enumerate(cells):
         t0 = obs.clock()
         rep = run_cell(scn, cell, cache_dir=cache_dir, loaded=loaded,
-                       obs_dir=obs_out, device=device)
+                       obs_dir=obs_out, device=device,
+                       dist_backend=dist_backend)
         (out / f"{cell.cell_id}.json").write_text(
             json.dumps(rep, indent=1, default=float))
         reports.append(rep)

@@ -40,7 +40,8 @@ Examples::
         --device cpu
 
 Without ``--device cpu`` they run on the CUDA card (and raise where there is
-none). ``--runtime sharded`` is not ported yet (ROADMAP queue A, item 6).
+none). ``--runtime sharded`` is refused: serving under a sharded runtime is
+not ported yet (ROADMAP queue A, item 16).
 Partitions come through the plan cache (``artifacts/torch/plans/``).
 """
 from __future__ import annotations
@@ -56,7 +57,8 @@ import numpy as np
 
 from .. import obs
 
-NOT_PORTED = "not ported yet (ROADMAP queue A, item 6)"
+NOT_PORTED = "serving under a sharded runtime is not ported yet (ROADMAP " \
+    "queue A, item 16)"
 
 
 def _root() -> Path:

@@ -46,7 +46,8 @@ from ...kernels.spmm.ref import CSR, csr_from_edges
 
 @dataclasses.dataclass(frozen=True)
 class GraphBlock:
-    """Static per-partition graph data (stacked leading axis P)."""
+    """Static per-partition graph data (stacked leading axis P; one
+    partition's, leading axis 1, under a sharded runtime)."""
 
     edges: torch.Tensor                   # (P, E, 2) int64 [src_ext, dst_local]
     edge_mask: torch.Tensor               # (P, E) bool
@@ -61,7 +62,8 @@ class GraphBlock:
 
     @property
     def n_parts(self) -> int:
-        return self.plan.n_parts
+        """Partitions stacked here (P, or 1 under a sharded runtime)."""
+        return int(self.node_mask.shape[0])
 
     @functools.cached_property
     def csr_unit(self) -> CSR:
@@ -74,19 +76,22 @@ class GraphBlock:
                                    w=torch.ones_like(self.csr_t.w))
 
 
-def _stack_edges(pg: PartitionedGraph):
-    """Every partition's real edges flattened over the stack: destination
+def _stack_edges(pg: PartitionedGraph, rows: slice = slice(None)):
+    """Every stacked partition's real edges flattened over the stack
+    (``rows`` picks the partitions: all, or one rank's): destination
     ``p*n_local + dst``, source ``p*n_ext + src_ext`` with ``n_ext = n_local +
     halo_rows``, in edge-list order; their weights (ones when the graph has
     none) and the stack's (rows, table rows)."""
     plan = pg.plan
     n_ext = plan.n_local + plan.halo_rows
-    p_idx, e_idx = np.nonzero(pg.edge_mask)
-    src = pg.edges[p_idx, e_idx, 0].astype(np.int64) + p_idx * n_ext
-    dst = pg.edges[p_idx, e_idx, 1].astype(np.int64) + p_idx * plan.n_local
+    edges, edge_mask = pg.edges[rows], pg.edge_mask[rows]
+    p_idx, e_idx = np.nonzero(edge_mask)
+    src = edges[p_idx, e_idx, 0].astype(np.int64) + p_idx * n_ext
+    dst = edges[p_idx, e_idx, 1].astype(np.int64) + p_idx * plan.n_local
     w = np.ones(src.size, np.float32) if pg.edge_weight is None \
-        else pg.edge_weight[p_idx, e_idx]
-    return src, dst, w, (plan.n_parts * plan.n_local, plan.n_parts * n_ext)
+        else pg.edge_weight[rows][p_idx, e_idx]
+    n = edge_mask.shape[0]
+    return src, dst, w, (n * plan.n_local, n * n_ext)
 
 
 def transpose_perm(src: np.ndarray, dst: np.ndarray) -> np.ndarray:
@@ -98,17 +103,23 @@ def transpose_perm(src: np.ndarray, dst: np.ndarray) -> np.ndarray:
     return fwd_pos[np.argsort(src, kind="stable")].astype(np.int32)
 
 
-def build_block(pg: PartitionedGraph, device=None) -> GraphBlock:
-    src, dst, w, shape = _stack_edges(pg)
+def build_block(pg: PartitionedGraph, device=None,
+                part: Optional[int] = None) -> GraphBlock:
+    """The block of the whole stack, or (``part``, a sharded runtime's rank)
+    of that one partition: its edges, masks, plan row and CSRs, built on the
+    host."""
+    rows = slice(None) if part is None else slice(part, part + 1)
+    src, dst, w, shape = _stack_edges(pg, rows)
     csr = csr_from_edges(src, dst, w, *shape)
-    deg = np.diff(csr.row_ptr.numpy()).reshape(pg.plan.n_parts, -1)
+    deg = np.diff(csr.row_ptr.numpy()).reshape(-1, pg.plan.n_local)
     return GraphBlock(
-        edges=torch.as_tensor(pg.edges, dtype=torch.int64, device=device),
-        edge_mask=torch.as_tensor(pg.edge_mask, device=device),
-        node_mask=torch.as_tensor(pg.node_mask, device=device),
-        plan=PlanArrays.from_plan(pg.plan, device),
+        edges=torch.as_tensor(pg.edges[rows], dtype=torch.int64,
+                              device=device),
+        edge_mask=torch.as_tensor(pg.edge_mask[rows], device=device),
+        node_mask=torch.as_tensor(pg.node_mask[rows], device=device),
+        plan=PlanArrays.from_plan(pg.plan, device, part),
         edge_weight=None if pg.edge_weight is None
-        else torch.as_tensor(pg.edge_weight, device=device),
+        else torch.as_tensor(pg.edge_weight[rows], device=device),
         csr=csr.to(device), n_local=pg.plan.n_local,
         csr_t=csr_from_edges(dst, src, w, shape[1], shape[0]).to(device),
         deg=torch.as_tensor(deg.astype(np.float32), device=device),

@@ -175,6 +175,11 @@ class InferenceEngine:
         p = pg.plan.n_parts
         if runtime is None:
             runtime = Runtime.simulated(p)
+        if runtime.is_sharded:
+            raise NotImplementedError(
+                "serving under a sharded runtime is not ported yet (ROADMAP "
+                "queue A, item 16: the reference's shard_serve_fn over "
+                "torch.distributed)")
         if runtime.n_parts not in (None, p):
             raise ValueError(
                 f"runtime is committed to {runtime.n_parts} partitions but "

@@ -22,8 +22,12 @@ enqueued). ``state.faults`` (a
 epoch; ``None`` = fault-free) arms every site with that epoch's wire masks.
 The steps emit ``site_stats``, a ``(n_sites, 2)`` tensor of [sum of
 squared boundary-row ranges, live rows] per site, for the policy loop.
-Weight gradients come from ``torch.autograd.grad``; on the simulated stack
-the all-reduce (Alg. 2 line 16) is the identity. With ``decision.ef_bits``
+Weight gradients come from ``torch.autograd.grad`` and are all-reduced
+once (Alg. 2 line 16) by ``backend.psum``: the identity on the simulated
+stack; across processes an ``all_reduce`` whose transpose is the identity,
+so the loss's own ``psum`` (``_masked_loss``) does not count them P times.
+The loss, the site stats and the eval counts are reduced the same way, so
+every process holds the same replicated values. With ``decision.ef_bits``
 set the reduced gradient passes through the EF21 compressor.
 
 The state's tree keeps the JAX package's keys (``params/layer0/w``,
@@ -39,7 +43,7 @@ import torch
 
 from ..core.staleness import HaloState
 from ..core.sylvie import SCHEDULES, SylvieComm, SylvieConfig
-from ..dist.backend import SimulatedBackend
+from ..dist.backend import as_backend
 from ..models import nn
 from ..policy.base import EpochDecision, validate_decision
 from . import optimizer as optlib
@@ -98,7 +102,7 @@ def make_gnn_steps(model, cfg: SylvieConfig, opt: optlib.Optimizer,
     keep-masks that replace the sync step's draws (the async step samples
     no boundary); ``eval_step(params, block, x, y, mask, key) -> (correct,
     count)``."""
-    backend = backend if backend is not None else SimulatedBackend()
+    backend = as_backend(backend)
     n_sites = len(model.comm_dims())
     if decision is None:
         decision = EpochDecision.from_config(cfg, n_sites)

@@ -1,9 +1,16 @@
 """GNN trainer: the epoch loop, the CommPolicy loop, eval, checkpoint/restart,
 EF21 gradient compression, metrics — as ``repro.train.trainer.GNNTrainer``.
 
-The runtime fixes the device: ``Runtime.simulated(P)`` is the whole
-partition stack on the CUDA card (``device="cpu"`` runs the kernels' plain
-versions on the CPU). Once per epoch, on the host:
+The runtime fixes the device and the placement: ``Runtime.simulated(P)`` is
+the whole partition stack on the CUDA card (``device="cpu"`` runs the
+kernels' plain versions on the CPU); under ``Runtime.sharded(P)`` each of P
+processes runs this trainer on its own partition (the block, the CSRs and
+the plan built from its partition, x / y / masks and halo caches its slice
+``[r:r+1]``, parameters and optimizer state whole and kept equal by the
+all-reduced gradients). What the host does below reads only replicated
+values and the host plan, so it is the same in every process, and the
+bytes per epoch are the whole graph's, as on the stack. Once per epoch, on
+the host:
 
 1. telemetry is assembled (epoch, the EMA-smoothed per-site range stats the
    previous step emitted, the validation trajectory, the resume/elastic
@@ -42,6 +49,7 @@ import torch
 from .. import obs
 from ..core.exchange import exchange_bytes, wire_bytes
 from ..core.sylvie import SylvieConfig
+from ..dist import api as dist_api
 from ..dist import overlap as olap
 from ..dist.runtime import Runtime
 from ..faults.backend import FaultyBackend
@@ -168,17 +176,16 @@ class GNNTrainer:
 
         if params is not None:
             params_from_numpy(model, params)
-        self.block = B.build_block(pg, dev)
-        self.x = torch.as_tensor(pg.x, device=dev)
-        self.y = torch.as_tensor(pg.y, device=dev)
-        self.train_mask = torch.as_tensor(pg.train_mask, device=dev)
-        self.val_mask = torch.as_tensor(pg.val_mask, device=dev)
-        self.test_mask = torch.as_tensor(pg.test_mask, device=dev)
+        self.rank = rank = runtime.rank
+        self.block = B.build_block(pg, dev, part=rank)
+        (self.x, self.y, self.train_mask, self.val_mask,
+         self.test_mask) = dist_api.gnn_data(pg, rank, dev)
         self.site_dims = tuple(int(d) for d in model.comm_dims())
         self.n_sites = len(self.site_dims)
         self.state = GNNTrainState.create(model.param_tree(), self.opt,
                                           self.block.plan, self.site_dims,
-                                          stacked_parts=p, device=dev)
+                                          stacked_parts=runtime.stacked_parts(
+                                              p), device=dev)
         # built train steps per distinct (snapped) decision; eval is
         # decision-independent (always full precision) and built once.
         self._step_cache: dict = {}
@@ -324,13 +331,14 @@ class GNNTrainer:
         escalate = False
         if self._force_recovery:
             decision = dataclasses.replace(decision.with_bits(32), sync=True)
-            ctl = FaultCtl.clean(self._fault_geom, self.n_sites, self.device)
+            ctl = FaultCtl.clean(self._fault_geom, self.n_sites, self.device,
+                                 part=self.rank)
             reused, forced, stall = 0, injected, 0.0
             self._site_staleness[:] = 0
             self._force_recovery = False
         else:
             ctl = FaultCtl.expand(ev, self._fault_geom, self.n_sites,
-                                  self.device)
+                                  self.device, part=self.rank)
             reused, forced = injected, 0
             stall = ev.stall_s(plan.delay_s)
             self._site_staleness = np.where(ev.faulty_sites(),
@@ -411,19 +419,28 @@ class GNNTrainer:
 
     # ------------------------------------------------------------------
     def save(self):
+        """Checkpoint the whole stack's state. Under a sharded runtime every
+        process joins the gather of the stacked leaves and rank 0 writes:
+        the same format and arrays as the simulated runtime's."""
+        state = self.runtime.gather_state(self.state)
+        if self.rank not in (None, 0):
+            return
         meta = dict(n_parts=self.pg.plan.n_parts, epoch=self.epoch,
                     mode=self.cfg.mode, policy=self.policy.name)
-        ckpt.save(self.ckpt_dir, self.epoch, self.state, meta, keep=self.keep)
+        ckpt.save(self.ckpt_dir, self.epoch, state, meta, keep=self.keep)
 
     def resume(self) -> bool:
         """Restore the latest checkpoint if present (one written by either
-        package). Returns True if resumed. An elastic repartition (another
-        n_parts) zeroes the halo caches and forces one synchronous epoch."""
+        package, under either runtime). Returns True if resumed. An elastic
+        repartition (another n_parts) zeroes the halo caches and forces one
+        synchronous epoch. Under a sharded runtime every process restores
+        the whole stack and keeps its partition's slice."""
         step = ckpt.latest_step(self.ckpt_dir) if self.ckpt_dir else None
         if step is None:
             return False
-        tree, meta, needs_sync = ckpt.restore(self.ckpt_dir, self.state)
-        self.state = self.runtime.place(tree)
+        tree, meta, needs_sync = ckpt.restore(
+            self.ckpt_dir, self.runtime.gather_state(self.state))
+        self.state = self.runtime.device_put_gnn(tree)
         self.epoch = int(meta.get("epoch", step))
         self._needs_sync = needs_sync or \
             meta.get("n_parts") != self.pg.plan.n_parts

@@ -12,7 +12,8 @@ reference, on the CPU.
   runs on the CPU with its plan-cache outcome, the traced cell writes its
   trace and metrics files, the ``chaos_smoke`` cell's accounting holds and
   equals JAX's; ``--scenario`` through the launcher; ``runtime="sharded"``
-  is refused, naming ROADMAP item 6;
+  is refused without a ``torch.distributed`` backend named (nothing picks
+  one; ``tests/test_torch_sharded.py`` runs it);
 * kill-and-resume (``python -m repro_torch.launch.chaos --kill-resume
   --device cpu``, 3 epochs, worker processes): bit-exact, the crash orphan
   collected, every leg a plan-cache hit after the first load.
@@ -240,10 +241,10 @@ def test_the_launcher_runs_a_scenario_and_refuses_sharded(tmp_path, capsys,
     assert len(list((tmp_path / "p").glob("*.npz"))) == 1
     scn = S.Scenario(name="s", archs=("gcn",), datasets=("yelp_like@smoke",),
                      policies=("uniform:1",), runtimes=("sharded",))
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(ValueError, match="dist_backend"):
         S.run_cell(scn, scn.cells()[0], cache_dir=tmp_path / "p",
                    device="cpu")
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(ValueError, match="--dist-backend"):
         chaos.main(["--kill-resume", "--runtime", "sharded", "--device",
                     "cpu"])
 
