@@ -167,6 +167,34 @@ sharded   — last, after chaos (``sharded_phase``): the multi-process runtime,
             ``gloo`` with the card line: no gain or wire speed is claimed.
             A rank's failed check fails ``spawn`` and the script.
 
+sharded-serve — last, after sharded (``sharded_serve_phase``): serving under
+            ``Runtime.sharded(4, device="cuda:0")``, four ``gloo`` ranks on
+            the card, each sweeping its partition of ``reddit_like@paper``
+            with weights from the seed, deterministic rounding; every rank
+            calls the engine's ``lead``, rank 0 runs the front and the
+            others follow its commands. (a) GCN 256x2 and (b) GraphSAGE
+            256x2 and GAT 4x64, at 32 bits and at 1 bit: a full sweep, a
+            64-node delta and a fresh full sweep, each equal bit for bit to
+            the same front run by rank 0 on ``Runtime.simulated(4)`` first
+            (logits rows apart counted; 0 expected: serving has no
+            all-reduce); the delta equals the fresh full sweep; equal wire
+            bytes and ``affected_rows``. (c) On every rank, one full sweep's
+            and one delta's launches equal ``SERVE_LAUNCHES`` at 1 bit
+            (counts zeroed before and read after each ``lead``). (d)
+            Partition 2 down, then a delta: frozen rows and
+            ``part_staleness`` equal the simulated engine's. (e) The front
+            on rank 0: an ``EmbeddingServer`` over the engine with its store,
+            a closed loop of ``SERVE_SHARDED_CLIENTS`` clients x
+            ``SERVE_SHARDED_REQUESTS`` requests x ``SERVE_SHARDED_BATCH``
+            ids with a 64-node delta every ``SERVE_SHARDED_EVERY``
+            completions, traced (spans ``refresh``, ``plan``, ``sweep``,
+            ``gather``: count and median host ms), every refresh run and
+            none failed, ``verify_store()``; the publish of a delta's rows
+            timed on rank 0; one full sweep profiled on each rank in turn
+            while the others sweep too (device busy ms and its memcpy
+            part, ``torch.profiler``). QPS, p50/p99 and every
+            time are labelled host-staged ``gloo`` with the card line.
+
 Between phases 5 and 6 (``lm``) four training phases run:
 
 train     — GCN 256x2, GraphSAGE 256x2 and GAT (4 heads x 64, 2 layers),
@@ -213,7 +241,8 @@ train-parity — deterministic 6-epoch Sylvie-S and Sylvie-A (eps_s=2) of each
             for at most 1% of their rows, counted (``train_parity_phase``;
             GAT at 1 bit epoch by epoch from the CPU's state).
 
-Run time on an H100: about three and a half minutes, the kernels' build included.
+Run time on an H100: about four and a half minutes, the kernels' build
+included.
 """
 from __future__ import annotations
 
@@ -1212,7 +1241,7 @@ def train_parity_phase() -> dict:
 SPAN_PARENTS = {"epoch": {None}, "decide": {"epoch"}, "step": {"epoch"},
                 "admit": {None}, "request": {None}, "lookup": {"request"},
                 "refresh": {None}, "plan": {"refresh"},
-                "sweep": {"refresh", None}}
+                "sweep": {"refresh", None}, "gather": {"refresh", None}}
 
 
 def span_tree(events: list) -> dict:
@@ -2321,6 +2350,298 @@ def sharded_phase(card_line: str, graph: str = "reddit_like@paper",
     return out
 
 
+SERVE_SHARDED_ARCHS = ("gcn", "graphsage", "gat")
+SERVE_SHARDED_BITS = (32, 1)
+SERVE_SHARDED_CLIENTS = 8
+SERVE_SHARDED_REQUESTS = 400
+SERVE_SHARDED_BATCH = 16
+SERVE_SHARDED_EVERY = 50
+SERVE_SHARDED_NODES = 64
+
+
+def _serve_parity_front(eng, ids, rows) -> dict:
+    """[sharded-serve] (a)-(b): a full sweep, the 64-node delta, a fresh
+    full sweep (run on rank 0 inside ``lead``, and on the stack)."""
+    full = eng.full_sweep()
+    out = dict(full=eng._logits_host.copy(), full_bytes=full.wire_bytes)
+    rep = eng.refresh(ids, rows)
+    out.update(delta=eng._logits_host.copy(), kind=rep.kind,
+               affected=rep.affected_rows, bytes=rep.wire_bytes)
+    eng.full_sweep()
+    out["again"] = eng._logits_host.copy()
+    return out
+
+
+def _serve_degraded_front(eng, ids, rows) -> dict:
+    """[sharded-serve] (d): partition 2 down, then a delta refresh."""
+    eng.full_sweep()
+    before = eng._logits_host.copy()
+    eng.set_down([2])
+    rep = eng.refresh(ids, rows)
+    return dict(kind=rep.kind, before=before, logits=eng._logits_host.copy(),
+                staleness=eng.part_staleness.tolist())
+
+
+def _serve_load_front(eng, ids) -> dict:
+    """[sharded-serve] (e): the closed loop through an ``EmbeddingServer``
+    with a delta every ``SERVE_SHARDED_EVERY`` completions, traced; then the
+    store's check and the publish of a delta's rows, timed."""
+    from repro_torch import obs
+    from repro_torch.serve import EmbeddingServer
+    from repro_torch.serve.loadgen import closed_loop
+    eng.full_sweep()
+    obs.enable()
+    srv = EmbeddingServer(eng)
+    load = closed_loop(srv, eng.pg.part_of.size,
+                       clients=SERVE_SHARDED_CLIENTS,
+                       batch=SERVE_SHARDED_BATCH,
+                       requests=SERVE_SHARDED_REQUESTS, seed=SEED,
+                       refresh_every=SERVE_SHARDED_EVERY,
+                       refresh_nodes=SERVE_SHARDED_NODES)
+    events = obs.drain()
+    obs.disable()
+    verified = eng.verify_store()
+    publish = []
+    for _ in range(5):
+        t = time.perf_counter()
+        eng._publish(ids)
+        publish.append((time.perf_counter() - t) * 1e3)
+    return dict(load=load, health=srv.health, verified=verified,
+                spans=span_tree(events), publish_ms=publish,
+                store=eng.store.stats().as_dict())
+
+
+def sharded_serve_rank(graph: str, device: str) -> dict:
+    """One rank of [sharded-serve], inside ``dist.spawn`` (see
+    ``sharded_serve_phase``), on ``graph`` and ``device`` ("cuda:0"; "cpu"
+    runs the plain versions). Every rank builds the sharded engines and
+    calls their ``lead``; rank 0 runs the fronts and, first, the simulated
+    engine on the whole stack. Raises on a failed check; returns, on rank
+    0, its results and every rank's launches and device ms."""
+    import torch.distributed as dist
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import configs, datasets
+    from repro_torch.dist.runtime import Runtime
+    from repro_torch.kernels.gat import ops as gops
+    from repro_torch.kernels.quant import ops as qops
+    from repro_torch.kernels.spmm import ops as sops
+    from repro_torch.serve import InferenceEngine, ServeConfig
+    from repro_torch.store import ShardedEmbeddingStore
+
+    kernels = {k.name: k for k in (
+        qops.QUANTIZE_PACK, qops.UNPACK_DEQUANTIZE, sops.SPMM,
+        sops.SPMM_HEADS, gops.GAT_SOFTMAX, gops.SDDMM_HEADS,
+        gops.GAT_SOFTMAX_BWD)}
+    rt = Runtime.sharded(SHARDED_PARTS, device=device)
+    r, dev = rt.rank, rt.device
+    sync = torch.cuda.synchronize if dev.type == "cuda" else lambda: None
+    t0 = time.perf_counter()
+    pg, _ = datasets.load_partitioned(graph, SHARDED_PARTS,
+                                      group=dist.group.WORLD)
+    d_in, n_cls, n = pg.x.shape[-1], pg.n_classes, pg.part_of.size
+    rng = np.random.default_rng(SEED)
+    ids = rng.choice(n, SERVE_SHARDED_NODES, replace=False)
+    rows = rng.normal(0, 1, (ids.size, d_in)).astype(np.float32)
+
+    def zero():
+        for k in kernels.values():
+            k.launches = 0
+
+    def counts():
+        sync()
+        return tuple(kernels[k].launches for k in TRAIN_KERNELS)
+
+    def engine(arch, runtime, store=False, **kw):
+        """``arch`` at the paper's widths, deterministic rounding; with
+        ``store``, rank 0's store (4,096 kB of cache)."""
+        torch.manual_seed(SEED)       # the same weights on every rank
+        return InferenceEngine(
+            configs.get(arch).config().make(d_in, n_cls), pg,
+            config=ServeConfig(stochastic=False, **kw), runtime=runtime,
+            seed=SEED, store=ShardedEmbeddingStore(cache_bytes=4096 << 10)
+            if store and r == 0 else None)
+
+    def on_stack(front, arch, *args, **kw):
+        """Rank 0 runs ``front`` on ``Runtime.simulated(4)`` on the card
+        first; the other ranks wait."""
+        got = None
+        if r == 0:
+            got = engine(arch, Runtime.simulated(SHARDED_PARTS, device=dev),
+                         **kw).lead(front, *args)
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+        dist.barrier()
+        return got
+
+    out: dict = dict(rank=r, load_s=time.perf_counter() - t0, parity={},
+                     launches={})
+    # (a)-(c): every arch at 32 and 1 bit against the stack; then, per
+    # rank, the launches of one full sweep and of one delta
+    for arch in SERVE_SHARDED_ARCHS:
+        for bits in SERVE_SHARDED_BITS:
+            want = on_stack(_serve_parity_front, arch, ids, rows, bits=bits)
+            eng = engine(arch, rt, bits=bits)
+            got = eng.lead(_serve_parity_front, ids, rows)
+            zero()
+            eng.lead(lambda e: e.full_sweep())
+            full = counts()
+            zero()
+            eng.lead(lambda e: e.refresh(ids, rows))
+            delta = counts()
+            if bits == 1:
+                expect = SERVE_LAUNCHES[arch] if dev.type == "cuda" else \
+                    (0,) * len(TRAIN_KERNELS)
+                check(full == delta == expect,
+                      f"[sharded-serve] rank {r} {arch}: launches of a full "
+                      f"sweep {full} and a delta {delta}, expected {expect}")
+                out["launches"][f"{arch}_serve_sharded_sweep"] = dict(
+                    zip(TRAIN_KERNELS, full))
+            if r == 0:
+                apart = {k: int((got[k] != want[k]).any(-1).sum())
+                         for k in ("full", "delta", "again")}
+                check(all(same_bits(torch.from_numpy(got[k]),
+                                    torch.from_numpy(want[k]))
+                          for k in ("full", "delta", "again")),
+                      f"[sharded-serve] {arch} at {bits} bits: logits rows "
+                      f"apart from Runtime.simulated(4)'s {apart}")
+                check(same_bits(torch.from_numpy(got["delta"]),
+                                torch.from_numpy(got["again"])),
+                      f"[sharded-serve] {arch} at {bits} bits: the delta "
+                      f"equals a fresh full sweep bit for bit")
+                check(got["kind"] == want["kind"] == "delta"
+                      and (got["affected"], got["bytes"], got["full_bytes"])
+                      == (want["affected"], want["bytes"],
+                          want["full_bytes"]),
+                      f"[sharded-serve] {arch} at {bits} bits: delta "
+                      f"{got['kind']}, rows {got['affected']}, bytes "
+                      f"{got['bytes']} / {got['full_bytes']} vs simulated "
+                      f"{want['affected']}, {want['bytes']} / "
+                      f"{want['full_bytes']}")
+                check(bool(np.isfinite(got["full"]).all()),
+                      f"[sharded-serve] {arch} at {bits} bits: finite")
+                out["parity"][f"{arch}_{bits}"] = dict(
+                    rows_apart=apart, affected_rows=list(got["affected"]),
+                    delta_bytes=got["bytes"], full_bytes=got["full_bytes"],
+                    full_launches=full, delta_launches=delta)
+            del eng
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+
+    # (d) degraded mode: partition 2 down, then a delta refresh
+    want = on_stack(_serve_degraded_front, "gcn", ids, rows, bits=1)
+    got = engine("gcn", rt, bits=1).lead(_serve_degraded_front, ids, rows)
+    if r == 0:
+        check(got["kind"] == want["kind"] == "delta"
+              and same_bits(torch.from_numpy(got["logits"]),
+                            torch.from_numpy(want["logits"]))
+              and got["staleness"] == want["staleness"] == [0, 0, 1, 0]
+              and same_bits(torch.from_numpy(got["logits"][2]),
+                            torch.from_numpy(got["before"][2])),
+              f"[sharded-serve] degraded: partition 2 down, a delta: "
+              f"staleness {got['staleness']} vs {want['staleness']}, "
+              f"logits equal the simulated engine's and partition 2's "
+              f"frozen")
+        out["degraded"] = dict(staleness=got["staleness"],
+                               frozen_rows=int(pg.node_mask[2].sum()))
+
+    # (e) the front on rank 0: server, closed loop, store; then one full
+    # sweep profiled on each rank in turn
+    eng = engine("gcn", rt, bits=1, store=True)
+    front = eng.lead(_serve_load_front, ids)
+    busy = []
+    for k in range(SHARDED_PARTS):
+        if r == k and dev.type == "cuda":
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                eng.lead(lambda e: e.full_sweep())
+            on_dev = [e for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA]
+            copies = [e for e in on_dev if e.key.startswith("Memcpy")]
+            busy = [sum(e.self_device_time_total for e in on_dev) / 1e3,
+                    sum(e.self_device_time_total for e in copies) / 1e3,
+                    sum(e.count for e in on_dev)]
+        else:
+            eng.lead(lambda e: e.full_sweep())
+    if r == 0:
+        load = front["load"]
+        want_refreshes = SERVE_SHARDED_REQUESTS // SERVE_SHARDED_EVERY
+        check(load["requests"] == SERVE_SHARDED_REQUESTS
+              and load["refreshes"] == want_refreshes
+              and load["refresh_failures"] == 0
+              and front["health"] == "healthy" and front["verified"] > 0,
+              f"[sharded-serve] front: {load['requests']} requests, "
+              f"{load['refreshes']} refreshes (expected {want_refreshes}), "
+              f"{load['refresh_failures']} failed, health "
+              f"{front['health']}, {front['verified']} store rows verified")
+        for name in ("refresh", "plan", "sweep", "gather"):
+            check(name in front["spans"], f"[sharded-serve] no {name} span")
+        out["front"] = front
+    out["sweep_device"] = busy
+    every = [None] * SHARDED_PARTS
+    dist.all_gather_object(every, dict(rank=r, launches=out["launches"],
+                                       sweep_device=busy))
+    out["ranks"] = every
+    return out if r == 0 else None
+
+
+def sharded_serve_phase(card_line: str, graph: str = "reddit_like@paper",
+                        device: str = "cuda:0") -> dict:
+    """[sharded-serve]: serving under ``Runtime.sharded(4)``, four ranks on
+    ``cuda:0`` over ``gloo`` (NCCL refuses two ranks on one device), the
+    front on rank 0; see the module docstring. The ranks raise on a failed
+    check, and so does ``spawn``; what compares ranks is checked here."""
+    from repro_torch.dist.spawn import spawn
+
+    t0 = time.perf_counter()
+    res = spawn(sharded_serve_rank, SHARDED_PARTS, device=device,
+                dist_backend="gloo", args=(graph, device), timeout=600)
+    label = f"{SHARDED_LABEL}; {card_line}"
+    ranks = res["ranks"]
+    check(all(x["launches"] == ranks[0]["launches"] for x in ranks),
+          f"[sharded-serve] every rank's launches per sweep are the same: "
+          f"{[x['launches'] for x in ranks]}")
+    for key, p in res["parity"].items():
+        log(f"[sharded-serve] (a)/(b) {key.replace('_', ' at ')} bits on "
+            f"{graph}, P=4: full sweep, 64-node delta and a fresh full sweep "
+            f"bit-equal to Runtime.simulated(4) on the card (rows apart "
+            f"{p['rows_apart']}); delta == full; rows per site "
+            f"{p['affected_rows']}, wire bytes {p['delta_bytes']} of "
+            f"{p['full_bytes']}, equal; launches full / delta "
+            f"{p['full_launches']} / {p['delta_launches']}")
+    log(f"[sharded-serve] (c) launches per sweep, every rank: "
+        f"{json.dumps(ranks[0]['launches'])} (SERVE_LAUNCHES)")
+    log(f"[sharded-serve] (d) degraded: partition 2 down, a 64-node delta: "
+        f"its {res['degraded']['frozen_rows']} rows frozen, staleness "
+        f"{res['degraded']['staleness']}, logits equal the simulated "
+        f"engine's bit for bit")
+    front = res["front"]
+    load, spans = front["load"], front["spans"]
+    summary = dict(
+        qps=load["qps"], p50_ms=load["p50_ms"], p99_ms=load["p99_ms"],
+        requests=load["requests"], refreshes=load["refreshes"],
+        refresh_failures=load["refresh_failures"],
+        verified_rows=front["verified"], hit_rate=front["store"]["hit_rate"],
+        spans_count_median_ms=spans,
+        publish_delta_ms_median=sorted(front["publish_ms"])[2],
+        sweep_device_ms={x["rank"]: x["sweep_device"] for x in ranks})
+    log(f"[sharded-serve] (e) the front on rank 0 ({label}): "
+        f"EmbeddingServer, closed loop {SERVE_SHARDED_CLIENTS} clients x "
+        f"{SERVE_SHARDED_REQUESTS} requests x {SERVE_SHARDED_BATCH} ids, a "
+        f"{SERVE_SHARDED_NODES}-node delta every {SERVE_SHARDED_EVERY}, "
+        f"store verified; spans [count, median host ms], the publish of a "
+        f"delta's rows (median of 5, host ms), each rank's one full sweep "
+        f"while the other three sweep on the same card [device busy ms, of "
+        f"it memcpy ms, device launches] (torch.profiler): "
+        f"{json.dumps(summary)}")
+    out = dict(launches=res["ranks"][0]["launches"], label=label,
+               parity={k: v["rows_apart"] for k, v in res["parity"].items()},
+               front=summary, seconds=time.perf_counter() - t0)
+    log(f"[sharded-serve] phase done in {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     # -- 1. card -------------------------------------------------------------
     if not torch.cuda.is_available():
@@ -2646,6 +2967,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     sh = sharded_phase(card_line)
 
+    # -- 11e. sharded-serve: serving under it, the front on rank 0 -------------
+    ss = sharded_serve_phase(card_line)
+
     # -- 12. summary ----------------------------------------------------------
     s0 = detail[0]
     times = {
@@ -2668,6 +2992,7 @@ def main() -> int:
         **{path: n[name] for path, n in tr["launches"].items()},
         **{path: n[name] for path, n in ch["launches"].items()},
         **{path: n.get(name, 0) for path, n in sh["launches"].items()},
+        **{path: n.get(name, 0) for path, n in ss["launches"].items()},
         lm_generate=lm["launches"][name]) for name in all_kernels}
     summary = []
     for name, meta in kernels.items():

@@ -18,6 +18,13 @@ the reference's ``shard_map``, where the leading axis has local size 1:
 A checkpoint stores the whole stack in either runtime: :func:`gather_state`
 gathers the stacked leaves back (``all_gather``, a collective every rank
 joins), :func:`slice_state` takes a rank's slice of a restored one.
+
+Serving (``repro_torch.serve.engine``) slices the same way: a rank holds the
+features of its partition (:func:`serve_data`) and its halo caches, and
+:func:`gather_stacked` brings a stacked result (the logits, the cached
+embeddings) back to the whole stack. Rank 0 leads the lockstep of the
+serving ranks: :func:`broadcast_command` sends each operation to the others
+before it runs.
 """
 from __future__ import annotations
 
@@ -48,6 +55,14 @@ def gnn_data(pg, rank: Optional[int], device) -> tuple:
                  for k in DATA)
 
 
+def serve_data(pg, rank: Optional[int], device) -> torch.Tensor:
+    """The float32 features of ``rank``'s partition (all of them for
+    ``None``) as a tensor on ``device``, copied: the serving engine writes
+    feature updates into it."""
+    x = local_slice(np.asarray(pg.x, dtype=np.float32), rank)
+    return torch.tensor(x, device=device)
+
+
 def slice_state(state, rank: Optional[int]):
     """A whole-stack training state -> ``rank``'s: the stacked fields
     sliced, the replicated ones kept."""
@@ -65,6 +80,27 @@ def _all_gather(t: torch.Tensor, group) -> torch.Tensor:
              for _ in range(dist.get_world_size(group))]
     dist.all_gather(parts, wire, group=group)
     return torch.cat(parts).to(t.dtype)
+
+
+def gather_stacked(t: torch.Tensor, group) -> torch.Tensor:
+    """A rank's ``(1, ...)`` slice of a stacked array -> the whole stack
+    ``(P, ...)`` in rank order (a collective: every rank of ``group`` calls
+    it, and gets the result)."""
+    if t.shape[0] != 1:
+        raise ValueError("a process holds one partition: expected a "
+                         f"(1, ...) slice, got {tuple(t.shape)}")
+    return _all_gather(t, group)
+
+
+def broadcast_command(command, group):
+    """Rank 0 of ``group`` sends ``command`` (a picklable object, the serving
+    engine's ``(op, args)``); every rank returns it (the others pass
+    ``None``). A collective: every rank of ``group`` calls it."""
+    import torch.distributed as dist
+    box = [command]
+    src = 0 if group is None else dist.get_global_rank(group, 0)
+    dist.broadcast_object_list(box, src=src, group=group)
+    return box[0]
 
 
 def gather_state(state, group):

@@ -25,6 +25,7 @@ from typing import Callable, Optional
 
 import torch
 
+from .. import obs
 from ..train.optimizer import tree_map
 from . import api
 from .backend import HaloBackend, ProcessGroupBackend, SimulatedBackend
@@ -125,6 +126,17 @@ class Runtime:
         if not self.is_sharded:
             return state
         return api.gather_state(state, self.backend.group)
+
+    def gather_stacked(self, *tensors: torch.Tensor) -> tuple:
+        """This runtime's slices of stacked tensors -> the whole stack's,
+        in rank order: under a sharded runtime an ``all_gather`` of each
+        (a collective every rank joins), recorded together as the ``obs``
+        span ``gather``; the identity otherwise."""
+        if not self.is_sharded:
+            return tensors
+        with obs.span("gather"):
+            return tuple(api.gather_stacked(t, self.backend.group)
+                         for t in tensors)
 
     def shard_serve_fn(self, sweep_fn: Callable) -> Callable:
         """The inference-engine sweep for this runtime: a plain call (PyTorch

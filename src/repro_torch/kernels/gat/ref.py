@@ -4,7 +4,8 @@ For destination row ``r`` and head ``h`` over the row's CSR edges ``e``
 (source ``col[e]``), with ``x_e = s_src[col_e, h] + s_dst[r, h]``:
 
 * :func:`gat_softmax_ref` — ``score = x >= 0 ? x : 0.2 x``; ``alpha_e =
-  exp(score_e - max_row score) / max(sum_row exp(...), 1e-16)``;
+  exp(score_e - max_row score) / max(sum_row exp(...), 1e-16)`` (``exp``
+  rounded from float64: :func:`exp_rounded`);
 * :func:`gat_softmax_bwd_ref` — ``c = sum_row alpha dalpha``, ``dx_e =
   alpha_e (dalpha_e - c) (x_e >= 0 ? 1 : 0.2)``, ``d s_dst[r] = sum_row
   dx``;
@@ -48,6 +49,15 @@ def _rows_reduce(vals: torch.Tensor, csr: CSR, reduce=torch.add,
                        vals.device, reduce, init)
 
 
+def exp_rounded(x: torch.Tensor) -> torch.Tensor:
+    """``exp`` of float32 ``x``, taken in float64 and rounded to float32.
+    PyTorch's CPU loop takes a tensor's last, partial vector with the scalar
+    ``exp``, which may differ by an ulp from the vectorized one: in float32
+    an edge's value would depend on where the tensor ends (one partition's
+    edges, or the whole stack's); rounded from float64 it does not."""
+    return torch.exp(x.to(torch.float64)).to(torch.float32)
+
+
 def gat_softmax_ref(s_src: torch.Tensor, s_dst: torch.Tensor,
                     csr: CSR) -> torch.Tensor:
     """(n_src, H), (n_rows, H) float32 -> alpha (nnz, H) in CSR order."""
@@ -55,7 +65,7 @@ def gat_softmax_ref(s_src: torch.Tensor, s_dst: torch.Tensor,
     x = _x(s_src, s_dst, csr, rows)
     score = torch.where(x >= 0, x, NEG_SLOPE * x)
     m = _rows_reduce(score, csr, torch.maximum, float("-inf"))
-    ex = torch.exp(score - m[rows])
+    ex = exp_rounded(score - m[rows])
     z = _rows_reduce(ex, csr)
     return ex / torch.clamp(z, min=Z_MIN)[rows]
 

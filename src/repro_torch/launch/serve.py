@@ -40,8 +40,23 @@ Examples::
         --device cpu
 
 Without ``--device cpu`` they run on the CUDA card (and raise where there is
-none). ``--runtime sharded`` is refused: serving under a sharded runtime is
-not ported yet (ROADMAP queue A, item 16).
+none).
+
+``--runtime sharded --dist-backend gloo|nccl`` serves one partition per
+process: the command trains or finds the checkpoint (on the simulated
+runtime, as the reference does), then spawns ``--parts`` ranks
+(``repro_torch.dist.spawn``); rank 0 runs the flow above (engine, server,
+load, the measured delta) and reports ``"runtime": "sharded"``, and the
+other ranks follow its sweeps (``InferenceEngine.lead``). ``--device``
+is every rank's (``cpu``, or one card, ``cuda:0``, which needs ``gloo``);
+without it rank ``r`` takes ``cuda:<r>`` (``nccl``: a card per rank)::
+
+    python -m repro_torch.launch.serve --graph yelp_like@smoke --reduced \\
+        --device cpu --runtime sharded --dist-backend gloo
+    python -m repro_torch.launch.serve --graph reddit_like@paper \\
+        --device cuda:0 --runtime sharded --dist-backend gloo
+
+``--matrix`` runs on the simulated runtime.
 Partitions come through the plan cache (``artifacts/torch/plans/``).
 """
 from __future__ import annotations
@@ -57,8 +72,9 @@ import numpy as np
 
 from .. import obs
 
-NOT_PORTED = "serving under a sharded runtime is not ported yet (ROADMAP " \
-    "queue A, item 16)"
+# the module the ranks of a sharded run import their function from (not
+# __main__ under ``python -m``)
+MODULE = "repro_torch.launch.serve"
 
 
 def _root() -> Path:
@@ -77,12 +93,14 @@ def _ckpt_dir(arch: str, ref: str, reduced: bool) -> Path:
     return _out_root() / "serve" / f"{tag}-{ref.replace('@', '-')}-ckpt"
 
 
-def _load(ref: str, parts: int, seed: int, reduced: bool = False):
+def _load(ref: str, parts: int, seed: int, reduced: bool = False,
+          group=None):
     """The partitioned workload and ``{arch: (d_in, d_out) -> model}`` of the
-    paper's models (``repro_torch.configs``; d_hidden 16 when reduced)."""
+    paper's models (``repro_torch.configs``; d_hidden 16 when reduced).
+    ``group``: the ranks of a sharded run, rank 0 reading the plan cache."""
     from .. import configs as configlib
     from .. import datasets
-    pg, _ = datasets.load_partitioned(ref, parts, seed=seed)
+    pg, _ = datasets.load_partitioned(ref, parts, seed=seed, group=group)
     archs = {}
     for arch in ("gcn", "graphsage", "gat"):
         spec = configlib.get(arch)
@@ -107,14 +125,15 @@ def _ensure_checkpoint(ckpt_dir: Path, model, pg, *, train_epochs: int,
 
 
 def serve_once(args) -> dict:
-    """The CLI's single-cell flow; returns the serving report dict."""
+    """The CLI's single-cell flow; returns the serving report dict (rank
+    0's under ``--runtime sharded``)."""
     from ..dist.runtime import Runtime, resolve_device
-    from ..serve import (EmbeddingServer, InferenceEngine, ReplicaSet,
-                         ServeConfig)
-    from ..serve.loadgen import closed_loop, open_loop
 
-    if args.runtime == "sharded":
-        raise SystemExit(f"--runtime sharded: {NOT_PORTED}")
+    sharded = args.runtime == "sharded"
+    if sharded and args.dist_backend is None:
+        raise ValueError("--runtime sharded needs --dist-backend gloo|nccl")
+    # the parent ensures the checkpoint on the simulated runtime (a sharded
+    # run spawns its ranks after)
     device = resolve_device(args.device)
     pg, archs = _load(args.graph, args.parts, args.seed, args.reduced)
     model = archs[args.arch](pg.x.shape[-1], pg.n_classes)
@@ -124,15 +143,55 @@ def serve_once(args) -> dict:
                                  train_epochs=args.train_epochs,
                                  train_bits=args.train_bits, seed=args.seed,
                                  device=device)
-    runtime = Runtime.simulated(args.parts, device=device)
-    cfg = ServeConfig(bits=args.bits, max_staleness=args.max_staleness)
+    if sharded:
+        import importlib
+
+        from ..dist.spawn import spawn
+        rank_fn = importlib.import_module(MODULE)._serve_rank
+        return spawn(rank_fn, args.parts, device=args.device,
+                     dist_backend=args.dist_backend,
+                     args=(args, ckpt_dir, trained))
+    engine, meta = _engine(args, ckpt_dir, model, pg,
+                           Runtime.simulated(args.parts, device=device))
+    return _front(engine, args, meta, ckpt_dir, trained)
+
+
+def _engine(args, ckpt_dir: Path, model, pg, runtime):
+    """``(engine, checkpoint meta)`` restored from ``ckpt_dir``, with the
+    store of ``--store`` (rank 0's alone under a sharded runtime)."""
+    from ..serve import InferenceEngine, ServeConfig
     store = None
-    if args.store:
+    if args.store and runtime.rank in (None, 0):
         from ..store import ShardedEmbeddingStore
         store = ShardedEmbeddingStore(cache_bytes=args.cache_kb << 10)
-    engine, meta = InferenceEngine.from_checkpoint(
-        ckpt_dir, model, pg, config=cfg, runtime=runtime, seed=args.seed,
-        store=store)
+    return InferenceEngine.from_checkpoint(
+        ckpt_dir, model, pg,
+        config=ServeConfig(bits=args.bits, max_staleness=args.max_staleness),
+        runtime=runtime, seed=args.seed, store=store)
+
+
+def _serve_rank(args, ckpt_dir: Path, trained: bool) -> Optional[dict]:
+    """One rank of ``--runtime sharded`` (inside ``dist.spawn``): its
+    partition's engine; rank 0 runs the front, the others follow."""
+    import torch.distributed as dist
+
+    from ..dist.runtime import Runtime
+    runtime = Runtime.sharded(args.parts, device=args.device)
+    pg, archs = _load(args.graph, args.parts, args.seed, args.reduced,
+                      group=dist.group.WORLD)
+    model = archs[args.arch](pg.x.shape[-1], pg.n_classes)
+    engine, meta = _engine(args, ckpt_dir, model, pg, runtime)
+    return engine.lead(_front, args, meta, ckpt_dir, trained)
+
+
+def _front(engine, args, meta: dict, ckpt_dir: Path, trained: bool) -> dict:
+    """The serving flow on the front (the whole stack's process, or rank 0):
+    sweep, server, load, one measured delta; prints and returns the
+    report."""
+    from ..serve import EmbeddingServer, ReplicaSet
+    from ..serve.loadgen import closed_loop, open_loop
+
+    pg, store, device = engine.pg, engine.store, engine.device
     sweep = engine.full_sweep()
     n_nodes = int(pg.part_of.shape[0])
 
@@ -335,10 +394,15 @@ def build_parser() -> argparse.ArgumentParser:
                     help="serving halo bit-width (32 = full precision)")
     ap.add_argument("--runtime", default="simulated",
                     choices=["simulated", "sharded"],
-                    help=f"sharded: {NOT_PORTED}")
+                    help="sharded: one process per partition (needs "
+                         "--dist-backend); rank 0 serves")
+    ap.add_argument("--dist-backend", default=None, choices=("gloo", "nccl"),
+                    help="the sharded runtime's torch.distributed backend: "
+                         "gloo (the CPU, or every rank on one card) or nccl "
+                         "(a card per rank)")
     ap.add_argument("--device", default=None,
                     help="'cpu' for the plain PyTorch versions; default: the "
-                         "CUDA card")
+                         "CUDA card (sharded: cuda:<rank>)")
     ap.add_argument("--ckpt-dir", default=None,
                     help="restore from here (a checkpoint of either "
                          "package); trains + saves when empty (default "

@@ -23,6 +23,16 @@ from ..nn import Linear, linear
 from . import blocks as B
 
 
+def elu(h: torch.Tensor) -> torch.Tensor:
+    """ELU, with ``expm1`` taken in float64 and rounded to float32: PyTorch's
+    CPU loop takes a tensor's last, partial vector with the scalar function,
+    which may differ by an ulp from the vectorized one, so in float32 a
+    row's value would depend on how many rows (partitions) the tensor
+    holds; rounded from float64 it does not."""
+    return torch.where(h > 0, h, torch.expm1(h.to(torch.float64))
+                       .to(h.dtype))
+
+
 def param_tree(module: nn.Module) -> dict:
     """``module``'s parameters as the JAX tree: ``layer0.w`` ->
     ``{"layer0": {"w": ...}}``."""
@@ -148,15 +158,16 @@ class GAT(_Model):
             lp = params[f"layer{i}"]
             hw = linear(lp["w"], h)                        # (P, n, H*dh)
             table = B.halo_table(hw, comm.halo(hw))
-            s_src = torch.einsum("...hd,hd->...h",
-                                 table.reshape(table.shape[:-1] + (nh, dh)),
-                                 lp["a_src"])
-            s_dst = torch.einsum("...hd,hd->...h",
-                                 hw.reshape(hw.shape[:-1] + (nh, dh)),
-                                 lp["a_dst"])
+            # the scores as a product and a sum over each row's dh: a row's
+            # bits do not depend on how many rows (partitions) the tensor
+            # holds, as an einsum's batched product's do
+            s_src = (table.reshape(table.shape[:-1] + (nh, dh))
+                     * lp["a_src"]).sum(-1)
+            s_dst = (hw.reshape(hw.shape[:-1] + (nh, dh))
+                     * lp["a_dst"]).sum(-1)
             h = B.gat_aggregate(block, table, s_src, s_dst)
             if i < self.n_layers - 1:
-                h = torch.nn.functional.elu(h)
+                h = elu(h)
         return linear(params["out"], h)
 
 

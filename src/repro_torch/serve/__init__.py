@@ -15,6 +15,10 @@ refresh, and the request path around it (as ``repro.serve``):
 * :class:`~repro_torch.serve.engine.StoreReader` — query-only replica view
   over a store-backed engine.
 
+Under ``Runtime.sharded(P)`` (one partition per process) every rank builds
+the engine and calls ``eng.lead(front)``: the front (server, replicas, load
+generators, store) runs on rank 0 and the other ranks follow its sweeps.
+
 ::
 
     from repro_torch.serve import EmbeddingServer, InferenceEngine, ServeConfig
@@ -29,14 +33,15 @@ from __future__ import annotations
 
 from . import delta, loadgen  # noqa: F401
 from .delta import RefreshPlan, RefreshReport  # noqa: F401
-from .engine import (InferenceEngine, QueryResult, ServeComm,  # noqa: F401
-                     ServeConfig, StoreReader)
+from .engine import (InferenceEngine, LockstepError,  # noqa: F401
+                     QueryResult, ServeComm, ServeConfig, StoreReader)
 from .loadgen import closed_loop, open_loop  # noqa: F401
 from .server import (EmbeddingServer, Rejection, ReplicaSet,  # noqa: F401
                      Request, Response)
 
 __all__ = [
-    "InferenceEngine", "ServeConfig", "ServeComm", "QueryResult",
+    "InferenceEngine", "LockstepError", "ServeConfig", "ServeComm",
+    "QueryResult",
     "StoreReader", "RefreshPlan", "RefreshReport", "EmbeddingServer",
     "ReplicaSet", "Rejection", "Request", "Response", "closed_loop",
     "open_loop", "delta", "loadgen",

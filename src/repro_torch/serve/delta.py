@@ -20,11 +20,13 @@ from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Optional
 
 import numpy as np
 import torch
 
 from ..core.quantization import comm_bytes
+from ..dist.api import local_slice
 from ..graph.partition import PartitionedGraph, global_edges, khop_frontier
 from ..policy.base import EpochDecision
 
@@ -41,9 +43,12 @@ class RefreshPlan:
     changed: int
     full: bool
 
-    def device_masks(self, device=None) -> tuple[torch.Tensor, ...]:
-        """uint8 masks for the sweep, on ``device``."""
-        return tuple(torch.as_tensor(m, dtype=torch.uint8, device=device)
+    def device_masks(self, device=None,
+                     part: Optional[int] = None) -> tuple[torch.Tensor, ...]:
+        """uint8 masks for the sweep, on ``device``: every partition's, or
+        (``part``, a sharded runtime's rank) that partition's row."""
+        return tuple(torch.as_tensor(local_slice(m, part), dtype=torch.uint8,
+                                     device=device)
                      for m in self.send_affected)
 
 

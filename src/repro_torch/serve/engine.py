@@ -31,11 +31,44 @@ every sweep publishes into and queries read through, query-only
 :class:`StoreReader` replicas, and the ``refresh > plan > sweep`` spans of
 ``repro_torch.obs``. The ``sweep`` span covers the sweep's launches; the
 copy of the logits to the host comes after it and waits for the card.
+
+**Under a sharded runtime** (``Runtime.sharded(P)``, one partition per
+process, the counterpart of the reference's ``shard_serve_fn`` under
+``shard_map``) every rank holds its partition's slice ``[r:r+1]``: the
+block, the features, the halo and layer caches; the host state (the
+features' host copy, the gathered logits, the staleness clock, the
+degraded-mode flags) is the same on every rank. The design is
+leader/follower:
+
+* **rank 0 is the front**: it alone serves queries (lookups on its host
+  copy of the logits, no collective), owns the store (the single writer)
+  and hosts the server, the replicas and the load generators;
+* **lockstep**: every operation that sweeps or reads another rank's state
+  (``full_sweep``, ``refresh``, ``set_down`` / ``set_up``, ``embeddings``
+  at a site the store does not serve, and a late ``attach_store``'s
+  publish) is sent by rank 0 as a small command (op, ids, rows, flags;
+  ``dist.api.broadcast_command``) before rank 0 runs it. Every rank calls
+  :meth:`lead`: rank 0 runs the front, every other rank :meth:`follow`s,
+  receiving the commands and running the same ops, until rank 0's front
+  ends and it sends the stop;
+* the sweep's logits (and, with a store, the deepest cached layer) are
+  gathered to the whole stack on every rank (``Runtime.gather_stacked``,
+  the ``gather`` span), so ``query``, ``logits``, frozen-row patching and
+  the store's publish read the whole table as on the stack;
+* noise: rank ``r`` draws its stochastic-rounding ``u`` from ``(seed,
+  sweep, r)``, the partition folded in as the reference's ``_part_key``
+  folds it into the key; deterministic rounding makes the sharded engine
+  equal the simulated one bit for bit.
+
+Inputs are checked on rank 0 before the command goes out, so a bad update
+fails there alone (the server counts it). A failure after the command was
+sent raises :class:`LockstepError`, which the server does not swallow: the
+followers may be waiting in a collective, and the run must end.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -46,6 +79,7 @@ from ..core.exchange import (exchange_halo, exchange_quantized_halo,
                              gather_boundary)
 from ..core.staleness import HaloState
 from ..core.sylvie import SylvieComm, SylvieConfig
+from ..dist import api as dist_api
 from ..dist import overlap as olap
 from ..dist.runtime import Runtime
 from ..graph.partition import PartitionedGraph, global_to_slot, khop_frontier
@@ -124,6 +158,17 @@ class ServeComm(SylvieComm):
         return halo
 
 
+class LockstepError(RuntimeError):
+    """A lockstep operation of a sharded engine failed after rank 0 sent its
+    command: the other ranks may wait in a collective that will not
+    complete, so the run cannot go on (``EmbeddingServer.refresh`` re-raises
+    it instead of counting a failed refresh)."""
+
+
+# the operations rank 0 sends to the followers (``InferenceEngine._op_*``)
+LOCKSTEP_OPS = ("full", "refresh", "down", "embeddings", "publish")
+
+
 @dataclasses.dataclass
 class QueryResult:
     """One answered query batch.
@@ -155,6 +200,10 @@ class InferenceEngine:
         out = eng.query([3, 17, 4242])          # lookup
         rep = eng.refresh(changed_ids, new_rows)   # k-hop delta refresh
 
+    Under ``Runtime.sharded(4)`` every rank builds the engine and calls
+    ``eng.lead(front)``: ``front(eng)`` makes the calls above on rank 0
+    while the other ranks follow (see the module docstring).
+
     ``params`` (nested dicts of arrays, the JAX parameter-tree layout) are
     copied into ``model`` when given; otherwise the model's own parameters
     serve. ``store`` (a :class:`repro_torch.store.StoreBackend`) is attached
@@ -175,16 +224,12 @@ class InferenceEngine:
         p = pg.plan.n_parts
         if runtime is None:
             runtime = Runtime.simulated(p)
-        if runtime.is_sharded:
-            raise NotImplementedError(
-                "serving under a sharded runtime is not ported yet (ROADMAP "
-                "queue A, item 16: the reference's shard_serve_fn over "
-                "torch.distributed)")
         if runtime.n_parts not in (None, p):
             raise ValueError(
                 f"runtime is committed to {runtime.n_parts} partitions but "
                 f"the graph was partitioned into {p}")
         self.runtime = runtime
+        self.rank = rank = runtime.rank
         self.device = dev = runtime.device
         self.site_dims = tuple(int(d) for d in model.comm_dims())
         self.n_sites = len(self.site_dims)
@@ -200,7 +245,7 @@ class InferenceEngine:
         if params is not None:
             params_from_numpy(model, params)
         model.to(dev).eval()
-        self.block = B.build_block(pg, dev)
+        self.block = B.build_block(pg, dev, part=rank)
         self.seed = seed
 
         # global id -> (partition, local slot): the lookup request path
@@ -209,12 +254,20 @@ class InferenceEngine:
         self._sweep = self._build_sweep()
         # refresh planning amortizes the O(E) edge/ownership reconstruction
         self._frontier = deltalib.FrontierIndex.build(pg)
+        # the host copy of the features is whole on every rank (the
+        # mutation stream reads it); the device's holds this runtime's
+        # partitions
         self._x_host = np.asarray(pg.x, dtype=np.float32).copy()
-        self.x = torch.tensor(self._x_host, device=dev)
+        self.x = dist_api.serve_data(pg, rank, dev)
         self._halos = HaloState.zeros(self.block.plan, self.site_dims,
-                                      stacked_parts=p, device=dev).feats
+                                      stacked_parts=runtime.stacked_parts(p),
+                                      device=dev).feats
         self._layers: Optional[tuple] = None
         self._logits_host: Optional[np.ndarray] = None
+        # the whole stack's deepest cached layer on the host, kept while a
+        # store is attached (what the store publishes and is verified
+        # against)
+        self._emb_table: Optional[np.ndarray] = None
         self._since_full = 0
         self._refresh_count = 0
         # degraded mode: partitions marked down contribute no fresh halo
@@ -224,6 +277,10 @@ class InferenceEngine:
         # frozen cache.
         self._down = np.zeros(p, dtype=bool)
         self._part_staleness = np.zeros(p, dtype=np.int64)
+        # lockstep (sharded runtime): the followers listen from the start of
+        # lead() until _stop(); broken after a failure past a sent command
+        self._following = False
+        self._broken = False
         # optional sharded embedding store: node lookups read through it,
         # sweeps publish into it (see attach_store)
         self.store = None
@@ -249,31 +306,47 @@ class InferenceEngine:
 
     def _generator(self) -> torch.Generator:
         """The stochastic-rounding noise stream of the next sweep: a pure
-        function of (seed, sweep count)."""
-        state = np.random.SeedSequence([self.seed, self._refresh_count])
+        function of (seed, sweep count), and of the rank under a sharded
+        runtime (each rank draws its own partition's noise)."""
+        key = [self.seed, self._refresh_count]
+        if self.rank is not None:
+            key.append(self.rank)
+        state = np.random.SeedSequence(key)
         self._refresh_count += 1
         g = torch.Generator(device=self.device)
         g.manual_seed(int(state.generate_state(1)[0]))
         return g
 
+    def _local(self, parts: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+        """``(held, row)``: which of the partitions ``parts`` this process
+        holds, and their row in its stack."""
+        row = parts - (self.rank or 0)
+        return (row >= 0) & (row < self.x.shape[0]), row
+
     def _run(self, refresh: deltalib.RefreshPlan, *, kind: str, forced: bool,
-             changed_ids: Optional[np.ndarray] = None
+             emb: bool, changed_ids: Optional[np.ndarray] = None
              ) -> deltalib.RefreshReport:
         t0 = obs.clock()
         generator = self._generator()
-        masks = refresh.device_masks(self.device)
+        masks = refresh.device_masks(self.device, part=self.rank)
         if self._down.any():
             # down partitions publish nothing fresh: zero their send-affected
-            # rows so every receiver keeps its cached rows from them
-            up = torch.as_tensor(~self._down, dtype=torch.uint8,
-                                 device=self.device)[:, None]
-            masks = tuple(m * up for m in masks)
+            # rows so every receiver keeps its cached rows from them (a down
+            # rank still joins every exchange)
+            up = torch.as_tensor(dist_api.local_slice(~self._down, self.rank),
+                                 dtype=torch.uint8, device=self.device)
+            masks = tuple(m * up[:, None] for m in masks)
         with obs.span("sweep", {"kind": kind}):
             logits, layers, halos = self._sweep(self.block, self.x,
                                                 self._halos, masks, generator)
         self._layers = layers
         self._halos = halos
-        fresh_logits = logits.cpu().numpy()
+        # the whole stack's logits and, for the store, deepest layer
+        stacked = self.runtime.gather_stacked(
+            logits, *((layers[-1],) if emb else ()))
+        fresh_logits = stacked[0].cpu().numpy()
+        if emb:
+            self._emb_table = stacked[1].cpu().numpy()
         if self._logits_host is not None and self._down.any():
             # a down partition computes nothing: its served rows stay frozen
             # at the last sweep before it went down (patched into a copy:
@@ -294,6 +367,141 @@ class InferenceEngine:
             kind=kind, forced=forced, changed=refresh.changed,
             affected_rows=refresh.affected_rows, payload_bytes=pb,
             ec_bytes=eb, meta_bytes=mb, seconds=obs.clock() - t0)
+
+    # ------------------------------------------------------------------
+    # lockstep: rank 0 leads, the other ranks follow
+    # ------------------------------------------------------------------
+    def _lead(self, op: str, **args):
+        """Run the lockstep operation ``_op_<op>(**args)``. Under a sharded
+        runtime rank 0 first sends ``(op, args)`` to the followers, which
+        run the same operation (:meth:`follow`)."""
+        if self.rank is None:
+            return getattr(self, f"_op_{op}")(**args)
+        if self.rank != 0:
+            raise RuntimeError(
+                f"rank {self.rank} follows rank 0: a sharded engine sweeps, "
+                "refreshes and changes its degraded mode from rank 0 (every "
+                "rank calls lead())")
+        if not self._following or self._broken:
+            raise RuntimeError(
+                "no follower is listening: run the front inside lead(), "
+                "which every rank calls"
+                + (" (a lockstep operation failed)" if self._broken else ""))
+        dist_api.broadcast_command((op, args), self.runtime.backend.group)
+        return self._locked(op, args)
+
+    def _locked(self, op: str, args: dict):
+        """Run a lockstep operation whose command went out: a failure now
+        leaves the ranks out of step, so it raises :class:`LockstepError`."""
+        try:
+            return getattr(self, f"_op_{op}")(**args)
+        except Exception as err:
+            self._broken = True
+            raise LockstepError(
+                f"lockstep operation {op!r} failed on rank {self.rank} after "
+                "its command was sent; the ranks cannot go on") from err
+
+    def follow(self) -> None:
+        """On a rank other than 0 of a sharded runtime: receive rank 0's
+        commands and run each operation, until rank 0 sends the stop (at
+        the end of its :meth:`lead`)."""
+        if self.rank in (None, 0):
+            raise RuntimeError("follow() runs on the ranks other than 0 of "
+                               "a sharded runtime; rank 0 leads")
+        group = self.runtime.backend.group
+        while True:
+            op, args = dist_api.broadcast_command(None, group)
+            if op == "stop":
+                return
+            if op not in LOCKSTEP_OPS:
+                raise ValueError(f"unknown lockstep operation {op!r}")
+            self._locked(op, args)
+
+    def _stop(self) -> None:
+        """On rank 0 of a sharded runtime: release the followers (their
+        :meth:`follow` returns). Queries still answer; the next sweep waits
+        for the next :meth:`lead`. Nothing to do on the stack."""
+        if self.rank is None or not self._following:
+            return
+        self._following = False
+        dist_api.broadcast_command(("stop", {}), self.runtime.backend.group)
+
+    def lead(self, front: Callable, *args):
+        """Run the serving front ``front(self, *args)``; under a sharded
+        runtime a collective, which every rank calls. On rank 0, or on the
+        stack, ``front`` runs and its result is returned; every other rank
+        follows rank 0's operations meanwhile and returns ``None``. When
+        ``front`` returns or raises, rank 0 stops the followers, unless a
+        lockstep operation failed (they may then wait inside a collective:
+        the error ends the run)."""
+        if self.rank not in (None, 0):
+            self.follow()
+            return None
+        self._following = True
+        try:
+            return front(self, *args)
+        finally:
+            if not self._broken:
+                self._stop()
+
+    # the lockstep operations: every rank runs them (rank 0 sends first)
+    def _op_full(self, emb: bool) -> deltalib.RefreshReport:
+        rep = self._run(deltalib.plan_full(self.pg, self.n_sites),
+                        kind="full", forced=False, emb=emb)
+        self._since_full = 0
+        return rep
+
+    def _op_refresh(self, ids: np.ndarray, rows: np.ndarray, full: bool,
+                    emb: bool) -> deltalib.RefreshReport:
+        parts, slots = self._part_of[ids], self._slot_of[ids]
+        # O(changed) update of the host copy (whole) and of the device
+        # features (the rows this process holds)
+        self._x_host[parts, slots] = rows
+        held, row = self._local(parts)
+        self.x[torch.as_tensor(row[held], device=self.device),
+               torch.as_tensor(slots[held], device=self.device)] = \
+            torch.as_tensor(rows[held], device=self.device)
+        never_swept = self._logits_host is None
+        with obs.span("refresh", {"changed": int(ids.size)}):
+            if full or never_swept or \
+                    self._since_full >= self.config.max_staleness:
+                rep = self._run(deltalib.plan_full(self.pg, self.n_sites),
+                                kind="full", forced=not full, emb=emb)
+                rep = dataclasses.replace(rep, changed=int(ids.size))
+                self._since_full = 0
+                return rep
+            with obs.span("plan"):
+                plan = self._frontier.plan_refresh(ids, self.n_sites)
+            rep = self._run(plan, kind="delta", forced=False, emb=emb,
+                            changed_ids=ids)
+            self._since_full += 1
+            return rep
+
+    def _op_down(self, parts: np.ndarray, down: bool) -> None:
+        self._down[parts] = down
+
+    def _op_embeddings(self, ids: np.ndarray, site: int) -> np.ndarray:
+        # each process picks the rows it holds (zeros elsewhere); the gather
+        # stacks the picks in rank order and each id takes its owner's row
+        # (on the stack, the one process picked every row)
+        layer = self._layers[site]
+        parts, slots = self._part_of[ids], self._slot_of[ids]
+        held, row = self._local(parts)
+        dev = self.device
+        pick = layer.new_zeros((ids.size, layer.shape[-1]))
+        pick[torch.as_tensor(np.nonzero(held)[0], device=dev)] = layer[
+            torch.as_tensor(row[held], device=dev),
+            torch.as_tensor(slots[held], device=dev)]
+        (every,) = self.runtime.gather_stacked(pick[None])
+        owner = parts if every.shape[0] > 1 else np.zeros_like(parts)
+        return every[torch.as_tensor(owner, device=dev),
+                     torch.arange(ids.size, device=dev)].cpu().numpy()
+
+    def _op_publish(self) -> None:
+        (emb,) = self.runtime.gather_stacked(self._layers[-1])
+        self._emb_table = emb.cpu().numpy()
+        if self.store is not None:
+            self._publish(None)
 
     # ------------------------------------------------------------------
     # public API
@@ -317,10 +525,7 @@ class InferenceEngine:
     def full_sweep(self) -> deltalib.RefreshReport:
         """Recompute every cache from the current features (all boundary rows
         ship). Resets the staleness clock."""
-        rep = self._run(deltalib.plan_full(self.pg, self.n_sites),
-                        kind="full", forced=False)
-        self._since_full = 0
-        return rep
+        return self._lead("full", emb=self.store is not None)
 
     def refresh(self, changed_global_ids, new_rows, *,
                 full: bool = False) -> deltalib.RefreshReport:
@@ -336,26 +541,8 @@ class InferenceEngine:
             raise ValueError(
                 f"new_rows must be ({ids.size}, {self._x_host.shape[-1]}), "
                 f"got {rows.shape}")
-        parts, slots = self._part_of[ids], self._slot_of[ids]
-        # O(changed) update of the device features and the host copy
-        self._x_host[parts, slots] = rows
-        self.x[torch.as_tensor(parts, device=self.device),
-               torch.as_tensor(slots, device=self.device)] = \
-            torch.as_tensor(rows, device=self.device)
-        never_swept = self._logits_host is None
-        with obs.span("refresh", {"changed": int(ids.size)}):
-            if full or never_swept or \
-                    self._since_full >= self.config.max_staleness:
-                rep = self._run(deltalib.plan_full(self.pg, self.n_sites),
-                                kind="full", forced=not full)
-                rep = dataclasses.replace(rep, changed=int(ids.size))
-                self._since_full = 0
-                return rep
-            with obs.span("plan"):
-                plan = self._frontier.plan_refresh(ids, self.n_sites)
-            rep = self._run(plan, kind="delta", forced=False, changed_ids=ids)
-            self._since_full += 1
-            return rep
+        return self._lead("refresh", ids=ids, rows=rows, full=bool(full),
+                          emb=self.store is not None)
 
     # ------------------------------------------------------------------
     # degraded mode (partition down/up)
@@ -363,12 +550,19 @@ class InferenceEngine:
     def set_down(self, parts) -> None:
         """Mark partitions down. Their cached rows keep serving (stamped with
         growing staleness); sweeps stop consuming their halo contributions."""
-        self._down[np.asarray(parts, dtype=np.int64).reshape(-1)] = True
+        self._lead("down", parts=self._check_parts(parts), down=True)
 
     def set_up(self, parts) -> None:
         """Bring partitions back. Staleness resets on their next sweep (the
         caller should run ``full_sweep``/``refresh`` to recompute their rows)."""
-        self._down[np.asarray(parts, dtype=np.int64).reshape(-1)] = False
+        self._lead("down", parts=self._check_parts(parts), down=False)
+
+    def _check_parts(self, parts) -> np.ndarray:
+        parts = np.asarray(parts, dtype=np.int64).reshape(-1)
+        p = self._down.size
+        if parts.size and (parts.min() < 0 or parts.max() >= p):
+            raise ValueError(f"partitions must be in [0, {p})")
+        return parts
 
     def down_partitions(self) -> np.ndarray:
         return np.nonzero(self._down)[0]
@@ -384,19 +578,18 @@ class InferenceEngine:
     def attach_store(self, store) -> None:
         """Serve node lookups through a :class:`repro_torch.store.StoreBackend`.
 
-        The engine stays the single writer: every sweep publishes the rows
+        The engine stays the single writer (rank 0 under a sharded
+        runtime): every sweep publishes the rows
         it could have changed into the store's per-partition shards (tables
         ``"logits"`` and ``"emb"``); ``query``/``embeddings(site=-1)`` then
         read through the store's hot-node cache instead of the materialized
         tables, bit for bit the same (``verify_store`` asserts it). Attach
         before the first sweep, or re-publish with ``full_sweep()``."""
+        if self.rank not in (None, 0):
+            raise RuntimeError("the store has one writer: rank 0")
         self.store = store
         if self._logits_host is not None:
-            self._publish(None)
-
-    def _emb_host(self) -> np.ndarray:
-        """The deepest cached layer, (P, n_local, d), copied to the host."""
-        return self._layers[-1].cpu().numpy()
+            self._lead("publish")
 
     def _publish(self, changed_ids: Optional[np.ndarray]) -> None:
         """Write the rows the last sweep could have changed into the store.
@@ -409,7 +602,7 @@ class InferenceEngine:
         are copied from the card whole, as in the reference."""
         st = self.store
         p_count = self.pg.plan.n_parts
-        tables = {"logits": self._logits_host, "emb": self._emb_host()}
+        tables = {"logits": self._logits_host, "emb": self._emb_table}
         for name, arr in tables.items():
             if not st.has_table(name):
                 st.create_table(name, part_rows=(arr.shape[1],) * p_count,
@@ -464,7 +657,7 @@ class InferenceEngine:
         self._require_swept()
         st = self.store
         peek = getattr(st, "peek_rows", st.get_rows)
-        tables = {"logits": self._logits_host, "emb": self._emb_host()}
+        tables = {"logits": self._logits_host, "emb": self._emb_table}
         checked = 0
         for p in range(self.pg.plan.n_parts):
             slots = np.nonzero(self.pg.node_mask[p])[0]
@@ -524,15 +717,18 @@ class InferenceEngine:
         global node ids (``-1`` = the deepest cached layer). The deepest
         layer is store-served when a store is attached (the ``"emb"``
         table); other sites gather the requested rows on the card, so only
-        O(batch * d) crosses to the host, never the layer's table."""
+        O(batch * d) crosses to the host, never the layer's table (under a
+        sharded runtime a lockstep operation: each rank picks the rows it
+        holds, and a gather brings them to rank 0)."""
         self._require_swept()
         ids = self._check_ids(node_ids)
         if self.store is not None and ids.size and \
                 site in (-1, self.n_sites - 1):
             return self._store_lookup("emb", ids)
-        parts = torch.as_tensor(self._part_of[ids], device=self.device)
-        slots = torch.as_tensor(self._slot_of[ids], device=self.device)
-        return self._layers[site][parts, slots].cpu().numpy()
+        if not -self.n_sites <= site < self.n_sites:
+            raise IndexError(f"site must be in [-{self.n_sites}, "
+                             f"{self.n_sites})")
+        return self._lead("embeddings", ids=ids, site=int(site))
 
     @property
     def logits(self) -> np.ndarray:

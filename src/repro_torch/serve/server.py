@@ -24,7 +24,9 @@ The server is deliberately synchronous and single-threaded: the load
 generator (``loadgen.py``) drives ``submit``/``step``, and determinism
 (seeded ids, no thread scheduling, injectable ``clock``) keeps the latency
 distribution reproducible. A lookup reads host memory only (the engine's
-logits copy or the store); the card works only in ``refresh``.
+logits copy or the store); the card works only in ``refresh``. Under a
+sharded runtime the server lives on rank 0, inside the engine's ``lead``
+(the other ranks follow its refreshes).
 """
 from __future__ import annotations
 
@@ -35,6 +37,7 @@ from typing import Callable, Optional, Union
 import numpy as np
 
 from .. import obs
+from .engine import LockstepError
 
 # health states
 HEALTHY = "healthy"
@@ -231,9 +234,13 @@ class EmbeddingServer:
         """Delta-refresh through the health machine: forwards to
         ``engine.refresh``; on failure counts it, degrades (stale caches keep
         serving, stamped), and returns ``None`` instead of raising — the
-        request path must survive a bad update."""
+        request path must survive a bad update. A sharded engine's
+        :class:`~repro_torch.serve.engine.LockstepError` is not a bad update
+        and is raised: the engine's ranks are out of step."""
         try:
             rep = self.engine.refresh(changed_ids, rows, **kw)
+        except LockstepError:
+            raise
         except Exception:
             self.refresh_failures += 1
             if self.health != DRAINING:
@@ -367,9 +374,13 @@ class ReplicaSet:
     # -- the one writer -----------------------------------------------------
     def refresh(self, changed_ids, rows, **kw):
         """Refresh through the engine (the single writer); on failure count
-        it and degrade every replica — stale rows keep serving, stamped."""
+        it and degrade every replica — stale rows keep serving, stamped
+        (a :class:`~repro_torch.serve.engine.LockstepError` is raised, as in
+        :meth:`EmbeddingServer.refresh`)."""
         try:
             rep = self.engine.refresh(changed_ids, rows, **kw)
+        except LockstepError:
+            raise
         except Exception:
             self.refresh_failures += 1
             for s in self.replicas:

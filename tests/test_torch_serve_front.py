@@ -447,7 +447,7 @@ def test_entry_point_needs_a_card_unless_asked_for_the_cpu(monkeypatch,
         tserve.main(["--graph", "yelp_like@smoke", "--reduced"])
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tserve.main(["--matrix", "smoke", "--reduced"])
-    with pytest.raises(SystemExit, match="not ported"):
+    with pytest.raises(ValueError, match="--dist-backend"):
         tserve.main(["--graph", "yelp_like@smoke", "--runtime", "sharded",
                      "--device", "cpu"])
     assert not any(tmp_path.iterdir())      # refused before any work

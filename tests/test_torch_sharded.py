@@ -30,7 +30,8 @@ reference.
 * BNS under the whole stack's keep-masks: each rank takes its row;
 * refusals: no group, a partition count other than the world size, a card
   asked for where there is none, a failing rank (its error in the message),
-  no ``torch.distributed`` backend named, serving (not ported).
+  no ``torch.distributed`` backend named. Serving under the sharded runtime
+  is ``tests/test_torch_sharded_serve.py``'s.
 
 Every spawn joins with a timeout, so a hang fails a test instead of eating
 the run's time. The JAX package is imported inside the tests, not here: the
@@ -174,26 +175,13 @@ def _psum_rank(x_all: np.ndarray, w0: np.ndarray) -> dict:
     loss = _toy(torch.from_numpy(x_all[r:r + 1]), w, be)
     (g,) = torch.autograd.grad(loss, [w])
     refused = {}
-
-    def serve():
-        import repro_torch.api as repro
-        from repro_torch.graph import synthetic
-        from repro_torch.models.gnn.models import GCN
-        from repro_torch.serve import InferenceEngine
-        g = synthetic.planted_partition(n_nodes=60, d_feat=4)
-        rt = Runtime.sharded(2, device="cpu")
-        InferenceEngine(GCN(4, 8, g.n_classes), repro.partition(g,
-                                                                runtime=rt),
-                        runtime=rt)
-
     for what, call in (("n_parts", lambda: Runtime.sharded(3,
                                                            device="cpu")),
-                       ("no card", lambda: Runtime.sharded(2)),
-                       ("serving", serve)):
+                       ("no card", lambda: Runtime.sharded(2))):
         try:
             call()
             refused[what] = None
-        except (ValueError, RuntimeError, NotImplementedError) as err:
+        except (ValueError, RuntimeError) as err:
             refused[what] = str(err)
     return dict(loss=float(loss), grad=be.psum(g).numpy(), refused=refused)
 
@@ -225,10 +213,6 @@ def test_sharded_runtime_without_a_card_raises_for_cuda(toy):
     if torch.cuda.is_available():
         pytest.skip("this machine has a card: cuda:<rank> resolves")
     assert "no CUDA device" in toy[2]["refused"]["no card"]
-
-
-def test_serving_under_a_sharded_runtime_is_refused(toy):
-    assert "item 16" in toy[2]["refused"]["serving"]
 
 
 def test_sharded_runtime_needs_a_group():

@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
-"""Run ``chip_smoke.py``'s ``[sharded]`` phase alone on one CUDA card: build
-the kernels, then four ranks on ``cuda:0`` over ``gloo`` (see
-``chip_smoke.sharded_phase``).
+"""Run ``chip_smoke.py``'s sharded phases alone on one CUDA card: build the
+kernels, then four ranks on ``cuda:0`` over ``gloo`` for ``[sharded]``
+(training, ``chip_smoke.sharded_phase``) and ``[sharded-serve]`` (serving,
+``chip_smoke.sharded_serve_phase``), or for the one named.
 
-    python3 tools/torch_sharded_phase.py
+    python3 tools/torch_sharded_phase.py            # both
+    python3 tools/torch_sharded_phase.py serve      # [sharded-serve] only
 
 The ranks import ``chip_smoke`` again (``torch.multiprocessing``'s spawn),
 so this runs under a ``__main__`` guard.
@@ -19,11 +21,20 @@ sys.path.insert(0, str(ROOT / "src"))
 import chip_smoke  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 
+PHASES = {"train": chip_smoke.sharded_phase,
+          "serve": chip_smoke.sharded_serve_phase}
+
 if __name__ == "__main__":
+    names = sys.argv[1:] or list(PHASES)
+    unknown = set(names) - set(PHASES)
+    if unknown:
+        sys.exit(f"unknown phase(s) {sorted(unknown)}; known: "
+                 f"{sorted(PHASES)}")
     t0 = time.perf_counter()
     print(f"[build] {build.build_all():.1f} s", flush=True)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, timeout=60, check=True).stdout.strip()
-    chip_smoke.sharded_phase(card.splitlines()[0])
+    for name in names:
+        PHASES[name](card.splitlines()[0])
     print(f"total {time.perf_counter() - t0:.1f} s")
