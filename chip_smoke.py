@@ -67,15 +67,39 @@ Phases, each of which raises (and exits non-zero) on failure:
             ``scaled_dot_product_attention`` (timed here only; the port
             never calls it).
 9. summary — a ``{"kernels": [...]}`` line (each kernel's launches on
-            every path: a serving sweep, each kind of training step, an LM
-            ``generate``), the card line, and the last line ``{"ok": true,
+            every path: a serving sweep, each kind of training step, the
+            zoo's steps, an LM ``generate``; ``seg_max_csr`` with its
+            times), the card line, and the last line ``{"ok": true,
             "device": {...}}``.
 
-After phase 8 (``flash``) the serving front runs (``serve_front_phase``),
-last, so that its host work (checkpoints written and restored, the store's
-host tables) cannot shift the host-clock times of the phases before it;
-every count is zeroed just before each ``serve_once`` and read just after
-it:
+After phase 8 (``flash``) the zoo trains (``zoo_phase``):
+
+zoo       — PNA 4x75 on ``reddit_like@paper``, MeshGraphNet 15x128 (MLPs of
+            2 layers, 4 edge inputs) on ``mesh_like@paper`` (9,216 nodes)
+            and SchNet 3x64 (300 RBF, cutoff 10) on ``molecule_like@paper``
+            (400 nodes), the registry's full configs, through
+            ``launch.train.gnn_graph`` (edge geometry on the host) and
+            ``GNNTrainer``, P = 4, seed 0, ``ZOO_EPOCHS`` epochs each of
+            vanilla, Sylvie-S (``Uniform(1)``) and Sylvie-A
+            (``BoundedStaleness(eps_s=4)``, 1 bit), Adam at the rates of
+            ``ZOO_ARCHS``. Counts zeroed before each epoch and read after
+            it: exactly ``ZOO_LAUNCHES`` and no other kernel. Vanilla losses
+            fall, 1-bit losses are finite (whether they fall is printed).
+            Median epoch ms, peak GB, ``_gnn_model_flops`` per epoch; one
+            Sylvie-A sync and async epoch of each profiled by kernel group.
+            ``seg_max`` on one PNA Sylvie-S step's own messages (8 calls):
+            bit-equal to ``seg_max_ref`` on the card, ties included, the
+            same bits twice; timed beside its bytes bound, the plain version
+            and ``scatter_reduce`` (amax). The reduced configs' 32-bit
+            logits on the smoke graphs, card against the CPU
+            (``ZOO_PARITY_ATOL``), and a TF32 control that must fail that
+            gate (``zoo_parity``). ``python3 tools/torch_zoo_phase.py`` runs
+            this phase alone (``parity``: only ``zoo_parity``).
+
+Then the serving front runs (``serve_front_phase``), last, so that its host
+work (checkpoints written and restored, the store's host tables) cannot
+shift the host-clock times of the phases before it; every count is zeroed
+just before each ``serve_once`` and read just after it:
 
 serve-front — ``python -m repro_torch.launch.serve``'s ``serve_once`` on the
             card: (1) GCN 256x2 on ``reddit_like@paper`` (P=4, 1 bit),
@@ -241,8 +265,8 @@ train-parity — deterministic 6-epoch Sylvie-S and Sylvie-A (eps_s=2) of each
             for at most 1% of their rows, counted (``train_parity_phase``;
             GAT at 1 bit epoch by epoch from the CPU's state).
 
-Run time on an H100: about four and a half minutes, the kernels' build
-included.
+Run time on an H100: about five and a half minutes of command, the
+kernels' build included.
 """
 from __future__ import annotations
 
@@ -306,6 +330,43 @@ TRAIN_LAUNCHES = {
     ("gat", "sylvie_s", "sync"): (4, 4, 2, 4, 2, 2, 4),
     ("gat", "sylvie_a", "sync"): (4, 4, 2, 4, 2, 2, 4),
     ("gat", "sylvie_a", "async"): (4, 4, 2, 4, 2, 2, 4)}
+# [zoo]: the JAX package's PNA, MeshGraphNet and SchNet at their published
+# widths (the configs of the port's registry), P = 4, seed 0, trained
+# ZOO_EPOCHS epochs each of vanilla, Sylvie-S and Sylvie-A, on the graph and
+# with the Adam rate given. At the trainer's default Adam 1e-2 the first
+# updates overshoot (on the CPU, 10 vanilla epochs: PNA 4.8 -> 132 -> 1.2
+# on yelp_like@small, SchNet 14.9 -> 210 -> 59 on molecule_like@paper);
+# at 1e-3 both fall. MeshGraphNet as the reference defines it (15 residual
+# MLP layers, no normalization) starts at a loss of ~1e7 and diverges at
+# 1e-2 in both packages; at 1e-5 its loss falls epoch by epoch.
+ZOO_EPOCHS = 10
+ZOO_ARCHS = {"pna": ("reddit_like@paper", 1e-3),
+             "meshgraphnet": ("mesh_like@paper", 1e-5),
+             "schnet": ("molecule_like@paper", 1e-3)}
+ZOO_SMOKE = {"pna": "yelp_like@smoke", "meshgraphnet": "mesh_like@smoke",
+             "schnet": "molecule_like@smoke"}
+# atol of the reduced configs' 32-bit logits, card against the CPU (rtol
+# 1e-5). The aggregations are bit-equal on both; the products (cuBLAS, the
+# CPU's BLAS) are ulps apart.
+ZOO_PARITY_ATOL = 1e-5
+ZOO_KERNELS = ("quantize_pack", "unpack_dequantize", "spmm_csr",
+               "seg_max_csr")
+# kernel launches per training step of the full configs, by (arch, run,
+# step), in ZOO_KERNELS order (tests/test_torch_zoo.py holds the plain
+# versions to the same counts). Every site's input has a gradient, so at
+# 1 bit each of the L sites quantizes and dequantizes forward and backward,
+# sync or async. SpMM per layer: PNA 3 forward (the mean's sum and the two
+# sums of std) and 3 backward (gather_src's over ecsr_t, gather_dst's over
+# ecsr, the boundary scatter); MeshGraphNet 1 + 3; SchNet 1 + 2 (no
+# gather_dst). seg_max: PNA's max and min at each layer.
+_ZOO_STEP = {"pna": (4, (2, 6, 2)), "meshgraphnet": (15, (2, 4, 0)),
+             "schnet": (3, (2, 3, 0))}
+ZOO_LAUNCHES = {
+    (arch, run, mode): (0 if run == "vanilla" else q * n,
+                        0 if run == "vanilla" else q * n, s * n, m * n)
+    for arch, (n, (q, s, m)) in _ZOO_STEP.items()
+    for run, mode in (("vanilla", "sync"), ("sylvie_s", "sync"),
+                      ("sylvie_a", "sync"), ("sylvie_a", "async"))}
 # kernel launches per serving sweep (full or delta), in TRAIN_KERNELS order:
 # one quantize and one dequantize per exchange site; GCN and GraphSAGE
 # aggregate by one SpMM per layer, GAT by one softmax and one per-head SpMM
@@ -409,7 +470,8 @@ def profile_device(fn, label: str):
     """Run ``fn`` once under ``torch.profiler``; print its device time by
     kernel and return (fn's result, host ms, device-busy ms, {group: ms},
     {kernel: launches}) with the groups flash kernel / SpMM / GAT kernels /
-    quantize / dequantize / matrix products (cuBLAS) / everything else."""
+    seg_max / quantize / dequantize / matrix products (cuBLAS) / everything
+    else."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -422,12 +484,13 @@ def profile_device(fn, label: str):
     on_dev = [e for e in prof.key_averages()
               if e.device_type == DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in on_dev) / 1e3
-    groups = {"flash": 0.0, "spmm": 0.0, "gat": 0.0, "quantize": 0.0,
-              "dequantize": 0.0, "gemm": 0.0, "other": 0.0}
+    groups = {"flash": 0.0, "spmm": 0.0, "gat": 0.0, "seg_max": 0.0,
+              "quantize": 0.0, "dequantize": 0.0, "gemm": 0.0, "other": 0.0}
     for e in on_dev:
         name = e.key.lower()
         g = "flash" if "flash_fwd_kernel" in name else \
             "spmm" if "spmm_" in name else \
+            "seg_max" if "seg_max_" in name else \
             "gat" if any(w in name for w in ("rows_unit_kernel",
                                              "rows_segment_kernel",
                                              "rows_long_kernel",
@@ -1236,6 +1299,247 @@ def train_parity_phase() -> dict:
     return res
 
 
+# seg_max also over rows of these lengths (0: an empty row; 129 and 1,300
+# are split into 128-edge segments), at these widths (1 column; PNA's 75;
+# two and three column chunks of 128), on messages drawn from a coarse
+# grid, so that ties are common
+SEG_ROW_LENGTHS = (0, 1, 128, 129, 1_300, 33)
+SEG_WIDTHS = (1, 75, 130, 257)
+
+
+def seg_max_shapes(device) -> int:
+    """``seg_max`` against ``seg_max_ref`` on the card, bit for bit, over
+    ``SEG_ROW_LENGTHS`` x ``SEG_WIDTHS``; returns the cases checked."""
+    from repro_torch.kernels.seg import ops as segops
+    from repro_torch.kernels.seg import ref as segref
+    from repro_torch.kernels.spmm.ref import csr_from_edges
+
+    rng = np.random.default_rng(SEED)
+    dst = np.repeat(np.arange(len(SEG_ROW_LENGTHS)), SEG_ROW_LENGTHS)
+    n_msgs = 4 * dst.size
+    src = rng.choice(n_msgs, dst.size, replace=False)
+    csr = csr_from_edges(src, dst, np.ones(dst.size, np.float32),
+                         len(SEG_ROW_LENGTHS), n_msgs).to(device)
+    for d in SEG_WIDTHS:
+        msgs = torch.as_tensor(np.round(rng.normal(0, 1, (n_msgs, d)) * 2)
+                               / 2, dtype=torch.float32, device=device)
+        for (a, b) in zip(segops.seg_max(msgs, csr),
+                          segref.seg_max_ref(msgs, csr)):
+            check(same_bits(a, b), f"[zoo] seg_max at rows "
+                  f"{SEG_ROW_LENGTHS}, d {d}: bit-equal to the plain version")
+    return len(SEG_WIDTHS)
+
+
+def seg_max_check(rec: list) -> dict:
+    """``seg_max`` on the messages one PNA Sylvie-S step gave it (max and
+    min at each layer): bit-equal to ``seg_max_ref`` run on the card, ties
+    included, and the same bits on a second run; also at
+    ``seg_max_shapes``; the first layer's max
+    timed beside its bytes bound, the plain version and ``scatter_reduce``
+    (amax, one call; a yardstick only, the port never calls it)."""
+    from repro_torch.kernels.seg import ops as segops
+    from repro_torch.kernels.seg import ref as segref
+
+    check(len(rec) == 2 * _ZOO_STEP["pna"][0],
+          f"[zoo] a PNA step called seg_max {len(rec)} times")
+    rec = [(msgs.detach(), csr) for msgs, csr in rec]
+    err, ties = 0.0, 0
+    for i, (msgs, csr) in enumerate(rec):
+        (mk, ck), (mr, cr) = segops.seg_max(msgs, csr), \
+            segref.seg_max_ref(msgs, csr)
+        err = max(err, float((mk - mr).abs().max()))
+        check(same_bits(mk, mr) and same_bits(ck, cr),
+              f"[zoo] seg_max call {i}: bit-equal to the plain version")
+        mk2, ck2 = segops.seg_max(msgs, csr)
+        check(same_bits(mk, mk2) and same_bits(ck, ck2),
+              f"[zoo] seg_max call {i}: the same bits twice")
+        ties += int((ck > 1).sum())
+    msgs, csr = rec[0]
+    n_rows, d = csr.n_rows, msgs.shape[1]
+    # padded edges go to a row of their own, which the output leaves out
+    idx = torch.full((csr.n_cols,), n_rows, dtype=torch.int64,
+                     device=msgs.device)
+    idx[csr.col.long()] = torch.repeat_interleave(
+        torch.arange(n_rows, device=msgs.device),
+        torch.diff(csr.row_ptr.long()))
+    idx = idx[:, None].expand(-1, d)
+    lib_out = torch.zeros((n_rows + 1, d), device=msgs.device)
+    b, bo = bound(csr.nnz * d * 4 + csr.nnz * 4 + csr.units.numel() * 4
+                  + (csr.long_rows.numel() + csr.long_ptr.numel()) * 4
+                  + n_rows * d * 8, csr.nnz * d)
+    res = dict(
+        shape=[n_rows, csr.n_cols, d, csr.nnz], max_abs_err=err,
+        bit_equal=True, calls_checked=len(rec), tied_outputs=ties,
+        row_shapes_checked=seg_max_shapes(msgs.device),
+        split_rows=int(csr.long_rows.numel()),
+        gathered_gb=csr.nnz * d * 4 / 1e9,
+        ms=cuda_ms(lambda: segops.seg_max(msgs, csr)),
+        plain_ms=cuda_ms(lambda: segref.seg_max_ref(msgs, csr), iters=2,
+                         warmup=1),
+        library_ms=cuda_ms(lambda: lib_out.scatter_reduce_(
+            0, idx, msgs, "amax", include_self=False)),
+        bound_ms=b, bound_by=bo)
+    log(f"[zoo] seg_max: {json.dumps(res)}")
+    return res
+
+
+def zoo_parity() -> dict:
+    """The reduced zoo configs on their smoke graphs (``ZOO_SMOKE``), the
+    same weights on both: 32-bit logits on the card against the CPU's plain
+    versions, within rtol 1e-5 and atol ``ZOO_PARITY_ATOL``. A control runs
+    the card's products in TF32 (cuBLAS's lower precision) and must fall
+    outside that tolerance, so the gate can tell a float32 product from a
+    lower-precision one."""
+    from repro_torch import configs
+    from repro_torch.core.sylvie import SylvieComm, SylvieConfig
+    from repro_torch.launch.train import gnn_graph
+    from repro_torch.models.convert import params_from_numpy, params_to_numpy
+    from repro_torch.models.gnn import blocks as B
+
+    out = {}
+    for arch, graph in ZOO_SMOKE.items():
+        spec = configs.get(arch).reduced()
+        spg = gnn_graph(spec, graph, 4, SEED)
+        torch.manual_seed(SEED)
+        params = params_to_numpy(spec.make(spg.x.shape[-1], spg.n_classes))
+        logits = {}
+        for dev, tf32 in (("cuda", False), ("cpu", False), ("cuda", True)):
+            model = params_from_numpy(spec.make(spg.x.shape[-1],
+                                                spg.n_classes), params, dev)
+            block = B.build_block(spg, dev)
+            comm = SylvieComm(SylvieConfig(mode="vanilla"), block.plan)
+            was = torch.backends.cuda.matmul.allow_tf32
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+            try:
+                with torch.no_grad():
+                    logits[dev + "_tf32" * tf32] = model(
+                        block, torch.as_tensor(spg.x, device=dev), comm).cpu()
+            finally:
+                torch.backends.cuda.matmul.allow_tf32 = was
+        want = logits["cpu"]
+        err = {k: float((logits[k] - want).abs().max())
+               for k in ("cuda", "cuda_tf32")}
+        atol = ZOO_PARITY_ATOL
+        check(torch.allclose(logits["cuda"], want, rtol=1e-5, atol=atol),
+              f"[zoo] {arch} reduced on {graph}: 32-bit logits card vs CPU "
+              f"(max abs err {err['cuda']})")
+        check(not torch.allclose(logits["cuda_tf32"], want, rtol=1e-5,
+                                 atol=atol),
+              f"[zoo] {arch} reduced on {graph}: the TF32 control passes "
+              f"the gate (max abs err {err['cuda_tf32']})")
+        out[f"{arch}_parity_max_abs_err"] = err["cuda"]
+        out[f"{arch}_parity_tf32_max_abs_err"] = err["cuda_tf32"]
+        log(f"[zoo] {arch} reduced on {graph}: 32-bit logits card vs CPU, "
+            f"max abs err {err['cuda']:.3g} (rtol 1e-5, atol {atol:g}); the "
+            f"TF32 control {err['cuda_tf32']:.3g}, outside; largest |logit| "
+            f"{float(want.abs().max()):.3g}")
+    return out
+
+
+def zoo_phase(all_kernels: dict) -> dict:
+    """PNA 4x75, MeshGraphNet 15x128 and SchNet 3x64 (the registry's full
+    configs) trained full-graph through ``launch.train.gnn_graph`` and
+    ``GNNTrainer`` (``ZOO_ARCHS``), P = 4, seed 0: ``ZOO_EPOCHS`` epochs
+    each of vanilla, Sylvie-S (``Uniform(1)``) and Sylvie-A
+    (``BoundedStaleness(eps_s=4)``, 1 bit), stochastic rounding. Counts are
+    zeroed before each epoch and read after it: they must equal
+    ``ZOO_LAUNCHES``, and no other kernel may launch. Vanilla losses fall;
+    1-bit losses are finite (whether they fall is printed). Then one
+    Sylvie-A sync and async epoch of each profiled by kernel, ``seg_max``
+    checked on one PNA Sylvie-S step's messages (``seg_max_check``), and the
+    reduced configs' 32-bit logits on the smoke graphs, card against the
+    CPU's plain versions (``zoo_parity``)."""
+    from repro_torch import configs
+    from repro_torch.core.sylvie import SylvieConfig
+    from repro_torch.launch.cells import _gnn_model_flops
+    from repro_torch.launch.train import gnn_graph
+    from repro_torch.models.gnn import blocks as B
+    from repro_torch.policy import BoundedStaleness, Uniform
+    from repro_torch.train import optimizer as optlib
+    from repro_torch.train.trainer import GNNTrainer
+
+    t_phase = time.perf_counter()
+    runs = {"vanilla": (SylvieConfig(mode="vanilla"), None),
+            "sylvie_s": (SylvieConfig(mode="sync", bits=1), Uniform(bits=1)),
+            "sylvie_a": (SylvieConfig(mode="async", bits=1),
+                         BoundedStaleness(eps_s=4, bits=1))}
+    out = dict(launches={})
+    for arch, (graph, lr) in ZOO_ARCHS.items():
+        spec = configs.get(arch).config()
+        t0 = time.perf_counter()
+        pg = gnn_graph(spec, graph, 4, SEED)
+        n, e = int(pg.node_mask.sum()), int(pg.edge_mask.sum())
+        log(f"[zoo] {arch} on {graph}: {n} nodes, {e} edges, d_feat "
+            f"{pg.x.shape[-1]}, {pg.n_classes} classes, edge attrs "
+            f"{None if pg.edge_attr is None else pg.edge_attr.shape[-1]} "
+            f"({time.perf_counter() - t0:.1f} s)")
+        for name, (cfg, pol) in runs.items():
+            torch.manual_seed(SEED)
+            model = spec.make(pg.x.shape[-1], pg.n_classes)
+            tr = GNNTrainer(model, pg, cfg, opt=optlib.adam(lr), policy=pol,
+                            seed=SEED)
+            torch.cuda.reset_peak_memory_stats()
+            hist = []
+            for _ in range(ZOO_EPOCHS):
+                for meta in all_kernels.values():
+                    meta["k"].launches = 0
+                m = tr.train_epoch()                 # ends in float(loss)
+                got = tuple(all_kernels[k]["k"].launches
+                            for k in ZOO_KERNELS)
+                want = ZOO_LAUNCHES[(arch, name, m.mode)]
+                others = {k: meta["k"].launches
+                          for k, meta in all_kernels.items()
+                          if k not in ZOO_KERNELS and meta["k"].launches}
+                check(got == want and not others,
+                      f"[zoo] {arch} {name} {m.mode} epoch {m.epoch}: "
+                      f"launches {dict(zip(ZOO_KERNELS, got))}, expected "
+                      f"{dict(zip(ZOO_KERNELS, want))}, others {others}")
+                out["launches"][f"{arch}_train_{name}_{m.mode}_step"] = {
+                    k: meta["k"].launches for k, meta in all_kernels.items()}
+                hist.append(m)
+            peak = torch.cuda.max_memory_allocated()
+            losses = [m.loss for m in hist]
+            tag = f"{arch} {name}"
+            check(all(np.isfinite(losses)), f"[zoo] {tag}: losses finite")
+            check(name != "vanilla" or losses[-1] < losses[0],
+                  f"[zoo] {tag}: last loss {losses[-1]} below the first "
+                  f"{losses[0]}")
+            ms = {mode: sorted(m.seconds * 1e3 for m in hist[1:]
+                               if m.mode == mode) for mode in ("sync",
+                                                               "async")}
+            res = out[f"{arch}_{name}"] = dict(
+                median_epoch_ms={mode: v[len(v) // 2] if v else None
+                                 for mode, v in ms.items()},
+                n_epochs=ZOO_EPOCHS, adam_lr=lr, losses=losses,
+                falls=losses[-1] < losses[0], val_acc=tr.evaluate("val"),
+                payload_mb=hist[-1].comm_payload_mb,
+                ec_mb=hist[-1].comm_ec_mb, peak_gb=peak / 1e9,
+                model_gflop_per_epoch=_gnn_model_flops(
+                    arch, model, n, e, pg.x.shape[-1], True) / 1e9,
+                modes="".join(m.mode[0] for m in hist))
+            log(f"[zoo] {tag} ({tr.policy.name}): {json.dumps(res)}")
+            if name == "sylvie_a":
+                for mode in ("sync", "async"):
+                    _, wall, busy, groups, _ = profile_device(
+                        tr.train_epoch, f"one {mode} epoch of {arch} "
+                        f"Sylvie-A (epoch {tr.epoch})")
+                    res[f"profile_{mode}"] = dict(host_ms=wall, busy_ms=busy,
+                                                  by_group=groups)
+            if name == "sylvie_s" and arch == "pna":
+                rec: list = []
+                with recording(B, "seg_max", rec):
+                    tr.train_epoch()
+                out["seg_max"] = seg_max_check(rec)
+                del rec
+            del tr, model
+            torch.cuda.empty_cache()
+    out.update(zoo_parity())
+    log(f"[zoo] kernel launches per step: {json.dumps(out['launches'])}")
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[zoo] phase done in {out['seconds']:.1f} s")
+    return out
+
+
 # the parent span each span of the serving front and the trainer must sit
 # in (None: top level); a sweep outside a refresh is a full_sweep() call
 SPAN_PARENTS = {"epoch": {None}, "decide": {"epoch"}, "step": {"epoch"},
@@ -2030,18 +2334,12 @@ def sharded_rank(graph: str, device: str) -> dict:
     from repro_torch.core.sylvie import SylvieConfig
     from repro_torch.dist.backend import SimulatedBackend
     from repro_torch.dist.runtime import Runtime
-    from repro_torch.kernels.gat import ops as gops
-    from repro_torch.kernels.quant import ops as qops
-    from repro_torch.kernels.spmm import ops as sops
     from repro_torch.launch import scenarios
     from repro_torch.policy import Uniform
     from repro_torch.train import optimizer as optlib
     from repro_torch.train.trainer import GNNTrainer
 
-    kernels = {k.name: k for k in (
-        qops.QUANTIZE_PACK, qops.UNPACK_DEQUANTIZE, sops.SPMM,
-        sops.SPMM_HEADS, gops.GAT_SOFTMAX, gops.SDDMM_HEADS,
-        gops.GAT_SOFTMAX_BWD)}
+    kernels = {n: m["k"] for n, m in kernel_table().items()}
     rt = Runtime.sharded(SHARDED_PARTS, device=device)
     r, dev = rt.rank, rt.device
     be = rt.backend
@@ -2424,16 +2722,10 @@ def sharded_serve_rank(graph: str, device: str) -> dict:
 
     from repro_torch import configs, datasets
     from repro_torch.dist.runtime import Runtime
-    from repro_torch.kernels.gat import ops as gops
-    from repro_torch.kernels.quant import ops as qops
-    from repro_torch.kernels.spmm import ops as sops
     from repro_torch.serve import InferenceEngine, ServeConfig
     from repro_torch.store import ShardedEmbeddingStore
 
-    kernels = {k.name: k for k in (
-        qops.QUANTIZE_PACK, qops.UNPACK_DEQUANTIZE, sops.SPMM,
-        sops.SPMM_HEADS, gops.GAT_SOFTMAX, gops.SDDMM_HEADS,
-        gops.GAT_SOFTMAX_BWD)}
+    kernels = {n: m["k"] for n, m in kernel_table().items()}
     rt = Runtime.sharded(SHARDED_PARTS, device=device)
     r, dev = rt.rank, rt.device
     sync = torch.cuda.synchronize if dev.type == "cuda" else lambda: None
@@ -2642,33 +2934,15 @@ def sharded_serve_phase(card_line: str, graph: str = "reddit_like@paper",
     return out
 
 
-def main() -> int:
-    # -- 1. card -------------------------------------------------------------
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device available", file=sys.stderr)
-        return 1
-    card_line = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True).stdout.strip().splitlines()[0]
-    log(f"[card] {card_line}; torch {torch.__version__}, CUDA "
-        f"{torch.version.cuda}, {torch.cuda.device_count()} device(s)")
-
-    sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch import datasets
-    from repro_torch.core.exchange import gather_boundary
-    from repro_torch.dist.runtime import Runtime
-    from repro_torch.kernels import build
+def kernel_groups() -> tuple:
+    """Every kernel of the port by name, in four groups (the serving path's,
+    GAT's, the LM's, the zoo's): its ``Kernel`` (``k``, which counts
+    launches), its source and the JAX function it replaces (file:line)."""
     from repro_torch.kernels.flash import ops as fops
     from repro_torch.kernels.gat import ops as gops
     from repro_torch.kernels.quant import ops as qops
-    from repro_torch.kernels.quant import ref as qref
+    from repro_torch.kernels.seg import ops as segops
     from repro_torch.kernels.spmm import ops as sops
-    from repro_torch.kernels.spmm import ref as sref
-    from repro_torch.models.convert import params_to_numpy
-    from repro_torch.models.gnn import blocks as B
-    from repro_torch.models.gnn.models import GCN
-    from repro_torch.serve import InferenceEngine, ServeConfig
 
     kernels = {
         qops.QUANTIZE_PACK.name: dict(
@@ -2704,7 +2978,50 @@ def main() -> int:
             k=fops.FLASH_FWD, source="src/repro_torch/kernels/csrc/flash.cu",
             replaces="src/repro/kernels/flash/flash.py:32"),
     }
-    all_kernels = {**kernels, **gat_kernels, **lm_kernels}
+    # the zoo's kernel, the port's own: jax.ops.segment_max in the JAX
+    # package's agg_max (agg_min is -agg_max(-msgs))
+    zoo_kernels = {
+        segops.SEG_MAX.name: dict(
+            k=segops.SEG_MAX, source="src/repro_torch/kernels/csrc/seg.cu",
+            replaces="src/repro/models/gnn/blocks.py:104"),
+    }
+    return kernels, gat_kernels, lm_kernels, zoo_kernels
+
+
+def kernel_table() -> dict:
+    """``kernel_groups`` in one table. Every phase, and each tool that runs
+    one alone, zeroes and reads these counts."""
+    return {k: v for group in kernel_groups() for k, v in group.items()}
+
+
+def main() -> int:
+    # -- 1. card -------------------------------------------------------------
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 1
+    card_line = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+    log(f"[card] {card_line}; torch {torch.__version__}, CUDA "
+        f"{torch.version.cuda}, {torch.cuda.device_count()} device(s)")
+
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch import datasets
+    from repro_torch.core.exchange import gather_boundary
+    from repro_torch.dist.runtime import Runtime
+    from repro_torch.kernels import build
+    from repro_torch.kernels.quant import ops as qops
+    from repro_torch.kernels.quant import ref as qref
+    from repro_torch.kernels.spmm import ops as sops
+    from repro_torch.kernels.spmm import ref as sref
+    from repro_torch.models.convert import params_to_numpy
+    from repro_torch.models.gnn import blocks as B
+    from repro_torch.models.gnn.models import GCN
+    from repro_torch.serve import InferenceEngine, ServeConfig
+
+    kernels, gat_kernels, lm_kernels, zoo_kernels = kernel_groups()
+    all_kernels = kernel_table()
 
     # -- 2. build ------------------------------------------------------------
     secs = build.build_all()
@@ -2734,8 +3051,9 @@ def main() -> int:
     serve_launches = {name: meta["k"].launches
                       for name, meta in all_kernels.items()}
     launches = {name: serve_launches[name] for name in kernels}
-    check(all(serve_launches[k] == 0 for k in ("flash_fwd", *gat_kernels)),
-          "the GCN path launches no flash and no GAT kernel")
+    check(all(serve_launches[k] == 0 for k in ("flash_fwd", *gat_kernels,
+                                               *zoo_kernels)),
+          "the GCN path launches no flash, no GAT and no zoo kernel")
     log(f"[slice] full sweep {rep.seconds * 1e3:.3f} ms (first, host clock), "
         f"launches {launches}, wire bytes {rep.wire_bytes}")
     for name, n in launches.items():
@@ -2953,6 +3271,10 @@ def main() -> int:
     fl = flash_phase(*lm.pop("qkv"))
     torch.cuda.empty_cache()
 
+    # -- 11a. the zoo: PNA, MeshGraphNet, SchNet at full width -----------------
+    zoo = zoo_phase(all_kernels)
+    torch.cuda.empty_cache()
+
     # -- 11b. the serving front: serve_once, store, degraded mode, tracing -----
     # last: its host work (checkpoints written and restored, the store's
     # host tables) must not shift the host-clock times of the phases above
@@ -2993,6 +3315,7 @@ def main() -> int:
         **{path: n[name] for path, n in ch["launches"].items()},
         **{path: n.get(name, 0) for path, n in sh["launches"].items()},
         **{path: n.get(name, 0) for path, n in ss["launches"].items()},
+        **{path: n[name] for path, n in zoo["launches"].items()},
         lm_generate=lm["launches"][name]) for name in all_kernels}
     summary = []
     for name, meta in kernels.items():
@@ -3051,6 +3374,18 @@ def main() -> int:
         library_ms=fl["library_ms"], shape=fl["shape"],
         model_call_ms=fl["bshd_ms"], model_call_bound_ms=fl["bshd_bound_ms"],
         d128_ms=fl["d128_ms"], d128_library_ms=fl["d128_library_ms"]))
+    sm = zoo["seg_max"]
+    summary.append(dict(
+        name="seg_max_csr", route="cuda",
+        source=zoo_kernels["seg_max_csr"]["source"],
+        replaces=zoo_kernels["seg_max_csr"]["replaces"],
+        launches=zoo["launches"]["pna_train_sylvie_s_sync_step"][
+            "seg_max_csr"],
+        max_abs_err=sm["max_abs_err"], ms=sm["ms"], plain_ms=sm["plain_ms"],
+        bound_ms=sm["bound_ms"], bound_by=sm["bound_by"],
+        library_ms=sm["library_ms"], shape=sm["shape"],
+        bit_equal=sm["bit_equal"], tied_outputs=sm["tied_outputs"],
+        launches_per_path=per_path["seg_max_csr"]))
     print(json.dumps({"kernels": summary}))
     print(card_line)
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,9 @@
 """repro_torch.api — the one-import facade of the port, as ``repro.api``
-(limited to what is ported: partitioning, full-graph GCN / GraphSAGE / GAT
-training, and the embedding store's names).
+(limited to what is ported: partitioning, full-graph training of GCN /
+GraphSAGE / GAT and PNA / MeshGraphNet / SchNet, and the embedding store's
+names). MeshGraphNet and SchNet read edge geometry: partition a graph that
+carries ``edge_attr`` (``models.gnn.blocks.geometry_edge_attr``), as
+``launch.train.gnn_graph`` does.
 
     import repro_torch.api as repro
     from repro_torch import datasets

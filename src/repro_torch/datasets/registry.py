@@ -186,3 +186,22 @@ register(WorkloadSpec(
         "smoke": dict(rate=40.0, feat_frac=0.7, skew=1.1),
         "small": dict(rate=80.0, feat_frac=0.7, skew=1.1),
     }))
+
+register(WorkloadSpec(
+    name="mesh_like", generator="grid",
+    description="2D simulation mesh (MeshGraphNet regime).",
+    tiers={
+        "smoke": dict(nx=12, ny=12, d_feat=16),
+        "small": dict(nx=32, ny=32, d_feat=16),
+        "paper": dict(nx=96, ny=96, d_feat=16),
+    }))
+
+register(WorkloadSpec(
+    name="molecule_like", generator="molecule",
+    description="Random-geometric molecular graph with 3D positions "
+                "(SchNet/NequIP regime).",
+    tiers={
+        "smoke": dict(n_nodes=30, d_feat=16, cutoff=2.0, box=4.0),
+        "small": dict(n_nodes=120, d_feat=16, cutoff=1.6, box=5.0),
+        "paper": dict(n_nodes=400, d_feat=16, cutoff=1.4, box=8.0),
+    }))

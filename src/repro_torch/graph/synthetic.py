@@ -4,8 +4,10 @@
   (Yelp-like: moderate degree, homophilous).
 * ``powerlaw_community`` — heavy-tailed degrees *and* planted classes
   (Reddit / products / Amazon-like: hubs that skew the per-pair halo counts).
+* ``grid_mesh`` — a 2D simulation mesh with world positions (MeshGraphNet).
+* ``molecules`` — one random-geometric 3D radius graph (SchNet).
 
-Both return :class:`~repro_torch.graph.formats.Graph` with both edge
+All return :class:`~repro_torch.graph.formats.Graph` with both edge
 directions stored, and are pure functions of their kwargs + seed: the same
 call gives the same arrays as ``repro.graph.synthetic``.
 """
@@ -92,8 +94,48 @@ def powerlaw_community(n_nodes=4000, n_classes=16, d_feat=96, avg_degree=16,
                  tr, va, te, n_classes=n_classes)
 
 
+def grid_mesh(nx=32, ny=32, d_feat=16, seed=0) -> Graph:
+    """2D grid mesh with diagonal struts and world positions (the
+    MeshGraphNet regime)."""
+    rng = np.random.default_rng(seed)
+    n = nx * ny
+    idx = np.arange(n).reshape(nx, ny)
+    pairs = [(idx[:-1, :].ravel(), idx[1:, :].ravel()),
+             (idx[:, :-1].ravel(), idx[:, 1:].ravel()),
+             (idx[:-1, :-1].ravel(), idx[1:, 1:].ravel())]
+    src = np.concatenate([p[0] for p in pairs])
+    dst = np.concatenate([p[1] for p in pairs])
+    src, dst = _undirect(src, dst)
+    xs, ys = np.meshgrid(np.linspace(0, 1, nx), np.linspace(0, 1, ny),
+                         indexing="ij")
+    pos = np.stack([xs.ravel(), ys.ravel(), np.zeros(n)],
+                   axis=1).astype(np.float32)
+    x = rng.normal(0, 1, (n, d_feat)).astype(np.float32)
+    y = rng.integers(0, 4, n).astype(np.int32)
+    tr, va, te = _split_masks(rng, n)
+    return Graph(n, np.stack([src, dst]).astype(np.int32), x, y, tr, va, te,
+                 pos=pos, n_classes=4)
+
+
+def molecules(n_nodes=30, d_feat=16, cutoff=2.0, box=4.0, seed=0) -> Graph:
+    """One random-geometric 'molecule': 3D positions in a box, and an edge
+    between every two atoms closer than ``cutoff``."""
+    rng = np.random.default_rng(seed)
+    pos = (rng.random((n_nodes, 3)) * box).astype(np.float32)
+    diff = pos[:, None, :] - pos[None, :, :]
+    dist = np.sqrt((diff ** 2).sum(-1))
+    adj = (dist < cutoff) & ~np.eye(n_nodes, dtype=bool)
+    src, dst = np.where(adj)
+    x = rng.normal(0, 1, (n_nodes, d_feat)).astype(np.float32)
+    y = rng.integers(0, 4, n_nodes).astype(np.int32)
+    tr, va, te = _split_masks(rng, n_nodes)
+    return Graph(n_nodes, np.stack([src, dst]).astype(np.int32), x, y, tr,
+                 va, te, pos=pos, n_classes=4)
+
+
 GENERATORS = {"planted": planted_partition,
-              "powerlaw_community": powerlaw_community}
+              "powerlaw_community": powerlaw_community,
+              "grid": grid_mesh, "molecule": molecules}
 
 
 def by_name(name: str, **kw) -> Graph:

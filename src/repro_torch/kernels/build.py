@@ -7,10 +7,10 @@ the flags, so an edited source rebuilds and an unchanged one is reused. All
 sources are compiled together, one ``nvcc`` process each, started at once.
 
 Flags, per source (:func:`nvcc_flags`): every source gets ``sm_90a``
-(Hopper), ``-O3`` and no ``--use_fast_math``. ``quant.cu``, ``spmm.cu`` and
-``gat.cu`` also get ``-fmad=false``: they promise the same bits as their
-plain PyTorch versions (``gat.cu`` wherever ``exp`` agrees), so a multiply
-followed by an add must stay two IEEE roundings.
+(Hopper), ``-O3`` and no ``--use_fast_math``. ``quant.cu``, ``spmm.cu``,
+``gat.cu`` and ``seg.cu`` also get ``-fmad=false``: they promise the same
+bits as their plain PyTorch versions (``gat.cu`` wherever ``exp`` agrees),
+so a multiply followed by an add must stay two IEEE roundings.
 ``flash.cu`` does not: it is held to a tolerance, not to bits, and lets the
 compiler contract to FMA.
 
@@ -30,11 +30,11 @@ from typing import Optional, Sequence
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("quant.cu", "spmm.cu", "flash.cu", "gat.cu")
+SOURCES = ("quant.cu", "spmm.cu", "flash.cu", "gat.cu", "seg.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 # the sources whose kernels are bit-equal to their plain versions
-BIT_EXACT = ("quant.cu", "spmm.cu", "gat.cu")
+BIT_EXACT = ("quant.cu", "spmm.cu", "gat.cu", "seg.cu")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 

@@ -134,7 +134,8 @@ def plan_reduce(term, csr: CSR, width: int, dtype, device,
     reduce(... reduce(reduce(init, t_0), t_1) ..., t_k)`` over row ``r``'s
     edges, with ``term(e)`` the ``(len(e), width)`` terms of the edges
     ``e``; a split row reduces each segment so, then its partials left to
-    right. Returns ``(n_rows, width)``.
+    right. ``init`` is a number or a ``(width,)`` tensor. Returns
+    ``(n_rows, width)``.
 
     Step ``s`` takes the ``s``-th edge of every unit that has one; with the
     units sorted heaviest first, those still active are a prefix and each
@@ -148,8 +149,8 @@ def plan_reduce(term, csr: CSR, width: int, dtype, device,
     desc = (units[:, 1] - units[:, 0]).cpu().numpy()
     steps = int(desc[0]) if desc.size else 0
     n_active = np.searchsorted(-desc, -np.arange(steps), side="left")
-    buf = torch.full((units.shape[0], width), init, dtype=dtype,
-                     device=device)
+    buf = torch.empty((units.shape[0], width), dtype=dtype, device=device)
+    buf[:] = init
     for s in range(steps):
         n = int(n_active[s])
         buf[:n] = reduce(buf[:n], term(units[:n, 0] + s))

@@ -1,10 +1,11 @@
-"""The analytic FLOPs of the paper's GNN models, as
-``repro.launch.cells._gnn_model_flops`` (GCN, GraphSAGE and GAT; the
-reference's other archs are not ported, ROADMAP item 15). The reference's
-dry-run cells (meshes, lowering) have no counterpart here."""
+"""The analytic FLOPs of the port's GNN models, as
+``repro.launch.cells._gnn_model_flops``: GCN, GraphSAGE, GAT, PNA,
+MeshGraphNet and SchNet. NequIP's branch, the fan-out sampler's cells and
+the rest of the reference's module wait for their models (ROADMAP item 15);
+its dry-run cells (meshes, lowering) have no counterpart here."""
 from __future__ import annotations
 
-NOT_PORTED = "not ported yet (ROADMAP queue A, item 15)"
+NOT_PORTED = "not ported yet (ROADMAP queue A, item 15: NequIP, DLRM)"
 
 
 def _gnn_model_flops(arch_name: str, model, n: int, e: int, d_in: int,
@@ -25,6 +26,22 @@ def _gnn_model_flops(arch_name: str, model, n: int, e: int, d_in: int,
             f += 2 * n * din * d + 4 * e * d + 2 * e * model.heads
             din = d
         f += 2 * n * din * model.d_out
+    elif name == "pna":
+        d = model.d_hidden
+        f += 2 * n * d_in * d
+        for _ in range(model.n_layers):
+            f += 2 * e * 2 * d * d + 8 * e * d + 2 * n * 12 * d * d
+    elif name == "meshgraphnet":
+        d = model.d_hidden
+        f += 2 * n * d_in * d + 2 * e * model.d_edge_in * d
+        for _ in range(model.n_layers):
+            f += 2 * e * (3 * d * d + d * d) + 2 * n * (2 * d * d + d * d)
+    elif name == "schnet":
+        d = model.d_hidden
+        f += 2 * n * d_in * d
+        for _ in range(model.n_interactions):
+            f += 2 * e * (model.n_rbf * d + d * d) + 2 * e * d \
+                + 2 * n * 3 * d * d
     else:
         raise NotImplementedError(f"FLOPs of arch {arch_name!r}: {NOT_PORTED}")
     return 3.0 * f if train else f

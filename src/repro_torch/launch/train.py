@@ -1,6 +1,7 @@
 """End-to-end launcher of the port, as ``python -m repro.launch.train``:
-full-graph GCN / GraphSAGE / GAT training with Sylvie's quantized halo
-exchange, and batched LM serving (prefill + greedy decode).
+full-graph training of GCN / GraphSAGE / GAT and of PNA / MeshGraphNet /
+SchNet with Sylvie's quantized halo exchange, and batched LM serving
+(prefill + greedy decode).
 
     python -m repro_torch.launch.train --arch gcn --graph reddit_like@paper \\
         --parts 4 --mode async --bits 1 --eps-s 4 --epochs 20
@@ -8,6 +9,10 @@ exchange, and batched LM serving (prefill + greedy decode).
         --parts 4 --mode sync --bits 1 --epochs 20
     python -m repro_torch.launch.train --arch graphsage --reduced --graph \\
         yelp_like@smoke --epochs 3 --device cpu
+    python -m repro_torch.launch.train --arch pna --graph reddit_like@paper \\
+        --parts 4 --mode async --bits 1 --eps-s 4 --epochs 10
+    python -m repro_torch.launch.train --arch meshgraphnet --reduced \\
+        --graph mesh_like@smoke --epochs 2 --device cpu
     python -m repro_torch.launch.train --arch granite-3-2b --serve
     python -m repro_torch.launch.train --arch granite-3-2b --serve --reduced \\
         --device cpu
@@ -20,7 +25,10 @@ none); ``--device cpu`` runs the kernels' plain PyTorch versions on the CPU.
 ``artifacts/torch/scenarios/``; ``--schedule overlap`` issues each halo
 exchange on a side CUDA stream (``dist/overlap.py``). LM parameters are
 float32 from a seeded generator; prompts are random tokens from the same
-seed. LM and DLRM training are not ported yet (ROADMAP queue A).
+seed. MeshGraphNet and SchNet read edge geometry, computed on the host
+after the self-loops are added (random positions from seed 0 where the
+graph has none). NequIP, LM and DLRM training are not ported yet (ROADMAP
+queue A).
 """
 from __future__ import annotations
 
@@ -118,23 +126,39 @@ def build_policy(args):
     return None
 
 
+def gnn_graph(arch, graph: str, parts: int, seed: int = 0):
+    """The partitioned graph ``train_gnn`` trains ``arch`` (a ``GNNArch``)
+    on: a named workload or a generator's defaults, self-loops and GCN
+    weights added, then, when the arch reads geometry, each edge's
+    ``geometry_edge_attr`` (random positions from ``default_rng(0)`` where
+    the graph has none), as the reference's ``train_gnn`` does."""
+    from .. import datasets
+    from ..graph import formats, partition, synthetic
+    from ..models.gnn.blocks import geometry_edge_attr
+
+    if graph in synthetic.GENERATORS:          # raw generator, default kwargs
+        g = synthetic.by_name(graph, seed=seed)
+    else:                                      # named workload
+        g = datasets.load(graph, seed=seed)
+    g, ew = formats.gcn_normalize(g)
+    if arch.d_edge_attr:
+        if g.pos is None:
+            rng = np.random.default_rng(0)
+            g.pos = rng.normal(0, 1, (g.n_nodes, 3)).astype(np.float32)
+        g.edge_attr = geometry_edge_attr(g)
+    return partition.partition_graph(g, parts, edge_weight=ew)
+
+
 def train_gnn(args):
     """Full-graph training of a registered GNN; returns the trainer."""
-    from .. import datasets
     from ..core.sylvie import SylvieConfig
-    from ..graph import formats, partition, synthetic
     from ..train.trainer import GNNTrainer
 
     dev = resolve_device(args.device)
     spec = configlib.get(args.arch)
     arch = spec.reduced() if args.reduced else spec.config()
-    if args.graph in synthetic.GENERATORS:     # raw generator, default kwargs
-        g = synthetic.by_name(args.graph, seed=args.seed)
-    else:                                      # named workload
-        g = datasets.load(args.graph, seed=args.seed)
-    g, ew = formats.gcn_normalize(g)
-    pg = partition.partition_graph(g, args.parts, edge_weight=ew)
-    model = arch.make(g.x.shape[1], g.n_classes)
+    pg = gnn_graph(arch, args.graph, args.parts, args.seed)
+    model = arch.make(pg.x.shape[-1], pg.n_classes)
     cfg = SylvieConfig(mode=args.mode, bits=args.bits,
                        schedule=args.schedule or "blocking")
     tr = GNNTrainer(model, pg, cfg, policy=build_policy(args), device=dev,

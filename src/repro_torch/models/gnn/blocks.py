@@ -1,32 +1,45 @@
 """GraphBlock: the device-side partitioned graph + message-passing primitives.
 
 The partition-local edge lists address the concatenated ``[local ; halo]``
-feature table (``halo_table``). Two ways to aggregate over them:
+feature table (``halo_table``). Everything is a sum, a max or a gather in
+an order fixed by the graph on the host, with no atomics (``ROADMAP.md``
+§C, "No atomics on the path"). Two CSRs index the table, two the edges:
 
-* ``gather_src`` + ``agg_sum`` — gather a message per edge, then sum onto the
-  destinations (``index_add_``): the plain form of the JAX package's
-  ``segment_sum`` aggregation;
-* :func:`aggregate` — the same weighted sum as one CSR SpMM over the whole
-  stack (``repro_torch.kernels.spmm``): rows ``P * n_local``, table
-  ``P * (n_local + halo_rows)``, columns of partition ``p`` offset by
-  ``p * (n_local + halo_rows)``. GCN aggregates this way. It is
-  differentiable: the gradient of the table is the same kernel over the
-  transposed CSR, ``grad_table = Aᵀ · grad_out`` (edge weights are constants
-  and get none). Both CSRs, each with its own split plan (the transposed
-  matrix's hub columns become split hub rows), are built once, on the host,
-  in :func:`build_block`, so the sums' order — and their bits — are fixed by
-  the graph in both directions, with no atomics;
-* :func:`agg_mean` — GraphSAGE's mean: the same SpMM over unit-weight views
-  of both CSRs (their ``row_ptr``, ``col`` and plans shared, ``w`` ones),
-  divided by ``max(deg, 1)``; the in-degrees come from the CSR's ``row_ptr``
-  on the host;
+* ``csr`` (rows ``P * n_local``, the destinations of the stack; columns
+  ``P * n_ext`` table rows, ``n_ext = n_local + halo_rows``, those of
+  partition ``p`` offset by ``p * n_ext``; the edge weights) and its
+  transpose ``csr_t``, each with its own split plan (the transposed
+  matrix's hub columns become split hub rows); ``perm_t`` maps a
+  transposed edge to its forward one;
+* ``ecsr`` (the same rows, row order and within-row order as ``csr``;
+  columns the flat edge ids ``p * e_pad + e`` of the ``(P * e_pad, d)``
+  per-edge messages; weights ones; ``csr``'s plan) and ``ecsr_t`` (the
+  table rows grouped by source in the order of ``csr_t``, its columns
+  ``ecsr.col[perm_t]``; ``csr_t``'s plan), built at first use from the
+  block's edges. A padded edge is in neither.
+
+The primitives over them:
+
+* :func:`aggregate` — the weighted neighbour sum as one SpMM over ``csr``
+  (``repro_torch.kernels.spmm``), its table gradient the same kernel over
+  ``csr_t`` (GCN);
+* :func:`agg_mean` — GraphSAGE's mean of table rows: the SpMM over
+  unit-weight views of both CSRs divided by ``max(deg, 1)`` (the in-degrees
+  from ``row_ptr`` on the host);
+* :func:`gather_src` / :func:`gather_dst` — a message per edge from the
+  table or the destinations' rows; their gradients are the SpMM over
+  ``ecsr_t`` / ``ecsr`` (an edge's weight of 1.0 multiplies exactly);
+* :func:`agg_sum` — per-edge messages summed onto their destinations, the
+  SpMM over ``ecsr``; its gradient a plain gather ``g[dst]`` (0 on padded
+  edges). :func:`agg_mean_msgs` and :func:`agg_std` (PNA) build on it;
+* :func:`agg_max` / :func:`agg_min` — the per-column maximum (minimum) of
+  each destination's messages through ``kernels.seg`` over ``ecsr``, which
+  also counts the edges that reach it; the gradient, a plain elementwise
+  pass, splits ``g`` evenly among them, as ``jax.ops.segment_max``'s does;
 * :func:`gat_aggregate` — GAT's attention-weighted sum per head: the edge
   softmax (``kernels.gat``) and the per-head SpMM forward; the per-head SpMM
-  over the transposed CSR, an SDDMM and the softmax's backward in the
-  backward pass. ``perm_t`` (transposed edge -> forward edge, built with
-  ``csr_t``) is the index through which the kernels over the transposed CSR
-  read per-edge values kept in forward order (alpha, the scores' gradient):
-  no transposed copy of them is gathered.
+  over ``csr_t`` (alpha read through ``perm_t``, no transposed copy
+  gathered), an SDDMM and the softmax's backward in the backward pass.
 """
 from __future__ import annotations
 
@@ -40,8 +53,10 @@ import torch
 from ...core.exchange import PlanArrays
 from ...graph.partition import PartitionedGraph
 from ...kernels.gat import ops as gat
+from ...kernels.seg.ops import seg_max
 from ...kernels.spmm.ops import spmm, spmm_heads
 from ...kernels.spmm.ref import CSR, csr_from_edges
+from . import so3
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,11 +74,50 @@ class GraphBlock:
     csr_t: Optional[CSR] = None           # its transpose (the backward)
     deg: Optional[torch.Tensor] = None    # (P, n_local) float32 in-degrees
     perm_t: Optional[torch.Tensor] = None  # (nnz,) int32 csr_t edge -> csr edge
+    edge_attr: Optional[torch.Tensor] = None  # (P, E, d_e) [dist|unit|sh...]
 
     @property
     def n_parts(self) -> int:
         """Partitions stacked here (P, or 1 under a sharded runtime)."""
         return int(self.node_mask.shape[0])
+
+    def _flat(self, col: int, rows_per_part: int) -> torch.Tensor:
+        offs = torch.arange(self.n_parts, device=self.edges.device)[:, None]
+        return (self.edges[..., col] + offs * rows_per_part).reshape(-1)
+
+    @functools.cached_property
+    def src_flat(self) -> torch.Tensor:
+        """(P * E,) int64: every edge's row of the flattened table."""
+        return self._flat(0, self.csr.n_cols // self.n_parts)
+
+    @functools.cached_property
+    def dst_flat(self) -> torch.Tensor:
+        """(P * E,) int64: every edge's row of the flattened destinations."""
+        return self._flat(1, self.n_local)
+
+    @functools.cached_property
+    def ecsr(self) -> CSR:
+        """``csr``'s rows, order and plan (its tensors shared) over the
+        ``(P * E, d)`` per-edge messages: column ``k`` the flat edge id ``p *
+        E + e`` of ``csr``'s ``k``-th edge, weights ones. Built at first use
+        (only the zoo's models use it), from the block's own edges: the real
+        ones in ``(p, e)`` order sorted stably by destination, the order
+        :func:`csr_from_edges` gave ``csr``."""
+        real = torch.nonzero(self.edge_mask.reshape(-1)).squeeze(1)
+        order = torch.sort(self.dst_flat[real], stable=True).indices
+        col = real[order].to(torch.int32)
+        return dataclasses.replace(
+            self.csr, col=col, n_cols=self.edge_mask.numel(),
+            w=torch.ones(col.shape, dtype=torch.float32, device=col.device))
+
+    @functools.cached_property
+    def ecsr_t(self) -> CSR:
+        """``csr_t``'s rows, order and plan over the messages: the table
+        rows grouped by source, columns ``ecsr.col[perm_t]``."""
+        ecsr = self.ecsr
+        return dataclasses.replace(self.csr_t,
+                                   col=ecsr.col[self.perm_t.long()],
+                                   w=ecsr.w, n_cols=ecsr.n_cols)
 
     @functools.cached_property
     def csr_unit(self) -> CSR:
@@ -92,6 +146,18 @@ def _stack_edges(pg: PartitionedGraph, rows: slice = slice(None)):
         else pg.edge_weight[rows][p_idx, e_idx]
     n = edge_mask.shape[0]
     return src, dst, w, (n * plan.n_local, n * n_ext)
+
+
+def geometry_edge_attr(g, l_max: int = 2) -> np.ndarray:
+    """Per-edge ``[dist, unit(3), sh((l_max+1)^2)]`` computed on the *global*
+    graph (host-side, before partitioning: halo positions never move at
+    runtime)."""
+    src, dst = g.edge_index
+    vec = g.pos[src] - g.pos[dst]
+    dist = np.linalg.norm(vec, axis=-1, keepdims=True)
+    unit = vec / np.maximum(dist, 1e-9)
+    sh = so3.real_sh_np(unit, l_max)
+    return np.concatenate([dist, unit, sh], axis=-1).astype(np.float32)
 
 
 def transpose_perm(src: np.ndarray, dst: np.ndarray) -> np.ndarray:
@@ -123,7 +189,9 @@ def build_block(pg: PartitionedGraph, device=None,
         csr=csr.to(device), n_local=pg.plan.n_local,
         csr_t=csr_from_edges(dst, src, w, shape[1], shape[0]).to(device),
         deg=torch.as_tensor(deg.astype(np.float32), device=device),
-        perm_t=torch.as_tensor(transpose_perm(src, dst), device=device))
+        perm_t=torch.as_tensor(transpose_perm(src, dst), device=device),
+        edge_attr=None if pg.edge_attr is None
+        else torch.as_tensor(pg.edge_attr[rows], device=device))
 
 
 # --- message-passing primitives -------------------------------------------------
@@ -132,38 +200,128 @@ def halo_table(h: torch.Tensor, halo: torch.Tensor) -> torch.Tensor:
     return torch.cat([h, halo], dim=1)
 
 
+class _Gather(torch.autograd.Function):
+    """``rows[idx]`` forward; backward ``spmm(g, csr)`` over the edge CSR
+    whose rows are ``rows`` (``ecsr_t`` for the table, ``ecsr`` for the
+    destinations): each row sums its real edges' gradients in CSR order.
+    A padded edge's message feeds no aggregation, so its gradient is 0 and
+    it is left out."""
+
+    @staticmethod
+    def forward(ctx, rows, idx, csr: CSR):
+        ctx.csr = csr
+        return rows.index_select(0, idx)
+
+    @staticmethod
+    def backward(ctx, g):
+        return spmm(g.contiguous(), ctx.csr), None, None
+
+
+def _gather(rows: torch.Tensor, idx: torch.Tensor, csr: CSR, p: int
+            ) -> torch.Tensor:
+    d = rows.shape[-1]
+    out = _Gather.apply(rows.reshape(-1, d), idx, csr)
+    return out.reshape(p, -1, d)
+
+
 def gather_src(block: GraphBlock, table: torch.Tensor) -> torch.Tensor:
     """(P, n_ext, d) -> (P, E, d): the source row of every edge."""
-    idx = block.edges[..., 0:1].expand(-1, -1, table.shape[-1])
-    return torch.gather(table, 1, idx)
+    return _gather(table, block.src_flat, block.ecsr_t, block.n_parts)
 
 
 def gather_dst(block: GraphBlock, h: torch.Tensor) -> torch.Tensor:
     """(P, n_local, d) -> (P, E, d): the destination row of every edge."""
-    idx = block.edges[..., 1:2].expand(-1, -1, h.shape[-1])
-    return torch.gather(h, 1, idx)
+    return _gather(h, block.dst_flat, block.ecsr, block.n_parts)
 
 
-def _flat_dst(block: GraphBlock) -> torch.Tensor:
-    offs = torch.arange(block.n_parts, device=block.edges.device)[:, None]
-    return (block.edges[..., 1] + offs * block.n_local).reshape(-1)
+class _EdgeSum(torch.autograd.Function):
+    """``spmm(msgs, ecsr)`` forward; backward ``g[dst]`` on real edges, 0 on
+    padded ones."""
+
+    @staticmethod
+    def forward(ctx, msgs, block: GraphBlock):
+        ctx.block = block
+        return spmm(msgs, block.ecsr)
+
+    @staticmethod
+    def backward(ctx, g):
+        blk = ctx.block
+        return torch.where(blk.edge_mask.reshape(-1, 1),
+                           g.index_select(0, blk.dst_flat), 0.0), None
+
+
+def _flat_msgs(msgs: torch.Tensor) -> torch.Tensor:
+    return msgs.reshape(-1, msgs.shape[-1]).contiguous()
 
 
 def agg_sum(block: GraphBlock, msgs: torch.Tensor) -> torch.Tensor:
     """(P, E, d) per-edge messages -> (P, n_local, d) sums onto destinations
-    (masked edges add nothing)."""
-    msgs = torch.where(block.edge_mask[..., None], msgs, 0.0)
-    p, d = msgs.shape[0], msgs.shape[-1]
-    out = torch.zeros((p * block.n_local, d), dtype=msgs.dtype,
-                      device=msgs.device)
-    out.index_add_(0, _flat_dst(block), msgs.reshape(-1, d))
-    return out.reshape(p, block.n_local, d)
+    (padded edges add nothing), in ``ecsr``'s order and plan."""
+    out = _EdgeSum.apply(_flat_msgs(msgs), block)
+    return out.reshape(block.n_parts, block.n_local, -1)
 
 
 def degrees(block: GraphBlock) -> torch.Tensor:
     """(P, n_local) in-degree over real edges (counted on the host from the
     CSR's ``row_ptr`` when the block was built)."""
     return block.deg
+
+
+def agg_mean_msgs(block: GraphBlock, msgs: torch.Tensor) -> torch.Tensor:
+    """(P, E, d) per-edge messages -> (P, n_local, d) their mean over each
+    destination's real edges (0 where it has none): the JAX package's
+    ``agg_mean``."""
+    return agg_sum(block, msgs) / torch.clamp(block.deg, min=1.0)[..., None]
+
+
+def agg_std(block: GraphBlock, msgs: torch.Tensor,
+            eps: float = 1e-5) -> torch.Tensor:
+    """``sqrt(max(E[m^2] - E[m]^2, 0) + eps)`` per destination and column.
+    The maximum is ``torch.maximum`` against zeros, which, like
+    ``jnp.maximum``, sends half the gradient each way on a tie: a row of one
+    edge, or of equal messages, ties at exactly 0."""
+    mu = agg_mean_msgs(block, msgs)
+    mu2 = agg_mean_msgs(block, msgs * msgs)
+    var = mu2 - mu * mu
+    return torch.sqrt(torch.maximum(var, torch.zeros_like(var)) + eps)
+
+
+class _SegMax(torch.autograd.Function):
+    """``seg_max(msgs, ecsr)`` forward (the max; the tie counts kept for the
+    backward). Backward, as ``jax.ops.segment_max``'s VJP: ``d msg[e] =
+    where(msg[e] == max[dst], g[dst] * (1 / count[dst]), 0)`` on real edges
+    (the reciprocal first, then the product, as JAX's ``updates_coef``), 0
+    on padded ones."""
+
+    @staticmethod
+    def forward(ctx, msgs, block: GraphBlock):
+        out, count = seg_max(msgs, block.ecsr)
+        ctx.block = block
+        ctx.save_for_backward(msgs, out, count)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        msgs, out, count = ctx.saved_tensors
+        blk = ctx.block
+        share = g * torch.reciprocal(count.to(g.dtype))
+        hit = blk.edge_mask.reshape(-1, 1) \
+            & (msgs == out.index_select(0, blk.dst_flat))
+        return torch.where(hit, share.index_select(0, blk.dst_flat),
+                           0.0), None
+
+
+def agg_max(block: GraphBlock, msgs: torch.Tensor) -> torch.Tensor:
+    """(P, E, d) per-edge messages -> (P, n_local, d) per-column maximum
+    over each destination's real edges (0 where it has none)."""
+    out = _SegMax.apply(_flat_msgs(msgs), block)
+    return out.reshape(block.n_parts, block.n_local, -1)
+
+
+def agg_min(block: GraphBlock, msgs: torch.Tensor) -> torch.Tensor:
+    """The per-column minimum: ``-agg_max(block, -msgs)``, as the JAX
+    package takes it."""
+    return -agg_max(block, -msgs)
 
 
 class _Aggregate(torch.autograd.Function):

@@ -8,7 +8,7 @@ two packages unchanged (``models/convert.py``).
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Callable, Optional, Sequence
 
 import torch
 from torch import nn
@@ -48,6 +48,39 @@ class Linear(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return linear(dict(self.named_parameters()), x)
+
+
+def mlp_init(dims: Sequence[int],
+             generator: Optional[torch.Generator] = None) -> dict:
+    """``{"l0": {"w", "b"}, "l1": ...}``: one linear layer per pair of
+    neighbouring ``dims``."""
+    return {f"l{i}": linear_init(dims[i], dims[i + 1], True, generator)
+            for i in range(len(dims) - 1)}
+
+
+def mlp(p: dict, x: torch.Tensor, act: Callable = torch.relu
+        ) -> torch.Tensor:
+    """``p``'s linear layers in order, ``act`` between them."""
+    n = len(p)
+    for i in range(n):
+        x = linear(p[f"l{i}"], x)
+        if i < n - 1:
+            x = act(x)
+    return x
+
+
+class MLP(nn.Module):
+    """:func:`mlp_init`'s tree as parameters (``l0.w``, ``l0.b``, ...); a
+    model applies them with :func:`mlp`."""
+
+    def __init__(self, dims: Sequence[int],
+                 generator: Optional[torch.Generator] = None, device=None):
+        super().__init__()
+        for name, p in mlp_init(dims, generator).items():
+            layer = nn.Module()
+            for k, t in p.items():
+                layer.register_parameter(k, nn.Parameter(t.to(device)))
+            self.add_module(name, layer)
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,

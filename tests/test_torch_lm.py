@@ -217,26 +217,24 @@ def test_mla_and_moe_are_not_ported_yet():
 
 
 def test_registry_holds_only_ported_archs():
-    gnns = ("gcn", "graphsage", "gat")
+    gnns = ("gcn", "graphsage", "gat", "pna", "meshgraphnet", "schnet")
     assert sorted(configs.REGISTRY) == sorted(ARCHS + gnns)
     for arch in ARCHS:
         for which in ("config", "reduced"):
             mine = getattr(configs.get(arch), which)()
             ref = getattr(jconfigs.get(arch), which)()
             assert dataclasses.asdict(mine) == dataclasses.asdict(ref)
-    for arch in gnns:                           # the paper's three models
+    for arch in gnns:             # the paper's three models and the zoo's
         for which in ("config", "reduced"):
             mine = getattr(configs.get(arch), which)()
             ref = getattr(jconfigs.get(arch), which)()
             assert (mine.name, mine.d_edge_attr, mine.needs_weights) == \
                 (ref.name, ref.d_edge_attr, ref.needs_weights)
             m, r = mine.make(602, 41), ref.make(602, 41)
-            assert (m.d_in, m.d_hidden, m.d_out, m.n_layers,
-                    getattr(m, "heads", None)) == \
-                (r.d_in, r.d_hidden, r.d_out, r.n_layers,
-                 getattr(r, "heads", None))
+            want = dataclasses.asdict(r)        # every field of the model
+            assert {k: getattr(m, k) for k in want} == want
             assert m.comm_dims() == r.comm_dims()
-    for arch in ("gemma2-27b", "pna", "schnet"):
+    for arch in ("gemma2-27b", "nequip", "dlrm-mlperf"):
         with pytest.raises(KeyError, match="not ported yet"):
             configs.get(arch)
 
@@ -275,7 +273,7 @@ def test_entry_point_needs_a_card_unless_asked_for_the_cpu(monkeypatch,
     launch.main(argv + ["--device", "cpu"])
     out = capsys.readouterr().out
     assert "decoded 2x3 tokens" in out and "sample:" in out
-    for bad in (["--arch", "pna"], ["--arch", "granite-3-2b"]):
+    for bad in (["--arch", "nequip"], ["--arch", "granite-3-2b"]):
         with pytest.raises(SystemExit, match="not ported yet"):
             launch.main(bad)
     # --scenario is ported: it trains on the card, so without one it raises

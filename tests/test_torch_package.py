@@ -156,7 +156,7 @@ def test_build_needs_nvcc_and_hashes_sources(monkeypatch):
 
 def test_nvcc_flags_differ_only_where_the_docstring_says():
     """Every source: sm_90a, -O3, no fast math. The bit-exact sources (quant,
-    spmm, gat) add -fmad=false and nothing else; flash has exactly the
+    spmm, gat, seg) add -fmad=false and nothing else; flash has exactly the
     common flags. Each source's flags go into its library hash."""
     common = build.nvcc_flags("flash.cu")
     assert common == build.NVCC_FLAGS
@@ -166,12 +166,14 @@ def test_nvcc_flags_differ_only_where_the_docstring_says():
         assert "--use_fast_math" not in flags
         extra = [f for f in flags if f not in common]
         assert extra == (["-fmad=false"] if src in ("quant.cu", "spmm.cu",
-                                                    "gat.cu")
+                                                    "gat.cu", "seg.cu")
                          else []), src
         assert set(common) <= set(flags)
-    assert set(build.BIT_EXACT) == {"quant.cu", "spmm.cu", "gat.cu"}
+    assert set(build.BIT_EXACT) == {"quant.cu", "spmm.cu", "gat.cu",
+                                    "seg.cu"}
     doc = build.__doc__
-    assert "-fmad=false" in doc and "flash.cu" in doc and "gat.cu" in doc
+    assert "-fmad=false" in doc and "flash.cu" in doc and "gat.cu" in doc \
+        and "seg.cu" in doc
 
 
 def test_chip_smoke_fails_without_a_card(monkeypatch, capsys):
