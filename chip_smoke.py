@@ -189,6 +189,8 @@ sharded   — last, after chaos (``sharded_phase``): the multi-process runtime,
             blocking with equal launches. (e) Each rank's median epoch ms
             and each collective's bytes and ms, labelled host-staged
             ``gloo`` with the card line: no gain or wire speed is claimed.
+            (f) The sharded census contracts of ``repro_torch.analysis``
+            (``contracts.run_sharded``) on every rank: 0 findings.
             A rank's failed check fails ``spawn`` and the script.
 
 sharded-serve — last, after sharded (``sharded_serve_phase``): serving under
@@ -264,6 +266,17 @@ train-parity — deterministic 6-epoch Sylvie-S and Sylvie-A (eps_s=2) of each
             allclose at rtol 1e-4, halo caches and gradients allclose but
             for at most 1% of their rows, counted (``train_parity_phase``;
             GAT at 1 bit epoch by epoch from the CPU's state).
+analysis  — ``repro_torch.analysis`` on the card (``analysis_phase``): the
+            simulated census contracts (``contracts.SIMULATED``; their
+            censuses hold kernel launches, RC206 runs the Low-bit Module's
+            kernels at bits 1/2/4/8) and one Sylvie-S epoch of GCN 256x2 on
+            [train]'s ``reddit_like@paper`` partition (P=4, 1 bit) held to
+            the expectation over its own ring buckets, launches exactly
+            ``TRAIN_LAUNCHES``' Sylvie-S step. The sharded contracts
+            (``contracts.SHARDED``) run in [sharded]'s spawn, (f) below;
+            after [sharded-serve] one ``[analysis]`` line gives the
+            contracts run, the findings (0: any finding fails the script)
+            and the seconds.
 
 Run time on an H100: about five and a half minutes of command, the
 kernels' build included.
@@ -849,6 +862,7 @@ def train_phase(all_kernels: dict) -> dict:
             del tr, model
             torch.cuda.empty_cache()
     log(f"[train] kernel launches per step: {json.dumps(out['launches'])}")
+    out["pg"] = pg              # [analysis] censuses an epoch on it
     return out
 
 
@@ -2268,6 +2282,52 @@ def chaos_phase(all_kernels: dict) -> dict:
     return out
 
 
+def analysis_phase(pg, device: str = "cuda") -> dict:
+    """[analysis], first half: ``repro_torch.analysis``'s simulated
+    contracts on the card (their censuses hold kernel launches; RC206 runs
+    ``quantize_pack`` / ``unpack_dequantize`` at bits 1, 2, 4 and 8), and
+    the train-census contract at the main path's full width: one Sylvie-S
+    epoch of GCN 256x2 on ``pg`` (``reddit_like@paper`` as [train]
+    partitioned it, P = 4, 1 bit) held to the expectation over ``pg``'s own
+    ring buckets, its launches exactly ``TRAIN_LAUNCHES``' Sylvie-S step and
+    no other kernel. Any finding fails the script. The sharded contracts
+    run in [sharded]'s spawn (``sharded_rank``). ``device="cpu"`` dry-runs
+    it here (the plain versions: no launches)."""
+    from repro_torch import configs
+    from repro_torch.analysis import contracts
+    from repro_torch.dist.runtime import Runtime
+
+    t0 = time.perf_counter()
+    found, _ = contracts.run_contracts(only=contracts.SIMULATED,
+                                       device=device)
+    sim_s = time.perf_counter() - t0
+    torch.manual_seed(SEED)
+    model = configs.get("gcn").config().make(pg.x.shape[-1], pg.n_classes)
+    wide, c = contracts.contract_trainer_epoch(
+        model, pg, Runtime.simulated(4, device=device),
+        where="contract:train_epoch/gcn/reddit_like@paper/simulated")
+    found += wide
+    launched = dict(c.launches)
+    got = tuple(launched.get(k, 0) for k in TRAIN_KERNELS)
+    want = TRAIN_LAUNCHES[("gcn", "sylvie_s", "sync")]
+    if device == "cpu":
+        want = (0,) * len(want)
+    check(not found, "[analysis] findings:\n"
+          + "\n".join(f.render() for f in found))
+    check(got == want and sum(launched.values()) == sum(want),
+          f"[analysis] the full-width epoch launched {c.launched()}, "
+          f"expected {dict(zip(TRAIN_KERNELS, want))} and nothing else")
+    quant = [e for e in c.backend if e.method.startswith("exchange_q")]
+    out = dict(contracts=len(contracts.SIMULATED) + 1, findings=0,
+               simulated_s=sim_s, wide_s=time.perf_counter() - t0 - sim_s,
+               wide_buckets=list(quant[0].bucket_sizes),
+               wide_exchanges=[(e.reverse, e.arrays) for e in quant],
+               wide_psums=len(c.methods("psum")))
+    log(f"[analysis] simulated contracts on the card and the full-width "
+        f"census: {json.dumps(out)}")
+    return out
+
+
 SHARDED_PARTS = 4
 SHARDED_EPOCHS = 5
 SHARDED_LABEL = "gloo, host-staged, four ranks on one card"
@@ -2553,6 +2613,17 @@ def sharded_rank(graph: str, device: str) -> dict:
         out["overlap"][mode] = dict(losses=lb,
                                     blocking_ms=res["blocking"][3],
                                     overlap_ms=res["overlap"][3])
+
+    # [analysis], second half: the sharded census contracts on this rank
+    # (every rank gets every rank's findings)
+    from repro_torch.analysis import contracts
+    t0 = time.perf_counter()
+    found = contracts.run_sharded(contracts.SHARDED, device)
+    out["analysis"] = dict(contracts=len(contracts.SHARDED),
+                           findings=[f.render() for f in found],
+                           seconds=time.perf_counter() - t0)
+    check(not found, f"[sharded] rank {r}: census contracts found\n"
+          + "\n".join(out["analysis"]["findings"]))
     every = [None] * SHARDED_PARTS
     dist.all_gather_object(every, out)
     return every
@@ -2641,6 +2712,9 @@ def sharded_phase(card_line: str, graph: str = "reddit_like@paper",
     log(f"[sharded] (e) one collective ({label}; per rank: the bytes it "
         f"sends, the median of 5 on the host clock ending in a sync): "
         f"{json.dumps(coll)}")
+    out["analysis"] = dict(ranks[0]["analysis"],
+                           seconds=max(x["analysis"]["seconds"]
+                                       for x in ranks))
     out["seconds"] = time.perf_counter() - t0
     log(f"[sharded] phase done in {out['seconds']:.1f} s (their plan load "
         f"{ranks[0]['load_s']:.1f} s, plan-cache hit "
@@ -3261,6 +3335,10 @@ def main() -> int:
     # -- 8. training, card vs the CPU's plain versions -------------------------
     train_parity_phase()
 
+    # -- 8b. analysis: the census contracts (the sharded ones in [sharded]) ---
+    an = analysis_phase(tr.pop("pg"))
+    torch.cuda.empty_cache()
+
     # -- 9. the LM: granite-3-2b at full width, prefill + greedy decode -------
     lm = lm_phase(all_kernels)
 
@@ -3291,6 +3369,16 @@ def main() -> int:
 
     # -- 11e. sharded-serve: serving under it, the front on rank 0 -------------
     ss = sharded_serve_phase(card_line)
+
+    sa = sh["analysis"]
+    log(f"[analysis] {an['contracts'] + sa['contracts']} contracts run "
+        f"({an['contracts'] - 1} simulated on the card, the full-width GCN "
+        f"256x2 Sylvie-S census on reddit_like@paper, {sa['contracts']} "
+        f"sharded in [sharded]'s spawn of {SHARDED_PARTS} gloo ranks on "
+        f"cuda:0): 0 findings; "
+        f"{an['simulated_s'] + an['wide_s'] + sa['seconds']:.1f} s "
+        f"({an['simulated_s']:.1f} simulated, {an['wide_s']:.1f} full-width, "
+        f"{sa['seconds']:.1f} sharded); {card_line}")
 
     # -- 12. summary ----------------------------------------------------------
     s0 = detail[0]

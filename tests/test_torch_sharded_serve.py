@@ -160,37 +160,21 @@ def _counting(log: list):
 
 def _census(eng) -> dict:
     """The collectives of one raw 1-bit sweep (``eng._sweep``, every rank
-    at once) and of one lockstep full sweep on rank 0."""
-    import torch.distributed as dist
-
+    at once) and of one lockstep full sweep on rank 0, each as ``(name,
+    dtype of the tensor sent)`` from ``repro_torch.analysis.census``."""
+    from repro_torch.analysis.census import collectives
     from repro_torch.serve import delta as deltalib
-    seen = []
-    names = ("all_to_all_single", "all_reduce", "all_gather",
-             "broadcast_object_list")
-    real = {n: getattr(dist, n) for n in names}
 
-    def wrap(name):
-        def call(*a, **kw):
-            t = a[1] if name in ("all_to_all_single", "all_gather") \
-                else a[0]
-            seen.append((name, str(t.dtype) if torch.is_tensor(t)
-                         else None))
-            return real[name](*a, **kw)
-        return call
-    for n in names:
-        setattr(dist, n, wrap(n))
-    try:
-        masks = deltalib.plan_full(eng.pg, eng.n_sites).device_masks(
-            eng.device, part=eng.rank)
+    def named(log):
+        return [(e.name, None if e.dtype is None else f"torch.{e.dtype}")
+                for e in log]
+    masks = deltalib.plan_full(eng.pg, eng.n_sites).device_masks(
+        eng.device, part=eng.rank)
+    with collectives([]) as sweep:
         eng._sweep(eng.block, eng.x, eng._halos, masks, eng._generator())
-        sweep = list(seen)
-        seen.clear()
+    with collectives([]) as lockstep:
         eng.lead(lambda e: e.full_sweep())
-        lockstep = list(seen)
-    finally:
-        for n in names:
-            setattr(dist, n, real[n])
-    return dict(sweep=sweep, lockstep=lockstep)
+    return dict(sweep=named(sweep), lockstep=named(lockstep))
 
 
 def _stochastic_noise(eng) -> np.ndarray:
