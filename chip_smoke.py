@@ -51,24 +51,60 @@ Phases, each of which raises (and exits non-zero) on failure:
             attention is plain PyTorch and launches none). Prints prefill ms,
             decode tokens/s, peak memory, the first tokens and a profiled
             prefill and decode step split by kernel.
-7. lm-small — reduced granite-3-2b and yi-34b (untied unembedding) on the
-            card and on the CPU from the same numpy weights: prefill logits
-            within rtol/atol 1e-4, greedy tokens equal.
+7. lm-small — every LM's reduced config (``LM_SMALL_ARCHS``: granite-3-2b,
+            yi-34b with its untied unembedding, olmoe-1b-7b's MoE,
+            deepseek-v2-236b's MLA + MoE with v narrower than q/k,
+            gemma2-27b's softcaps and windowed ring caches) on the card and
+            on the CPU from the same numpy weights: prefill logits within
+            rtol/atol 1e-4, greedy tokens equal.
+7b. lm-moe — olmoe-1b-7b at its full config (16 layers, 6,919,096,320
+            parameters), deepseek-v2-236b (a dense layer and 2 MoE layers of
+            its 1 + 59, 9,330,789,376 parameters) and gemma2-27b (2 of its 23
+            local/global pairs, 3,444,650,496 parameters) at their published
+            widths, float32 from a seeded generator, each served through
+            ``generate`` as [lm] serves granite (batch 8, prompt 2,016 + 32
+            new; gemma2 batch 2, prompt 6,112 + 32, longer than its 4,096
+            window) and freed before the next (``LM_MOE_RUNS``; the depth
+            cut is the reference's ``launch/cells.py::_reduce_depth``).
+            Counts zeroed before the first ``generate`` and read after it:
+            exactly 16 / 3 / 4 flash launches, no other kernel. Prints
+            prefill ms, decode tokens/s, peak GB, dropped MoE assignments
+            per layer at prefill and at decode (a third ``generate``, which
+            counts them and must give the same tokens), a profiled prefill
+            split into flash, the expert products, the rest of the MoE FFN
+            and the rest, and a profiled decode step. The prefill once more
+            with the kernel and once with the plain attention
+            (``attention_bshd_ref``) in its place
+            (``plain_attention_logits``): gemma2's last-position logits
+            within 1e-4 x max(1, largest |logit|), which holds it to more
+            than finite logits though its greedy tokens are all 0; for
+            olmoe (MoE: a rounding can reroute a token) the difference and
+            the top-k assignments that moved, not gated; deepseek-v2's
+            plain score blocks would not fit beside its weights
+            (``PLAIN_SCORES_GB``).
 8. flash  — the flash kernel against its plain versions on the slice's own
             layer-0 q/k/v: ``flash_fwd`` over (8*32, 2048, 64) with KV heads
             repeated 4:1, in float32 and from bfloat16 inputs, the model's
             ``attention_bshd`` (GQA through strides), a ragged windowed
             case (Sq = Skv = 2,080, window 100), head widths 1, 75, 200 and
             256 (window 37), and d = 128 (yi-34b's head width) at
-            (8*32, 2048). Tolerance on the attention (acc / l): 1e-4
+            (8*32, 2048). Then ``attention_bshd`` at the served models' layer
+            shapes (``FLASH_LM_SHAPES``): gemma2-27b's local (window 4,096)
+            and global layers with softcap 50 at (2, 6,144, 32 / 16 heads,
+            128), once more at scale 1 where the cap bends the scores, and
+            deepseek-v2's MLA (8, 2,048, 128 heads, q/k 192, v 128, v a
+            column slice of kv), against ``attention_bshd_ref`` row by row.
+            Tolerance on the attention (acc / l): 1e-4
             absolute in float32, 2e-2 from bfloat16 inputs. CUDA-event times
             beside the operations bound (3xTF32: three TF32 tensor-core
             products per multiply-add), the plain version and
-            ``scaled_dot_product_attention`` (timed here only; the port
-            never calls it).
+            ``scaled_dot_product_attention`` or, under a softcap,
+            ``flex_attention`` (compiled by Inductor; held to the plain
+            version within 1e-3; timed here only, the port never calls
+            either).
 9. summary — a ``{"kernels": [...]}`` line (each kernel's launches on
             every path: a serving sweep, each kind of training step, the
-            zoo's steps, an LM ``generate``; ``seg_max_csr`` with its
+            zoo's steps, each LM's ``generate``; ``seg_max_csr`` with its
             times), the card line, and the last line ``{"ok": true,
             "device": {...}}``.
 
@@ -278,7 +314,7 @@ analysis  — ``repro_torch.analysis`` on the card (``analysis_phase``): the
             contracts run, the findings (0: any finding fails the script)
             and the seconds.
 
-Run time on an H100: about five and a half minutes of command, the
+Run time on an H100: about six minutes of command, the
 kernels' build included.
 """
 from __future__ import annotations
@@ -299,8 +335,8 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "tools"))
-from torch_timing import (cuda_ms, device_ms, kernel_times,  # noqa: E402
-                          softmax_library_ms)
+from torch_timing import (cuda_ms, device_ms, flex_attention_ms,  # noqa
+                          kernel_times, softmax_library_ms)
 
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM HBM3 (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
@@ -610,15 +646,19 @@ def lm_phase(all_kernels: dict) -> dict:
     return dict(launches=launches, qkv=qkv)
 
 
+LM_SMALL_ARCHS = ("granite-3-2b", "yi-34b", "olmoe-1b-7b", "deepseek-v2-236b",
+                  "gemma2-27b")
+
+
 def lm_small_phase() -> None:
-    """Reduced granite-3-2b and yi-34b: card vs the CPU's plain versions."""
+    """Every LM's reduced config: card vs the CPU's plain versions."""
     from repro_torch import configs
     from repro_torch.launch.train import generate
     from repro_torch.models.convert import (lm_params_from_numpy,
                                             lm_params_to_numpy)
     from repro_torch.models.lm import model as LM
 
-    for arch in ("granite-3-2b", "yi-34b"):
+    for arch in LM_SMALL_ARCHS:
         cfg = configs.get(arch).reduced()
         tree = lm_params_to_numpy(LM.init_params(
             cfg, torch.Generator().manual_seed(SEED), dtype=torch.float32))
@@ -641,6 +681,283 @@ def lm_small_phase() -> None:
               f"{arch} reduced: greedy tokens card == CPU")
         log(f"[lm-small] {cfg.name}: prefill logits card vs CPU max abs err "
             f"{err:.3g} (rtol/atol 1e-4); {b}x{new} greedy tokens equal")
+
+
+# [lm-moe]: (arch, depth cut or None, batch, prompt, parameters, flash
+# launches per prefill). The cut is the reference's launch/cells.py
+# _reduce_depth: every segment of count > 1 cut to the depth.
+LM_MOE_RUNS = (("olmoe-1b-7b", None, 8, 2016, 6_919_096_320, 16),
+               ("deepseek-v2-236b", 2, 8, 2016, 9_330_789_376, 3),
+               ("gemma2-27b", 2, 2, 6112, 3_444_650_496, 4))
+LM_MOE_NEW = 32
+PLAIN_SCORES_GB = 2.0
+
+
+def lm_moe_phase(all_kernels: dict) -> dict:
+    """olmoe-1b-7b at its full config, deepseek-v2-236b and gemma2-27b at
+    their published widths with the depth cut of ``LM_MOE_RUNS``, each
+    served through ``generate`` and freed before the next. Returns each
+    run's launches and numbers."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch import configs
+    from repro_torch.dist.runtime import resolve_device
+    from repro_torch.launch.train import generate
+    from repro_torch.models.lm import model as LM
+
+    dev = resolve_device()
+    out = {}
+    for arch, depth, b, s_ctx, n_params, n_flash in LM_MOE_RUNS:
+        t0 = time.perf_counter()
+        cfg = configs.get(arch).config()
+        if depth is not None:
+            cfg = dataclasses.replace(cfg, segments=tuple(
+                dataclasses.replace(sg, count=min(sg.count, depth))
+                for sg in cfg.segments))
+        check(cfg.param_count() == n_params and cfg.n_layers == n_flash,
+              f"{arch}: {cfg.n_layers} layers, {cfg.param_count()} parameters"
+              f" (expected {n_flash}, {n_params})")
+        n_moe = sum(sg.count for sg in cfg.segments
+                    for lc in sg.layers if lc.moe is not None)
+        params = LM.init_params(cfg, torch.Generator(dev).manual_seed(SEED),
+                                dtype=torch.float32)
+        torch.cuda.synchronize()
+        n_alloc = sum(t.numel() for _, t in LM.tree_leaves(params))
+        new = LM_MOE_NEW
+        log(f"[lm-moe] {arch}: {cfg.n_layers} layers ({[sg.count for sg in cfg.segments]}"
+            f" per segment), d_model {cfg.d_model}, {cfg.param_count()} "
+            f"parameters ({cfg.param_count(True)} active), {n_alloc} "
+            f"allocated with the padded vocab, float32 {n_alloc * 4 / 1e9:.2f}"
+            f" GB, drawn in {time.perf_counter() - t0:.1f} s; batch {b}, "
+            f"prompt {s_ctx} + {new} new tokens")
+        prompts = np.random.default_rng(SEED).integers(0, cfg.vocab,
+                                                       (b, s_ctx))
+        torch.cuda.reset_peak_memory_stats()
+        for meta in all_kernels.values():
+            meta["k"].launches = 0
+        res = generate(params, cfg, prompts, new)
+        torch.cuda.synchronize()
+        launches = {name: meta["k"].launches
+                    for name, meta in all_kernels.items()}
+        peak = torch.cuda.max_memory_allocated()
+        check(launches["flash_fwd"] == n_flash,
+              f"{arch}: flash_fwd launched {launches['flash_fwd']} times in "
+              f"one generate, expected {n_flash} (one per prefill layer)")
+        check(all(n == 0 for name, n in launches.items()
+                  if name != "flash_fwd"),
+              f"{arch}: the LM path launches no other kernel")
+        check(res.tokens.shape == (b, new) and res.tokens.min() >= 0
+              and res.tokens.max() < cfg.vocab,
+              f"{arch}: greedy tokens in the vocab")
+        warm = generate(params, cfg, prompts, new)
+        check(np.array_equal(warm.tokens, res.tokens),
+              f"{arch}: greedy tokens repeat")
+        run = dict(layers=cfg.n_layers, params=cfg.param_count(),
+                   batch=b, prompt=s_ctx, new=new, launches=launches,
+                   prefill_ms=warm.prefill_s * 1e3,
+                   first_prefill_ms=res.prefill_s * 1e3,
+                   decode_tok_s=b * (new - 1) / warm.decode_s,
+                   decode_step_ms=warm.decode_s / (new - 1) * 1e3,
+                   peak_gb=peak / 1e9)
+        log(f"[lm-moe] {arch}: generate (first) prefill "
+            f"{res.prefill_s * 1e3:.1f} ms; (second) prefill "
+            f"{run['prefill_ms']:.1f} ms, decode {run['decode_tok_s']:.1f} "
+            f"tokens/s ({run['decode_step_ms']:.2f} ms a step); peak "
+            f"{run['peak_gb']:.2f} GB; flash launches {n_flash}; first tokens"
+            f" {res.tokens[:, :8].tolist()}")
+
+        # dropped assignments per MoE layer, in a third generate that counts
+        # them (host syncs; untimed): the first n_moe calls are the prefill
+        if n_moe:
+            calls = []
+            real = LM.moe_ffn
+
+            def counted(p, x, m, capacity=None):
+                gate_i = LM.moe_route(p, x, m)[2]
+                keep, _, (ng, c) = LM.moe_dispatch(gate_i, m, capacity)
+                calls.append((keep.numel(), int((~keep).sum()), ng, c))
+                return real(p, x, m, capacity)
+            LM.moe_ffn = counted
+            try:
+                third = generate(params, cfg, prompts, new)
+            finally:
+                LM.moe_ffn = real
+            check(np.array_equal(third.tokens, res.tokens),
+                  f"{arch}: greedy tokens repeat while drops are counted")
+            check(len(calls) == n_moe * new, f"{arch}: {len(calls)} MoE "
+                  f"calls in a generate, expected {n_moe * new}")
+            pre, dec = calls[:n_moe], calls[n_moe:]
+            run["moe_prefill"] = dict(
+                assignments=pre[0][0], groups=pre[0][2], capacity=pre[0][3],
+                dropped=[c[1] for c in pre])
+            run["moe_decode"] = dict(
+                assignments_per_step=dec[0][0], groups=dec[0][2],
+                capacity=dec[0][3],
+                dropped=[sum(c[1] for c in dec[i::n_moe])
+                         for i in range(n_moe)])
+            log(f"[lm-moe] {arch}: dropped MoE assignments per layer, "
+                f"prefill ({pre[0][0]} assignments, {pre[0][2]} groups of "
+                f"capacity {pre[0][3]}): {run['moe_prefill']['dropped']}; "
+                f"decode, summed over {new - 1} steps ({dec[0][0]} "
+                f"assignments a step, {dec[0][2]} group of capacity "
+                f"{dec[0][3]}): {run['moe_decode']['dropped']}")
+
+        # one prefill profiled, the expert products and the MoE FFNs marked
+        tokens = torch.zeros((b, s_ctx + new), dtype=torch.long, device=dev)
+        tokens[:, :s_ctx] = torch.as_tensor(prompts)
+        prefill = LM.make_prefill_step(cfg, b, s_ctx + new)
+        real_ffn, real_exp = LM.moe_ffn, LM.expert_ffn
+
+        def marked(fn, label):
+            def wrapper(*args, **kwargs):
+                with record_function(label):
+                    return fn(*args, **kwargs)
+            return wrapper
+        LM.moe_ffn = marked(real_ffn, "lm_moe_ffn")
+        LM.expert_ffn = marked(real_exp, "lm_moe_experts")
+        torch.cuda.synchronize()
+        try:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t1 = time.perf_counter()
+                last, caches = prefill(params, tokens)
+                torch.cuda.synchronize()
+                host_ms = (time.perf_counter() - t1) * 1e3
+        finally:
+            LM.moe_ffn, LM.expert_ffn = real_ffn, real_exp
+        split = dict(host_ms=host_ms, **prefill_split(prof))
+        check(tuple(last.shape) == (b, cfg.vocab)
+              and bool(torch.isfinite(last).all()),
+              f"{arch}: prefill logits finite")
+        check(np.array_equal(last.argmax(-1).cpu().numpy(), res.tokens[:, 0]),
+              f"{arch}: prefill argmax == first generated token")
+        if n_moe:
+            m = next(lc.moe for sg in cfg.segments for lc in sg.layers
+                     if lc.moe is not None)
+            rows = m.n_experts * run["moe_prefill"]["groups"] \
+                * run["moe_prefill"]["capacity"]
+            split["experts_tflop"] = 6 * rows * cfg.d_model * m.d_ff \
+                * n_moe / 1e12
+            split["experts_cublas_tflop_s"] = split["experts_tflop"] / max(
+                split["experts_cublas_ms"], 1e-9) * 1e3
+        run["prefill_profile"] = split
+        log(f"[lm-moe] {arch}: profiled prefill {json.dumps(split)}")
+
+        # the same prefill with the plain attention in place of the kernel
+        # (``plain_attention_logits``)
+        run["plain_attention"] = plain_attention_logits(
+            arch, cfg, params, prefill, tokens, b, s_ctx + new, bool(n_moe))
+        decode = LM.make_decode_step(cfg)
+        _, *prof_d = profile_device(
+            lambda: decode(params, caches, last.argmax(-1)[:, None], s_ctx),
+            f"{arch}: one decode step")
+        run["decode_host_ms"], run["decode_busy_ms"] = prof_d[0], prof_d[1]
+        out[arch] = run
+        del params, caches, last, prefill, decode, tokens
+        torch.cuda.empty_cache()
+    return out
+
+
+def plain_attention_logits(arch, cfg, params, prefill, tokens, b, seq,
+                           moe: bool):
+    """Prefill twice more, with the kernel and with the plain attention
+    (``attention_bshd_ref``) in place of it, and compare the last-position
+    logits: within 1e-4 x max(1, largest |logit|) for a model without MoE
+    layers, a check that holds whatever the greedy tokens are (gemma2's are
+    all 0). Top-k routing and the capacity cut are not continuous: a
+    rounding of the attention can move a token to another expert, or drop
+    it, so for a MoE model the line gives the top-k assignments that differ
+    between the two prefills beside the logits' difference, and gates
+    nothing. Skipped, with a line, where the plain version's (B, H, S,
+    1,024-key) float32 score block passes ``PLAIN_SCORES_GB`` (deepseek-v2:
+    8.6 GB, several alive at once, on a 52.75 GB peak)."""
+    from repro_torch.kernels.flash import ref as fref
+    from repro_torch.models.lm import model as LM
+
+    heads = max(lc.attn.n_heads for sg in cfg.segments for lc in sg.layers)
+    score_gb = b * heads * seq * 1024 * 4 / 1e9
+    if score_gb > PLAIN_SCORES_GB:
+        log(f"[lm-moe] {arch}: prefill against plain attention skipped: its "
+            f"score block is {score_gb:.1f} GB (> {PLAIN_SCORES_GB})")
+        return None
+    real_attn, real_route = LM.attention_bshd, LM.moe_route
+    routes = {"kernel": [], "plain": []}
+
+    def prefill_with(attn, key):
+        def route(*args, **kwargs):
+            out = real_route(*args, **kwargs)
+            routes[key].append(out[2])
+            return out
+        LM.attention_bshd, LM.moe_route = attn, route
+        try:
+            return prefill(params, tokens)[0]
+        finally:
+            LM.attention_bshd, LM.moe_route = real_attn, real_route
+    last = prefill_with(real_attn, "kernel")
+    last_p = prefill_with(fref.attention_bshd_ref, "plain")
+    top = float(last_p.abs().max())
+    err = float((last - last_p).abs().max())
+    moved = sum(int((a != c).sum())
+                for a, c in zip(routes["kernel"], routes["plain"]))
+    total = sum(a.numel() for a in routes["kernel"])
+    if not moe:
+        check(err <= 1e-4 * max(1.0, top), f"{arch}: prefill logits with the"
+              f" kernel within 1e-4 x max(1, {top:.4g}) of those with the "
+              f"plain attention (max abs err {err})")
+    log(f"[lm-moe] {arch}: prefill logits, kernel against plain attention: "
+        f"max abs err {err:.3g} (largest logit {top:.4g})"
+        + (f"; top-k assignments that differ: {moved} of {total} (MoE: "
+           f"not gated)" if moe else " (tol 1e-4 x max(1, largest))"))
+    return dict(max_abs_err=err, max_abs_logit=top, gated=not moe,
+                **({"assignments_moved": moved, "assignments": total}
+                   if moe else {}))
+
+
+def prefill_split(prof) -> dict:
+    """A profiled LM prefill's device ms by where each kernel was launched:
+    the flash kernel; the MoE expert products (inside the
+    ``lm_moe_experts`` ranges: three batched cuBLAS products, the SiLU
+    gate); the rest of the MoE FFN (inside ``lm_moe_ffn``, outside the
+    experts: router, top-k, the dispatch's cumsum, copies and gathers, the
+    shared experts); everything else (attention projections, norms, the
+    dense FFNs). Each with its cuBLAS part. The ranges themselves show on
+    the device's timeline too (as user annotations spanning their kernels);
+    they are left out of the kernels' sum."""
+    from torch.autograd import DeviceType
+
+    def is_gemm(name):
+        return any(w in name.lower() for w in ("gemm", "gemv", "cutlass",
+                                               "xmma", "cublas"))
+
+    def kernels(ev):
+        """(name, device us) of every kernel launched under ``ev``."""
+        out = [(k.name, k.duration) for k in ev.kernels]
+        for ch in ev.cpu_children:
+            out += kernels(ch)
+        return out
+
+    def ms(ks, gemm_only=False):
+        return sum(d for n, d in ks if is_gemm(n) or not gemm_only) / 1e3
+
+    ranges = ("lm_moe_ffn", "lm_moe_experts")
+    events = prof.events()
+    on_dev = [(e.name, e.device_time_total) for e in events
+              if e.device_type == DeviceType.CUDA and e.name not in ranges]
+    moe, exp = ([k for e in events if e.name == r
+                 and e.device_type == DeviceType.CPU for k in kernels(e)]
+                for r in ranges)
+    flash = [k for k in on_dev if "flash_fwd_kernel" in k[0]]
+    out = dict(device_busy_ms=ms(on_dev), flash_ms=ms(flash),
+               experts_ms=ms(exp), experts_cublas_ms=ms(exp, True),
+               moe_rest_ms=ms(moe) - ms(exp),
+               moe_rest_cublas_ms=ms(moe, True) - ms(exp, True),
+               other_ms=ms(on_dev) - ms(moe) - ms(flash),
+               other_cublas_ms=ms(on_dev, True) - ms(moe, True))
+    top: dict = {}
+    for name, d in on_dev:
+        top[name[:80]] = top.get(name[:80], 0.0) + d / 1e3
+    out["top_kernels_ms"] = dict(sorted(top.items(), key=lambda t: -t[1])[:6])
+    return out
 
 
 def flash_phase(q, k, v) -> dict:
@@ -736,8 +1053,105 @@ def flash_phase(q, k, v) -> dict:
             q128s, k128s, v128s, is_causal=True, scale=128 ** -0.5)),
         d128_bound_ms=bound(4 * 4 * b * h * s * 128 + 4 * 2 * b * h * s,
                             6 * ops, TF32_OPS_PER_S)[0])
+    res["lm_shapes"] = flash_lm_shapes()
+    res["max_abs_err"] = max(res["max_abs_err"], *(
+        c["max_abs_err"] for c in res["lm_shapes"].values()))
     log(f"[flash] times: {json.dumps(res)}")
     return res
+
+
+def visible_pairs(sq: int, window=None) -> int:
+    """(query, key) pairs a causal (windowed) attention over ``sq`` rows
+    sees, per head."""
+    i = np.arange(sq, dtype=np.int64)
+    seen = i + 1 if window is None else np.minimum(i + 1, window)
+    return int(seen.sum())
+
+
+# (tag, batch, seq, heads, kv heads, d, dv, window, softcap, scale): the
+# model's attention_bshd call at gemma2-27b's local and global layers and at
+# deepseek-v2-236b's MLA layers (v a column slice of kv, as the model's),
+# and the gemma2 shape at scale 1, where scores of ~11 standard deviations
+# make the cap bend them
+FLASH_LM_SHAPES = (
+    ("gemma2 local", 2, 6144, 32, 16, 128, 128, 4096, 50.0, 128 ** -0.5),
+    ("gemma2 global", 2, 6144, 32, 16, 128, 128, None, 50.0, 128 ** -0.5),
+    ("gemma2 local, scale 1", 2, 6144, 32, 16, 128, 128, 4096, 50.0, 1.0),
+    ("deepseek-v2 MLA", 8, 2048, 128, 128, 192, 128, None, None,
+     192 ** -0.5))
+
+
+def flash_lm_shapes() -> dict:
+    """The flash kernel through ``attention_bshd`` at the served models'
+    layer shapes (``FLASH_LM_SHAPES``), float32 from a seeded generator,
+    against ``attention_bshd_ref`` (one batch row at a time) within 1e-4;
+    CUDA-event times beside the operations bound (3xTF32 products: 2 (D +
+    Dv) flops per visible pair, three TF32 products each), the plain version
+    and one library call that computes the same function: under a softcap
+    ``flex_attention`` (``torch_timing.flex_attention_ms``; held to the
+    plain version within 1e-3), else ``scaled_dot_product_attention`` where
+    it takes the case (no window, as many KV heads as query heads)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash import ops as fops
+    from repro_torch.kernels.flash import ref as fref
+
+    gen = torch.Generator("cuda").manual_seed(SEED + 1)
+    out = {}
+    for tag, b, s, h, hkv, d, dv, window, cap, scale in FLASH_LM_SHAPES:
+        q = torch.randn(b, s, h, d, generator=gen, device="cuda")
+        k = torch.randn(b, s, hkv, d, generator=gen, device="cuda")
+        if dv < d:      # MLA: k_nope and v are column slices of one kv
+            kv = torch.randn(b, s, hkv, dv + dv, generator=gen, device="cuda")
+            v = kv[..., dv:]
+        else:
+            v = torch.randn(b, s, hkv, dv, generator=gen, device="cuda")
+        kw = dict(causal=True, window=window, softcap=cap, q_offset=0,
+                  kv_len=s, scale=scale)
+        got = fops.attention_bshd(q, k, v, **kw)
+        torch.cuda.synchronize()
+
+        def plain():
+            return torch.cat([fref.attention_bshd_ref(
+                q[i:i + 1], k[i:i + 1], v[i:i + 1], **kw) for i in range(b)])
+        want = plain()
+        err = float((got - want).abs().max())
+        check(tuple(got.shape) == (b, s, h, dv) and err <= 1e-4,
+              f"flash {tag}: attention_bshd within 1e-4 of its plain version"
+              f" (max abs err {err})")
+        case = dict(shape=[b, s, h, hkv, d, dv], window=window, softcap=cap,
+                    scale=scale, max_abs_err=err)
+        if cap:
+            bare = fops.attention_bshd(q, k, v, **{**kw, "softcap": None})
+            case["cap_moves_output_by"] = float((bare - got).abs().max())
+            del bare
+        pairs = visible_pairs(s, window) * b * h
+        n_bytes = 4 * (q.numel() + k.numel() + v.numel() + b * s * h * dv)
+        case["bound_ms"], case["bound_by"] = bound(
+            n_bytes, 3 * 2 * (d + dv) * pairs, TF32_OPS_PER_S)
+        case["ms"] = cuda_ms(lambda: fops.attention_bshd(q, k, v, **kw))
+        case["plain_ms"] = cuda_ms(plain, iters=2, warmup=1)
+        case["library_ms"] = None
+        if cap:
+            case["library_ms"], lib = flex_attention_ms(
+                q, k, v, window=window, softcap=cap, scale=scale)
+            lib_err = float((lib - want).abs().max())
+            check(lib_err <= 1e-3, f"flash {tag}: flex_attention (the "
+                  f"yardstick) within 1e-3 of the plain version (max abs err"
+                  f" {lib_err})")
+            case.update(library="flex_attention", library_max_abs_err=lib_err)
+            del lib
+        elif window is None and hkv == h:
+            qs, ks, vs = (x.transpose(1, 2) for x in (q, k, v))
+            case["library_ms"] = cuda_ms(
+                lambda: F.scaled_dot_product_attention(
+                    qs, ks, vs, is_causal=True, scale=scale))
+            case["library"] = "scaled_dot_product_attention"
+        log(f"[flash] {tag}: {json.dumps(case)}")
+        out[tag] = case
+        del q, k, v, got, want
+        torch.cuda.empty_cache()
+    return out
 
 
 @contextlib.contextmanager
@@ -3345,6 +3759,10 @@ def main() -> int:
     # -- 10. small LMs: card vs the CPU's plain versions -----------------------
     lm_small_phase()
 
+    # -- 10b. olmoe-1b-7b, deepseek-v2-236b, gemma2-27b: MoE, MLA, softcap ----
+    moe = lm_moe_phase(all_kernels)
+    torch.cuda.empty_cache()
+
     # -- 11. the flash kernel vs its plain versions on layer 0's q/k/v ---------
     fl = flash_phase(*lm.pop("qkv"))
     torch.cuda.empty_cache()
@@ -3404,7 +3822,9 @@ def main() -> int:
         **{path: n.get(name, 0) for path, n in sh["launches"].items()},
         **{path: n.get(name, 0) for path, n in ss["launches"].items()},
         **{path: n[name] for path, n in zoo["launches"].items()},
-        lm_generate=lm["launches"][name]) for name in all_kernels}
+        lm_generate=lm["launches"][name],
+        **{f"{arch}_generate": run["launches"][name]
+           for arch, run in moe.items()}) for name in all_kernels}
     summary = []
     for name, meta in kernels.items():
         key, lib = times[name]
@@ -3461,7 +3881,8 @@ def main() -> int:
         bound_ms=fl["bound_ms"], bound_by=fl["bound_by"],
         library_ms=fl["library_ms"], shape=fl["shape"],
         model_call_ms=fl["bshd_ms"], model_call_bound_ms=fl["bshd_bound_ms"],
-        d128_ms=fl["d128_ms"], d128_library_ms=fl["d128_library_ms"]))
+        d128_ms=fl["d128_ms"], d128_library_ms=fl["d128_library_ms"],
+        lm_shapes=fl["lm_shapes"]))
     sm = zoo["seg_max"]
     summary.append(dict(
         name="seg_max_csr", route="cuda",

@@ -1,15 +1,18 @@
 // Flash-attention forward on Hopper: for each query row, an online softmax
 // over the visible keys,
 //   m = max_k s[k],  l = sum_k exp(s[k] - m),  acc = sum_k exp(s[k] - m) v[k],
-// with s[k] = (scale * q) . k[k], causal and sliding-window masks and a
-// kv_len bound. It writes either the raw (acc, m, l) or the normalised
-// attention acc / max(l, 1e-30), as float32.
+// with s[k] = (scale * q) . k[k], or cap * tanh((scale * q) . k[k] / cap)
+// under a logit softcap (gemma2), causal and sliding-window masks and a
+// kv_len bound. q and k are D wide, v (and the output) Dv <= D wide (MLA:
+// D = d_nope + d_rope = 192, Dv = 128). It writes either the raw
+// (acc, m, l) or the normalised attention acc / max(l, 1e-30), as float32.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/flash/flash.py
 // (_flash_kernel, :32, pallas_call :99, called through flash_fwd :76 and
 // kernels/flash/ops.py::flash_attention). On the LM serving path it is every
 // prefill layer's attention, the counterpart of
-// src/repro/models/lm/model.py::blockwise_attention.
+// src/repro/models/lm/model.py::blockwise_attention, which adds the softcap
+// and the separate value width that the Pallas kernel lacks.
 //
 // What bounds it on an H100: operations. Per visible (query, key) pair it
 // does 2*D flops for the score and 2*D for the value product; at the serving
@@ -28,9 +31,15 @@
 //     rows get the lowest block index).
 //   * q is scaled once in float32 by scale * log2(e) (exp2 then gives
 //     exp), zero-padded to DP (a multiple of 8) columns and kept in shared
-//     memory. K/V tiles are double-buffered in shared memory: the tile after
-//     the current one is copied with 16-byte cp.async (float32 inputs whose
-//     rows are 16-byte aligned) or loaded and converted by the threads
+//     memory. Under a softcap (a template flag, CAP, so that the uncapped
+//     instances carry neither the branch nor its registers) q is scaled by
+//     scale alone: the cap's tanh (tanhf, accurate: tanh.approx's ~2^-11
+//     relative error would show in the LM's logits) takes the natural-unit
+//     score, and cap * log2(e) multiplies its result. v is zero-padded to
+//     DV columns of its own, so a narrower v costs neither shared memory nor
+//     PV products. K/V tiles are double-buffered in shared memory: the tile
+//     after the current one is copied with 16-byte cp.async (float32 inputs
+//     whose rows are 16-byte aligned) or loaded and converted by the threads
 //     (bf16 / f16 inputs, other strides) while the current one is computed.
 //     Rows are padded to LD = 4 (mod 32) floats, so every fragment load of
 //     a warp hits 32 distinct banks.
@@ -75,9 +84,10 @@ struct Params {
   int64_t o_sb, o_ss, o_sh;
   int64_t sq, kv_end;  // kv_end = min(skv, kv_len)
   int64_t window;      // <= 0: none
-  int heads, group, d, causal, normalize;
+  int heads, group, d, dv, causal, normalize;
   int async_kv;        // K/V rows may be copied as 16-byte cp.async chunks
   float scale;
+  float softcap;       // <= 0: none
 };
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -171,30 +181,35 @@ __device__ __forceinline__ void copy_rows_async(float* tile, const float* base,
   }
 }
 
-template <typename T, int DP, int NW, int BK>
+template <int DP, int DV, int NW, int BK>
 struct Cfg {
   static constexpr int kThreads = NW * 32;
   static constexpr int BQ = NW * 16;
-  static constexpr int LD = (DP + 31) / 32 * 32 + 4;  // = 4 (mod 32)
-  static constexpr size_t kSmem = (size_t)(BQ + 4 * BK) * LD * sizeof(float);
+  static constexpr int LD = (DP + 31) / 32 * 32 + 4;   // = 4 (mod 32)
+  static constexpr int LDV = (DV + 31) / 32 * 32 + 4;  // = 4 (mod 32)
+  static constexpr size_t kSmem =
+      (size_t)((BQ + 2 * BK) * LD + 2 * BK * LDV) * sizeof(float);
   static constexpr int kMinBlocks = kSmem * 2 <= 227 * 1024 ? 2 : 1;
+  static_assert(kSmem <= 227 * 1024, "tiles exceed the shared memory");
+  static_assert(DV <= DP && DV % 8 == 0 && DP % 8 == 0, "head widths");
 };
 
-template <typename T, int DP, int NW, int BK>
-__global__ void __launch_bounds__(Cfg<T, DP, NW, BK>::kThreads,
-                                  Cfg<T, DP, NW, BK>::kMinBlocks)
+template <typename T, int DP, int DV, int NW, int BK, bool CAP>
+__global__ void __launch_bounds__(Cfg<DP, DV, NW, BK>::kThreads,
+                                  Cfg<DP, DV, NW, BK>::kMinBlocks)
 flash_fwd_kernel(const Params p) {
-  using C = Cfg<T, DP, NW, BK>;
+  using C = Cfg<DP, DV, NW, BK>;
   constexpr int NT = C::kThreads;
   constexpr int BQ = C::BQ;
   constexpr int LD = C::LD;
+  constexpr int LDV = C::LDV;
   constexpr int KS = DP / 8;  // k-steps of the score product
   constexpr int NKT = BK / 8; // 8-key groups of a tile
-  constexpr int NDT = DP / 8; // 8-column groups of the output
+  constexpr int NDT = DV / 8; // 8-column groups of the output
   extern __shared__ float4 smem4[];
   float* sQ = reinterpret_cast<float*>(smem4);
   float* sK = sQ + BQ * LD;       // 2 buffers
-  float* sV = sK + 2 * BK * LD;   // 2 buffers
+  float* sV = sK + 2 * BK * LD;   // 2 buffers of LDV-float rows
 
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -213,8 +228,9 @@ flash_fwd_kernel(const Params p) {
   const T* kb = static_cast<const T*>(p.k) + b * p.k_sb + hk * p.k_sh;
   const T* vb = static_cast<const T*>(p.v) + b * p.v_sb + hk * p.v_sh;
   // q in float32, times scale (as the Pallas kernel does), times log2(e)
+  // unless the softcap's tanh needs the score in natural units first
   load_rows<T, BQ, DP, LD, NT>(sQ, qb, p.q_ss, q_lo, p.sq, p.d,
-                               p.scale * kLog2e);
+                               CAP ? p.scale : p.scale * kLog2e);
 
   // the key range any row of this block can see
   int64_t k_stop = p.kv_end;
@@ -226,18 +242,20 @@ flash_fwd_kernel(const Params p) {
 
   auto load_kv = [&](int buf, int64_t k_lo) {
     float* k_dst = sK + buf * BK * LD;
-    float* v_dst = sV + buf * BK * LD;
+    float* v_dst = sV + buf * BK * LDV;
     if constexpr (sizeof(T) == 4) {
       if (p.async_kv) {
         copy_rows_async<BK, DP, LD, NT>(k_dst, reinterpret_cast<const float*>(kb),
                                         p.k_ss, k_lo, p.kv_end, p.d);
-        copy_rows_async<BK, DP, LD, NT>(v_dst, reinterpret_cast<const float*>(vb),
-                                        p.v_ss, k_lo, p.kv_end, p.d);
+        copy_rows_async<BK, DV, LDV, NT>(v_dst,
+                                         reinterpret_cast<const float*>(vb),
+                                         p.v_ss, k_lo, p.kv_end, p.dv);
         return;
       }
     }
     load_rows<T, BK, DP, LD, NT>(k_dst, kb, p.k_ss, k_lo, p.kv_end, p.d, 1.f);
-    load_rows<T, BK, DP, LD, NT>(v_dst, vb, p.v_ss, k_lo, p.kv_end, p.d, 1.f);
+    load_rows<T, BK, DV, LDV, NT>(v_dst, vb, p.v_ss, k_lo, p.kv_end, p.dv,
+                                  1.f);
   };
 
   float o[NDT][4];
@@ -267,7 +285,7 @@ flash_fwd_kernel(const Params p) {
         !(p.window > 0 && k_lo + BK - 1 < wq_lo - p.window + 1);
     if (active) {
       const float* Kt = sK + (i & 1) * BK * LD;
-      const float* Vt = sV + (i & 1) * BK * LD;
+      const float* Vt = sV + (i & 1) * BK * LDV;
 
       // scores: (16 rows) x (BK keys), s[j] holds keys 8j + 2t, 8j + 2t + 1
       float s[NKT][4];
@@ -287,6 +305,15 @@ flash_fwd_kernel(const Params p) {
           const float bk[2] = {kr[0], kr[4]};
           mma_3xtf32(s[j], a_big, a_small, bk);
         }
+      }
+      if constexpr (CAP) {  // cap * tanh(score / cap), in log2 units
+        const float cap_log2e = p.softcap * kLog2e;
+        const float inv_cap = 1.f / p.softcap;
+#pragma unroll
+        for (int j = 0; j < NKT; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            s[j][e] = cap_log2e * tanhf(s[j][e] * inv_cap);
       }
 
       // masks, where some score of this warp's rows is not visible
@@ -342,10 +369,10 @@ flash_fwd_kernel(const Params p) {
         const float a[4] = {s[kk][0], s[kk][2], s[kk][1], s[kk][3]};
         uint32_t a_big[4], a_small[4];
         split_tf32(a, a_big, a_small);
-        const float* vr = Vt + (kk * 8 + 2 * t) * LD + g;
+        const float* vr = Vt + (kk * 8 + 2 * t) * LDV + g;
 #pragma unroll
         for (int j = 0; j < NDT; ++j) {
-          const float bv[2] = {vr[j * 8], vr[LD + j * 8]};
+          const float bv[2] = {vr[j * 8], vr[LDV + j * 8]};
           mma_3xtf32(o[j], a_big, a_small, bv);
         }
       }
@@ -368,7 +395,7 @@ flash_fwd_kernel(const Params p) {
       for (int e = 0; e < 2; ++e) {
         const int col = j * 8 + 2 * t + e;
         const float x = o[j][2 * rr + e];
-        if (col < p.d) orow[col] = p.normalize ? __fdiv_rn(x, den) : x;
+        if (col < p.dv) orow[col] = p.normalize ? __fdiv_rn(x, den) : x;
       }
     if (t == 0 && p.m != nullptr) {
       p.m[(int64_t)bh * p.sq + qp] =
@@ -378,30 +405,44 @@ flash_fwd_kernel(const Params p) {
   }
 }
 
-template <typename T, int DP, int NW, int BK>
+template <typename T, int DP, int DV, int NW, int BK, bool CAP>
 cudaError_t launch(const Params& p, int64_t batch, cudaStream_t stream) {
-  using C = Cfg<T, DP, NW, BK>;
+  using C = Cfg<DP, DV, NW, BK>;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, DP, NW, BK>,
+      flash_fwd_kernel<T, DP, DV, NW, BK, CAP>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::kSmem);
   if (err != cudaSuccess) return err;
   const dim3 grid((unsigned)((p.sq + C::BQ - 1) / C::BQ),
                   (unsigned)(batch * p.heads));
-  flash_fwd_kernel<T, DP, NW, BK><<<grid, C::kThreads, C::kSmem, stream>>>(p);
+  flash_fwd_kernel<T, DP, DV, NW, BK, CAP>
+      <<<grid, C::kThreads, C::kSmem, stream>>>(p);
   return cudaGetLastError();
 }
 
+// DV: v's width padded to the template's. A narrower v gets tiles of its
+// own width only where a served model has one, in float32 (the LM's serving
+// dtype) without a softcap: MLA's DP 192 / DV 128, and DP 32 / DV 16 of its
+// reduced config (DVN > 0). Any other v is padded to DP inside the tiles.
+template <typename T, int DP, int DVN, int NW, int BK, bool CAP>
+cudaError_t dispatch_dv(const Params& p, int64_t batch, cudaStream_t stream) {
+  if constexpr (sizeof(T) == 4 && DVN > 0 && !CAP)
+    if (p.dv <= DVN) return launch<T, DP, DVN, NW, BK, false>(p, batch, stream);
+  return launch<T, DP, DP, NW, BK, CAP>(p, batch, stream);
+}
+
 // DP: the head width padded to the template's; blocks of 8 warps (128 query
-// rows) and 64-key tiles up to DP = 64, 32-key tiles at DP = 128 (half the
-// score registers, the faster of the two on an H100), and 4 warps with
-// 32-key tiles at DP = 256 to stay in shared memory.
-template <typename T>
+// rows) and 64-key tiles up to DP = 64, 32-key tiles at DP = 128 and 192
+// (half the score registers, the faster of the two on an H100 at 128), and
+// 4 warps with 32-key tiles at DP = 256 to stay in shared memory.
+template <typename T, bool CAP>
 cudaError_t dispatch_d(const Params& p, int64_t batch, cudaStream_t stream) {
-  if (p.d <= 16) return launch<T, 16, 8, 64>(p, batch, stream);
-  if (p.d <= 32) return launch<T, 32, 8, 64>(p, batch, stream);
-  if (p.d <= 64) return launch<T, 64, 8, 64>(p, batch, stream);
-  if (p.d <= 128) return launch<T, 128, 8, 32>(p, batch, stream);
-  if (p.d <= 256) return launch<T, 256, 4, 32>(p, batch, stream);
+  if (p.d <= 16) return dispatch_dv<T, 16, 0, 8, 64, CAP>(p, batch, stream);
+  if (p.d <= 32) return dispatch_dv<T, 32, 16, 8, 64, CAP>(p, batch, stream);
+  if (p.d <= 64) return dispatch_dv<T, 64, 0, 8, 64, CAP>(p, batch, stream);
+  if (p.d <= 128) return dispatch_dv<T, 128, 0, 8, 32, CAP>(p, batch, stream);
+  if (p.d <= 192)
+    return dispatch_dv<T, 192, 128, 8, 32, CAP>(p, batch, stream);
+  if (p.d <= 256) return dispatch_dv<T, 256, 0, 4, 32, CAP>(p, batch, stream);
   return cudaErrorInvalidValue;
 }
 
@@ -420,17 +461,19 @@ const char* repro_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
-// q: (batch, sq, heads, d), k/v: (batch, skv, kv_heads, d), each with element
-// strides {batch, seq, head} in `strides[0..8]` (q, k, v) and a contiguous
-// last dim; out: float32 with strides `strides[9..11]`; m/l: float32
+// q: (batch, sq, heads, d), k: (batch, skv, kv_heads, d), v: (batch, skv,
+// kv_heads, dv), each with element strides {batch, seq, head} in
+// `strides[0..8]` (q, k, v) and a contiguous last dim; out: float32
+// (batch, sq, heads, dv) with strides `strides[9..11]`; m/l: float32
 // (batch*heads, sq) or null. dtype: 0 float32, 1 bfloat16, 2 float16.
-// window <= 0 means none; causal and normalize are 0 or 1.
+// window <= 0 and softcap <= 0 mean none; causal and normalize are 0 or 1.
 int flash_fwd(const void* q, const void* k, const void* v, float* out,
               float* m, float* l, int dtype, int64_t batch, int heads,
-              int kv_heads, int64_t sq, int64_t skv, int d,
-              const int64_t* strides, float scale, int causal, int64_t window,
-              int64_t kv_len, int normalize, void* stream) {
-  if (d < 1 || d > 256 || heads < 1 || kv_heads < 1 || heads % kv_heads != 0)
+              int kv_heads, int64_t sq, int64_t skv, int d, int dv,
+              const int64_t* strides, float scale, float softcap, int causal,
+              int64_t window, int64_t kv_len, int normalize, void* stream) {
+  if (d < 1 || d > 256 || dv < 1 || dv > d || heads < 1 || kv_heads < 1 ||
+      heads % kv_heads != 0)
     return (int)cudaErrorInvalidValue;
   Params p;
   p.q = q; p.k = k; p.v = v; p.out = out; p.m = m; p.l = l;
@@ -441,16 +484,21 @@ int flash_fwd(const void* q, const void* k, const void* v, float* out,
   p.sq = sq;
   p.kv_end = kv_len < skv ? kv_len : skv;
   p.window = window;
-  p.heads = heads; p.group = heads / kv_heads; p.d = d;
+  p.heads = heads; p.group = heads / kv_heads; p.d = d; p.dv = dv;
   p.causal = causal; p.normalize = normalize; p.scale = scale;
+  p.softcap = softcap;
   p.async_kv = dtype == 0 && aligned16(k, strides + 3, d) &&
-               aligned16(v, strides + 6, d);
+               aligned16(v, strides + 6, dv);
   if (sq == 0 || batch == 0) return (int)cudaSuccess;
   cudaStream_t s = (cudaStream_t)stream;
   cudaError_t err;
-  if (dtype == 0) err = dispatch_d<float>(p, batch, s);
-  else if (dtype == 1) err = dispatch_d<__nv_bfloat16>(p, batch, s);
-  else if (dtype == 2) err = dispatch_d<__half>(p, batch, s);
+  // softcapped instances exist in float32 only: the wrapper widens bf16 /
+  // f16 inputs under a softcap (the kernel computes in float32 anyway)
+  if (dtype == 0 && softcap > 0.f) err = dispatch_d<float, true>(p, batch, s);
+  else if (softcap > 0.f) err = cudaErrorInvalidValue;
+  else if (dtype == 0) err = dispatch_d<float, false>(p, batch, s);
+  else if (dtype == 1) err = dispatch_d<__nv_bfloat16, false>(p, batch, s);
+  else if (dtype == 2) err = dispatch_d<__half, false>(p, batch, s);
   else err = cudaErrorInvalidValue;
   return (int)err;
 }

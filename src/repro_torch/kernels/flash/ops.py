@@ -8,14 +8,18 @@ like with like:
 * :func:`flash_attention` — the normalised attention
   (``repro/kernels/flash/ops.py:15``);
 * :func:`attention_bshd` — the LM's prefill attention in the model's own
-  (B, S, H, D) layout with GQA (``repro/models/lm/model.py:126``
+  (B, S, H, D) layout with GQA, the attention-logit softcap and values
+  narrower than the queries (MLA) (``repro/models/lm/model.py:126``
   ``blockwise_attention``); the LM calls this one.
 
-A CPU tensor goes to the plain version in ``ref.py``. Any other tensor goes
+Every entry point takes a ``v`` of width Dv <= D and returns Dv columns. A
+CPU tensor goes to the plain version in ``ref.py``. Any other tensor goes
 to the kernel: the wrapper first refuses what the kernel does not compute
-(``softcap``, a nonzero ``q_offset``, non-float dtypes, head widths above
-256) and then anything not on a CUDA device. ``FLASH_FWD.launches`` counts
-the launches.
+(a nonzero ``q_offset``, non-float dtypes, head widths above 256, a ``v``
+wider than ``q``) and then anything not on a CUDA device. The kernel's
+softcapped instances are float32 only: under a softcap ``attention_bshd``
+widens bfloat16 / float16 inputs to float32 first (the kernel computes in
+float32 whatever it loads). ``FLASH_FWD.launches`` counts the launches.
 
 Block sizes (``blk_q``, ``blk_k``, ``block``) are the plain version's, as in
 the JAX package; the kernel tiles by its own (128 query rows x 64 keys up to
@@ -36,20 +40,19 @@ _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 
 FLASH_FWD = Kernel("flash_fwd", "flash.cu",
                    [_P, _P, _P, _P, _P, _P, _I, _I64, _I, _I, _I64, _I64, _I,
-                    _P, ctypes.c_float, _I, _I64, _I64, _I, _P])
+                    _I, _P, ctypes.c_float, ctypes.c_float, _I, _I64, _I64,
+                    _I, _P])
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 MAX_D = 256
 MAX_BATCH_HEADS = 65535     # the grid's y dimension
 
 
-def _check_kernel_args(q, k, v, *, softcap=None, q_offset=0) -> None:
+def _check_kernel_args(q, k, v, *, q_offset=0, softcap=None) -> None:
     """Raise for what the kernel does not compute, then for a device that
     is not CUDA."""
-    if softcap is not None:
-        raise NotImplementedError(
-            "the flash kernel has no attention-logit softcap (gemma2; ROADMAP "
-            "queue A); on the CPU the plain version has one")
+    if softcap is not None and softcap < 0:
+        raise ValueError(f"softcap must be positive or None, got {softcap}")
     if q_offset != 0:
         raise NotImplementedError(
             "the flash kernel takes q_offset 0 only (prefill); ROADMAP queue A")
@@ -62,10 +65,10 @@ def _check_kernel_args(q, k, v, *, softcap=None, q_offset=0) -> None:
     if not q.dtype == k.dtype == v.dtype:
         raise TypeError(f"q, k, v must share a dtype, got {q.dtype}, "
                         f"{k.dtype}, {v.dtype}")
-    if not q.shape[-1] == k.shape[-1] == v.shape[-1] or q.shape[-1] > MAX_D:
+    if not q.shape[-1] == k.shape[-1] >= v.shape[-1] or q.shape[-1] > MAX_D:
         raise ValueError(f"the flash kernel takes one head width D <= {MAX_D}"
-                         f" for q, k and v, got {q.shape[-1]}, {k.shape[-1]},"
-                         f" {v.shape[-1]}")
+                         f" for q and k and a width Dv <= D for v, got "
+                         f"{q.shape[-1]}, {k.shape[-1]}, {v.shape[-1]}")
     if q.device.type != "cuda":
         raise ValueError(f"q must be on the CPU or a CUDA device, got "
                          f"{q.device}")
@@ -74,7 +77,7 @@ def _check_kernel_args(q, k, v, *, softcap=None, q_offset=0) -> None:
 
 
 def _launch(q, k, v, out, m, l, *, batch, heads, kv_heads, sq, skv, strides,
-            scale, causal, window, kv_len, normalize) -> None:
+            scale, causal, window, kv_len, normalize, softcap=None) -> None:
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1 or None, got {window}")
     if batch * heads > MAX_BATCH_HEADS:
@@ -84,7 +87,8 @@ def _launch(q, k, v, out, m, l, *, batch, heads, kv_heads, sq, skv, strides,
               None if m is None else m.data_ptr(),
               None if l is None else l.data_ptr(),
               _DTYPES[q.dtype], batch, heads, kv_heads, sq, skv, q.shape[-1],
-              (ctypes.c_int64 * 12)(*strides), scale, int(causal),
+              v.shape[-1], (ctypes.c_int64 * 12)(*strides), scale,
+              float(softcap or 0.0), int(causal),
               0 if window is None else window, kv_len, int(normalize),
               torch.cuda.current_stream(q.device).cuda_stream)
 
@@ -92,24 +96,25 @@ def _launch(q, k, v, out, m, l, *, batch, heads, kv_heads, sq, skv, strides,
 def flash_fwd(q, k, v, *, blk_q: int = 128, blk_k: int = 128,
               causal: bool = True, scale: float = 1.0,
               window: Optional[int] = None):
-    """(BH, Sq, D) x (BH, Skv, D) -> (acc, m, l), float32; out = acc / l."""
+    """(BH, Sq, D) x (BH, Skv, D) x (BH, Skv, Dv) -> (acc (BH, Sq, Dv), m,
+    l), float32; out = acc / l."""
     if q.dim() != 3 or k.dim() != 3 or v.dim() != 3 \
-            or k.shape != v.shape or q.shape[0] != k.shape[0]:
-        raise ValueError(f"q must be (BH, Sq, D) and k, v (BH, Skv, D), got "
-                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
-                         f"{tuple(v.shape)}")
+            or k.shape[:2] != v.shape[:2] or q.shape[0] != k.shape[0]:
+        raise ValueError(f"q must be (BH, Sq, D), k (BH, Skv, D) and v "
+                         f"(BH, Skv, Dv), got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
     if q.device.type == "cpu":
         return _r.flash_fwd_ref(q, k, v, blk_q=blk_q, blk_k=blk_k,
                                 causal=causal, scale=scale, window=window)
     _check_kernel_args(q, k, v)
-    bh, sq, d = q.shape
-    skv = k.shape[1]
-    acc = torch.empty((bh, sq, d), dtype=torch.float32, device=q.device)
+    bh, sq, _ = q.shape
+    skv, dv = k.shape[1], v.shape[-1]
+    acc = torch.empty((bh, sq, dv), dtype=torch.float32, device=q.device)
     m = torch.empty((bh, sq), dtype=torch.float32, device=q.device)
     l = torch.empty((bh, sq), dtype=torch.float32, device=q.device)
     # each (BH, S, D) tensor is a batch of BH single-head sequences
     strides = [q.stride(0), q.stride(1), 0, k.stride(0), k.stride(1), 0,
-               v.stride(0), v.stride(1), 0, sq * d, d, 0]
+               v.stride(0), v.stride(1), 0, sq * dv, dv, 0]
     _launch(q, k, v, acc, m, l, batch=bh, heads=1, kv_heads=1, sq=sq,
             skv=skv, strides=strides, scale=scale, causal=causal,
             window=window, kv_len=skv, normalize=False)
@@ -130,9 +135,11 @@ flash_ref = _r.flash_ref
 def attention_bshd(q, k, v, *, causal: bool, window: Optional[int],
                    softcap: Optional[float], q_offset: int, kv_len: int,
                    block: int = 1024, scale: float = 1.0) -> torch.Tensor:
-    """q: (B, Sq, H, D); k/v: (B, Skv, Hkv, D) -> (B, Sq, H, D) in q's dtype.
-    Query head ``h`` reads KV head ``h // (H / Hkv)``; masks at absolute
-    query positions ``q_offset + i`` and keys below ``kv_len``.
+    """q: (B, Sq, H, D); k: (B, Skv, Hkv, D); v: (B, Skv, Hkv, Dv), Dv <= D
+    -> (B, Sq, H, Dv) in q's dtype. Query head ``h`` reads KV head
+    ``h // (H / Hkv)``; masks at absolute query positions ``q_offset + i``
+    and keys below ``kv_len``; ``softcap`` caps each score at
+    ``softcap * tanh(score / softcap)`` before the softmax.
 
     The kernel scales q in float32, as the Pallas kernel does; the plain
     version scales it in q's dtype, as ``blockwise_attention`` does. The two
@@ -141,20 +148,28 @@ def attention_bshd(q, k, v, *, causal: bool, window: Optional[int],
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4 \
             or k.shape[:3] != v.shape[:3] or q.shape[0] != k.shape[0] \
             or q.shape[2] % k.shape[2] != 0:
-        raise ValueError(f"q must be (B, Sq, H, D) and k, v (B, Skv, Hkv, D) "
-                         f"with Hkv dividing H, got {tuple(q.shape)}, "
+        raise ValueError(f"q must be (B, Sq, H, D), k (B, Skv, Hkv, D) and v "
+                         f"(B, Skv, Hkv, Dv) with Hkv dividing H, got "
+                         f"{tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
     if q.device.type == "cpu":
         return _r.attention_bshd_ref(q, k, v, causal=causal, window=window,
                                      softcap=softcap, q_offset=q_offset,
                                      kv_len=kv_len, block=block, scale=scale)
-    _check_kernel_args(q, k, v, softcap=softcap, q_offset=q_offset)
-    b, sq, h, d = q.shape
+    _check_kernel_args(q, k, v, q_offset=q_offset, softcap=softcap)
+    dtype = q.dtype
+    if softcap and dtype != torch.float32:
+        # the softcapped instances are float32 only; the kernel widens
+        # bf16 / f16 to float32 as it loads them, so this is the same sum
+        q, k, v = q.float(), k.float(), v.float()
+    b, sq, h, _ = q.shape
     skv, hkv = k.shape[1], k.shape[2]
-    out = torch.empty((b, sq, h, d), dtype=torch.float32, device=q.device)
+    out = torch.empty((b, sq, h, v.shape[-1]), dtype=torch.float32,
+                      device=q.device)
     strides = [*q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                *out.stride()[:3]]
     _launch(q, k, v, out, None, None, batch=b, heads=h, kv_heads=hkv, sq=sq,
             skv=skv, strides=strides, scale=scale, causal=causal,
-            window=window, kv_len=max(0, min(kv_len, skv)), normalize=True)
-    return out.to(q.dtype)
+            window=window, kv_len=max(0, min(kv_len, skv)), normalize=True,
+            softcap=softcap)
+    return out.to(dtype)

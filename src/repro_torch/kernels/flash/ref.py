@@ -1,7 +1,7 @@
 """Plain PyTorch versions of the flash-attention forward (``csrc/flash.cu``).
 
 * :func:`flash_ref` — a copy of ``repro/kernels/flash/ref.py``: dense
-  O(S^2) softmax attention over (BH, S, D).
+  O(S^2) softmax attention over (BH, S, D), v (BH, S, Dv).
 * :func:`flash_fwd_ref` — the Pallas kernel's arithmetic
   (``repro/kernels/flash/flash.py::_flash_kernel``) block by block: q scaled
   in float32, online softmax over KV blocks, the causal block skip, raw
@@ -9,7 +9,7 @@
   at the serving path's shapes on the card.
 * :func:`attention_bshd_ref` — the LM's ``blockwise_attention``
   (``repro/models/lm/model.py:126``): (B, S, H, D) layout, GQA, ``kv_len``,
-  window and softcap, q scaled in its own dtype.
+  window and softcap, v of its own width Dv, q scaled in its own dtype.
 
 Masked scores contribute exactly 0 here and in the kernel
 (``p = where(mask, exp(s - m), 0)``). For every query row that sees at least
@@ -42,7 +42,8 @@ def _mask(q_pos: torch.Tensor, kv_pos: torch.Tensor, *, causal: bool,
 
 def flash_ref(q, k, v, *, causal: bool = True, scale: float = 1.0,
               window: Optional[int] = None) -> torch.Tensor:
-    """q: (BH, Sq, D); k/v: (BH, Skv, D) -> (BH, Sq, D). O(S^2) reference."""
+    """q: (BH, Sq, D); k: (BH, Skv, D); v: (BH, Skv, Dv) -> (BH, Sq, Dv).
+    O(S^2) reference."""
     logits = torch.einsum("bqd,bkd->bqk", q * scale, k).float()
     sq, skv = q.shape[1], k.shape[1]
     dev = q.device
@@ -69,13 +70,13 @@ def online_softmax_step(m, l, acc, s, mask, vc):
 def flash_fwd_ref(q, k, v, *, blk_q: int = 128, blk_k: int = 128,
                   causal: bool = True, scale: float = 1.0,
                   window: Optional[int] = None):
-    """(BH, Sq, D) x (BH, Skv, D) -> raw (acc (BH, Sq, D), m (BH, Sq),
-    l (BH, Sq)), all float32; the attention is ``acc / l``."""
-    bh, sq, d = q.shape
-    skv = k.shape[1]
+    """(BH, Sq, D) x (BH, Skv, D) x (BH, Skv, Dv) -> raw (acc (BH, Sq, Dv),
+    m (BH, Sq), l (BH, Sq)), all float32; the attention is ``acc / l``."""
+    bh, sq, _ = q.shape
+    skv, dv = k.shape[1], v.shape[-1]
     blk_q, blk_k = min(blk_q, sq), min(blk_k, skv)
     dev = q.device
-    acc = torch.zeros((bh, sq, d), dtype=torch.float32, device=dev)
+    acc = torch.zeros((bh, sq, dv), dtype=torch.float32, device=dev)
     m = torch.full((bh, sq), NEG, dtype=torch.float32, device=dev)
     l = torch.zeros((bh, sq), dtype=torch.float32, device=dev)
     for q_lo in range(0, sq, blk_q):

@@ -14,7 +14,10 @@ SchNet with Sylvie's quantized halo exchange, and batched LM serving
     python -m repro_torch.launch.train --arch meshgraphnet --reduced \\
         --graph mesh_like@smoke --epochs 2 --device cpu
     python -m repro_torch.launch.train --arch granite-3-2b --serve
-    python -m repro_torch.launch.train --arch granite-3-2b --serve --reduced \\
+    python -m repro_torch.launch.train --arch olmoe-1b-7b --serve
+    python -m repro_torch.launch.train --arch deepseek-v2-236b --serve \\
+        --reduced --device cpu
+    python -m repro_torch.launch.train --arch gemma2-27b --serve --reduced \\
         --device cpu
     python -m repro_torch.launch.train --scenario smoke [--obs]
 
@@ -25,7 +28,10 @@ none); ``--device cpu`` runs the kernels' plain PyTorch versions on the CPU.
 ``artifacts/torch/scenarios/``; ``--schedule overlap`` issues each halo
 exchange on a side CUDA stream (``dist/overlap.py``). LM parameters are
 float32 from a seeded generator; prompts are random tokens from the same
-seed. MeshGraphNet and SchNet read edge geometry, computed on the host
+seed. ``--serve`` takes every LM of the registry (granite-3-2b, yi-34b,
+olmoe-1b-7b, deepseek-v2-236b, gemma2-27b); at their full configs
+deepseek-v2-236b, gemma2-27b and yi-34b do not fit one 80 GB card in
+float32. MeshGraphNet and SchNet read edge geometry, computed on the host
 after the self-loops are added (random positions from seed 0 where the
 graph has none). NequIP, LM and DLRM training are not ported yet (ROADMAP
 queue A).

@@ -49,8 +49,9 @@ def lm_params_from_numpy(tree: dict, cfg, device=None, dtype=None) -> dict:
     """The JAX LM parameter tree as numpy arrays
     (``jax.tree.map(np.asarray, init_params(...))``) -> the port's parameter
     dict on ``device``, in ``dtype`` (default: each array's own; bfloat16
-    arrays stay bfloat16). Raises ``KeyError`` on a missing or unexpected key
-    and ``ValueError`` on a shape mismatch."""
+    arrays stay bfloat16). An MoE router stays float32 whatever ``dtype``
+    says, as in the reference's model of any dtype. Raises ``KeyError`` on
+    a missing or unexpected key and ``ValueError`` on a shape mismatch."""
     want = dict(tree_leaves(param_shapes(cfg)))
     have = dict(tree_leaves(tree))
     for path in sorted(set(want) | set(have)):
@@ -74,7 +75,8 @@ def lm_params_from_numpy(tree: dict, cfg, device=None, dtype=None) -> dict:
         node = out
         for part in path[:-1]:
             node = node.setdefault(part, {})
-        node[path[-1]] = t.to(device=device, dtype=dtype or t.dtype)
+        want_dtype = torch.float32 if path[-1] == "router" else dtype
+        node[path[-1]] = t.to(device=device, dtype=want_dtype or t.dtype)
     return out
 
 

@@ -4,7 +4,7 @@ A copy of ``repro/models/lm/config.py`` (it needs no JAX; the port keeps its
 own copy rather than import the JAX package). A model is a sequence of
 *segments*; each segment scans ``count`` repetitions of a tuple of sub-layer
 configs (e.g. Gemma-2 = 23 x (local, global)). The schema expresses every LM
-of the JAX package; the port's model runs the GQA + dense-FFN ones
+of the JAX package, and the port's model runs each of them
 (``repro_torch/configs``).
 """
 from __future__ import annotations

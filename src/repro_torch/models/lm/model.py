@@ -1,7 +1,10 @@
-"""Transformer LM (GQA + RoPE, gated FFN) as functions over a parameter dict.
+"""Transformer LM as functions over a parameter dict.
 
-The port of ``repro/models/lm/model.py`` for the architectures with GQA
-attention and a dense FFN (granite-3-2b, yi-34b). The parameter dict keeps
+The port of ``repro/models/lm/model.py``: GQA or MLA attention (RoPE,
+decoupled for MLA), a dense gated FFN or a capacity-dispatched MoE FFN,
+sliding-window local layers, attention- and final-logit softcaps and
+sandwich norms, so every LM of the JAX package (granite-3-2b, yi-34b,
+olmoe-1b-7b, deepseek-v2-236b, gemma2-27b). The parameter dict keeps
 the JAX tree key for key — ``embed``, ``ln_final``, optional ``unembed``,
 ``seg{i}/sub{j}/{attn,ffn,ln_attn,ln_ffn}`` with a leading ``count`` axis —
 so weights carry across (``repro_torch.models.convert``).
@@ -11,8 +14,15 @@ Differences of form, not of function:
 * ``lax.scan`` over a segment's ``count`` is a Python loop; ``remat`` and
   ``unroll`` have no counterpart (no autodiff, no tracing here).
 * Prefill attention is ``kernels.flash.ops.attention_bshd``: the CUDA flash
-  kernel on the card (one launch per layer), ``blockwise_attention``'s plain
-  version on the CPU. Decode attention is plain PyTorch, as in the reference.
+  kernel on the card (one launch per layer, with the softcap and MLA's
+  narrower value heads inside it), ``blockwise_attention``'s plain version
+  on the CPU. Decode attention is plain PyTorch, as in the reference.
+* The MoE dispatch writes each kept assignment into its own slot of the
+  capacity buffer (``index_copy_``: a permutation, nothing accumulated);
+  the reference's ``segment_sum`` also adds the dropped assignments' zeros
+  to slot 0, which changes no value. The buffer is laid out (expert,
+  group, slot) rather than (group, expert, slot), so each expert product is
+  one ``torch.bmm`` over the experts.
 * KV caches are updated in place (the reference's ``dynamic_update_slice``
   returns a new array): ``forward``, the prefill step and the decode step
   write into the caches they are given and return them.
@@ -20,9 +30,6 @@ Differences of form, not of function:
   them (a row-wise product: the same function, without a (B, S, V) tensor).
 * ``ShardCtx`` and its activation constraints are not ported: on one card
   they are identities.
-
-The MLA attention and MoE FFN branches raise ``NotImplementedError`` (ROADMAP
-queue A).
 
 Hazards of the reference kept on purpose, for parity: the prefill step's
 caches are bfloat16 even when the parameters are float32, and decode
@@ -39,10 +46,9 @@ import torch
 from ...kernels.flash.ops import attention_bshd
 from ...kernels.flash.ref import NEG
 from ...kernels.flash.ref import apply_softcap as _softcap
-from .config import AttnConfig, LayerConfig, LMConfig
+from .config import AttnConfig, LayerConfig, LMConfig, MoEConfig
 
-MLA_TODO = "MLA attention is not ported yet (deepseek-v2; ROADMAP queue A)"
-MOE_TODO = "the MoE FFN is not ported yet (olmoe, deepseek-v2; ROADMAP queue A)"
+MOE_GROUP = 8192          # dispatch-group length in token-assignments
 
 
 # ---------------------------------------------------------------------------
@@ -77,9 +83,10 @@ def rope(x, positions, theta):
 def blockwise_attention(q, k, v, *, causal: bool, window: Optional[int],
                         softcap: Optional[float], q_offset, kv_len: int,
                         block: int = 1024, scale: float = 1.0):
-    """Online-softmax attention. q: (B, Sq, H, D); k/v: (B, Skv, Hkv, D) ->
-    (B, Sq, H, D). The flash kernel on a CUDA tensor; on the CPU, the
-    reference's KV-block scan (``block`` keys at a time)."""
+    """Online-softmax attention. q: (B, Sq, H, D); k: (B, Skv, Hkv, D);
+    v: (B, Skv, Hkv, Dv) with Dv <= D -> (B, Sq, H, Dv). The flash kernel on
+    a CUDA tensor; on the CPU, the reference's KV-block scan (``block`` keys
+    at a time)."""
     return attention_bshd(q, k, v, causal=causal, window=window,
                           softcap=softcap, q_offset=q_offset, kv_len=kv_len,
                           block=block, scale=scale)
@@ -118,10 +125,11 @@ class _Draw:
         self.dtype = dtype
         self.device = generator.device if generator is not None else device
 
-    def normal(self, shape, scale_axis, lead=()):
+    def normal(self, shape, scale_axis, lead=(), dtype=None):
         x = torch.randn(tuple(lead) + tuple(shape), generator=self.gen,
                         dtype=torch.float32, device=self.device)
-        return x.mul_(1.0 / np.sqrt(max(1, shape[scale_axis]))).to(self.dtype)
+        x.mul_(1.0 / np.sqrt(max(1, shape[scale_axis])))
+        return x.to(dtype or self.dtype)
 
     def zeros(self, shape, lead=()):
         return torch.zeros(tuple(lead) + tuple(shape), dtype=self.dtype,
@@ -129,22 +137,47 @@ class _Draw:
 
 
 def attn_params(draw: _Draw, cfg: LMConfig, a: AttnConfig, lead=()):
-    if a.kind == "mla":
-        raise NotImplementedError(MLA_TODO)
     d = cfg.d_model
+    if a.kind == "mla":
+        p = {"kv_a": draw.normal((d, a.kv_lora + a.d_rope), 0, lead),
+             "kv_norm": draw.zeros((a.kv_lora,), lead),
+             "kv_b": draw.normal((a.kv_lora, a.n_heads * (a.d_nope + a.d_v)),
+                                 0, lead),
+             "wo": draw.normal((a.n_heads * a.d_v, d), 0, lead)}
+        if a.q_lora:
+            p["q_a"] = draw.normal((d, a.q_lora), 0, lead)
+            p["q_norm"] = draw.zeros((a.q_lora,), lead)
+            p["q_b"] = draw.normal((a.q_lora, a.q_out), 0, lead)
+        else:
+            p["wq"] = draw.normal((d, a.q_out), 0, lead)
+        return p
     return {"wq": draw.normal((d, a.n_heads * a.d_head), 0, lead),
             "wk": draw.normal((d, a.n_kv_heads * a.d_head), 0, lead),
             "wv": draw.normal((d, a.n_kv_heads * a.d_head), 0, lead),
             "wo": draw.normal((a.n_heads * a.d_head, d), 0, lead)}
 
 
+def _gated(draw: _Draw, d: int, f: int, lead=()):
+    return {"gate": draw.normal((d, f), 0, lead),
+            "up": draw.normal((d, f), 0, lead),
+            "down": draw.normal((f, d), 0, lead)}
+
+
 def ffn_params(draw: _Draw, cfg: LMConfig, lc: LayerConfig, lead=()):
-    if lc.moe is not None:
-        raise NotImplementedError(MOE_TODO)
+    """A dense gated FFN, or an MoE's router (float32 in a model of any
+    dtype, as the reference's), experts (E, d, f) / (E, f, d) and shared
+    experts."""
     d = cfg.d_model
-    return {"gate": draw.normal((d, lc.d_ff), 0, lead),
-            "up": draw.normal((d, lc.d_ff), 0, lead),
-            "down": draw.normal((lc.d_ff, d), 0, lead)}
+    m = lc.moe
+    if m is None:
+        return _gated(draw, d, lc.d_ff, lead)
+    p = {"router": draw.normal((d, m.n_experts), 0, lead, torch.float32),
+         "e_gate": draw.normal((m.n_experts, d, m.d_ff), 1, lead),
+         "e_up": draw.normal((m.n_experts, d, m.d_ff), 1, lead),
+         "e_down": draw.normal((m.n_experts, m.d_ff, d), 1, lead)}
+    if m.n_shared:
+        p["shared"] = _gated(draw, d, m.d_ff_shared, lead)
+    return p
 
 
 def layer_params(draw: _Draw, cfg: LMConfig, lc: LayerConfig, lead=()):
@@ -206,6 +239,96 @@ def index_layer(tree: dict, i: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# MoE dispatch (capacity scatter)
+# ---------------------------------------------------------------------------
+
+
+def _gated_ffn(f, x):
+    """Gated SiLU, whatever the layer's ``act`` says (as the reference)."""
+    return (torch.nn.functional.silu(x @ f["gate"]) * (x @ f["up"])) \
+        @ f["down"]
+
+
+def moe_route(p, x, m: MoEConfig):
+    """x (T, d) -> router probabilities (T, E) float32 and each token's top-k
+    experts: weights (T, k) renormalised to sum 1, indices (T, k). The
+    router product runs in the stream dtype, the softmax in float32."""
+    logits = (x @ p["router"].to(x.dtype)).float()
+    probs = torch.softmax(logits, -1)
+    gate_w, gate_i = torch.topk(probs, m.top_k, dim=-1)
+    gate_w = gate_w / torch.clamp(gate_w.sum(-1, keepdim=True), min=1e-9)
+    return probs, gate_w, gate_i
+
+
+def moe_dispatch(gate_i, m: MoEConfig, capacity: Optional[int] = None):
+    """The reference's grouped capacity dispatch of the (T, k) choices.
+
+    The T*k assignments, token-major, are cut into groups of
+    ``gl = min(MOE_GROUP, T*k)`` (the last padded with expert E - 1, never
+    kept); each group gives every expert ``c`` slots, ``int(capacity_factor
+    * gl / E + 1)`` unless ``capacity`` is given, and an assignment's slot is
+    its rank among the group's assignments to that expert (an exclusive
+    cumsum). Ranks at or past ``c`` are dropped. Returns ``keep`` (T*k,) and
+    ``dst`` (T*k,): each kept assignment's row of the (E * G * c) buffer,
+    laid out (expert, group, slot); a dropped one's is the spare row
+    E * G * c. Also ``(n_groups, c)``."""
+    e_count = m.n_experts
+    n_assign = gate_i.numel()
+    gl = min(MOE_GROUP, n_assign)
+    ng = (n_assign + gl - 1) // gl
+    pad = ng * gl - n_assign
+    c = capacity or int(m.capacity_factor * gl / e_count + 1)
+    e_flat = gate_i.reshape(-1)
+    if pad:
+        e_flat = torch.nn.functional.pad(e_flat, (0, pad), value=e_count - 1)
+    e_g = e_flat.reshape(ng, gl)
+    oh = torch.nn.functional.one_hot(e_g, e_count)          # (G, L, E)
+    pos = torch.gather(oh.cumsum(1) - oh, 2, e_g[..., None])[..., 0]
+    keep = (pos < c).reshape(-1)[:n_assign]
+    group = torch.arange(ng, device=gate_i.device)[:, None]
+    dst = (e_g * ng + group) * c + pos
+    dst = torch.where(keep, dst.reshape(-1)[:n_assign], e_count * ng * c)
+    return keep, dst, (ng, c)
+
+
+def expert_ffn(p, buf):
+    """Each expert's gated SiLU over its slots: buf (E, N, d) -> (E, N, d),
+    three batched products over the experts."""
+    h = torch.nn.functional.silu(torch.bmm(buf, p["e_gate"])) \
+        * torch.bmm(buf, p["e_up"])
+    return torch.bmm(h, p["e_down"])
+
+
+def moe_ffn(p, x, m: MoEConfig, capacity: Optional[int] = None):
+    """x (T, d) -> (y (T, d), aux): ``repro``'s ``moe_ffn``. Each kept
+    assignment's token row is copied into its slot (``moe_dispatch``; no
+    sums, so no float atomics on the card), the experts run over their
+    slots, each assignment reads its slot back (zero when dropped), and a
+    token's k results are summed with their gate weights (a reshape and a
+    sum over k). ``aux`` is the Switch-style load-balance loss, float32;
+    the shared experts, if any, add to ``y``."""
+    t, d = x.shape
+    probs, gate_w, gate_i = moe_route(p, x, m)
+    keep, dst, (ng, c) = moe_dispatch(gate_i, m, capacity)
+    rows = m.n_experts * ng * c
+    x_rep = x.repeat_interleave(m.top_k, dim=0)                # (T*k, d)
+    buf = x.new_zeros((rows + 1, d))            # + 1: the dropped ones' row
+    buf.index_copy_(0, dst, x_rep)
+    out = expert_ffn(p, buf[:rows].view(m.n_experts, ng * c, d))
+    back = out.reshape(rows, d)[torch.clamp(dst, max=rows - 1)]
+    back = torch.where(keep[:, None], back, 0)
+    y = (back * gate_w.reshape(-1, 1).to(back.dtype)).reshape(
+        t, m.top_k, d).sum(1)
+    me = probs.mean(0)
+    ce = torch.nn.functional.one_hot(gate_i, m.n_experts).float().sum(1) \
+        .mean(0)
+    aux = m.n_experts * torch.sum(me * ce)
+    if m.n_shared:
+        y = y + _gated_ffn(p["shared"], x)
+    return y.to(x.dtype), aux
+
+
+# ---------------------------------------------------------------------------
 # forward
 # ---------------------------------------------------------------------------
 
@@ -219,12 +342,59 @@ def project_qkv(p, x, a: AttnConfig, positions):
     return rope(q, positions, a.rope_theta), rope(k, positions, a.rope_theta), v
 
 
+def _mla_forward(p, x, a: AttnConfig, cfg: LMConfig, *, positions, kv_len,
+                 cache=None, cache_pos=None):
+    """MLA: queries from a low-rank (or full) projection, keys and values
+    re-expanded from the compressed latent ``ckv`` (B, S, kv_lora + d_rope),
+    whose last ``d_rope`` columns are the shared RoPE key. The cache holds
+    ``ckv``; decode re-expands all of it, as the reference does. Queries and
+    keys are ``d_nope + d_rope`` wide, values ``d_v``."""
+    b, s, _ = x.shape
+    decode = cache is not None and s == 1
+    if a.q_lora:
+        q = rms_norm(x @ p["q_a"], p["q_norm"], cfg.norm_eps) @ p["q_b"]
+    else:
+        q = x @ p["wq"]
+    q = q.reshape(b, s, a.n_heads, a.d_nope + a.d_rope)
+    q_rope = rope(q[..., a.d_nope:], positions, a.rope_theta)
+    qf = torch.cat([q[..., :a.d_nope], q_rope], -1)
+    ckv_new = x @ p["kv_a"]
+    k_rope_new = rope(ckv_new[..., a.kv_lora:][:, :, None, :], positions,
+                      a.rope_theta)[:, :, 0, :]
+    ckv_new = torch.cat([ckv_new[..., :a.kv_lora], k_rope_new], -1)
+    ckv = ckv_new
+    if cache is not None:
+        cache["ckv"][:, cache_pos:cache_pos + s] = ckv_new
+        if decode:
+            ckv = cache["ckv"]
+    # a bfloat16 cache meets float32 weights: JAX promotes to float32
+    wdt = torch.promote_types(ckv.dtype, p["kv_b"].dtype)
+    c_lat = rms_norm(ckv[..., :a.kv_lora], p["kv_norm"], cfg.norm_eps)
+    kv = (c_lat.to(wdt) @ p["kv_b"].to(wdt)).reshape(
+        b, -1, a.n_heads, a.d_nope + a.d_v)
+    k_nope, v = kv[..., :a.d_nope], kv[..., a.d_nope:]
+    k_rope = ckv[..., None, a.kv_lora:].expand(
+        k_nope.shape[:-1] + (a.d_rope,))
+    k = torch.cat([k_nope, k_rope.to(wdt)], -1)
+    scale = 1.0 / np.sqrt(a.d_nope + a.d_rope)
+    if decode:
+        o = decode_attention(qf, k, v, softcap=a.softcap, kv_len=kv_len,
+                             scale=scale)
+    else:
+        o = blockwise_attention(qf, k, v, causal=True, window=a.window,
+                                softcap=a.softcap, q_offset=0, kv_len=kv_len,
+                                scale=scale)
+    return o.reshape(b, s, -1) @ p["wo"]
+
+
 def _attn_forward(p, x, a: AttnConfig, cfg: LMConfig, *, positions, kv_len,
                   cache=None, cache_pos=None):
     """The attention sub-layer's output. ``cache`` (GQA: {"k": (B, S, Hkv,
-    D), "v": ...}) is written in place when given."""
+    D), "v": ...}; MLA: {"ckv": (B, S, kv_lora + d_rope)}) is written in
+    place when given."""
     if a.kind == "mla":
-        raise NotImplementedError(MLA_TODO)
+        return _mla_forward(p, x, a, cfg, positions=positions, kv_len=kv_len,
+                            cache=cache, cache_pos=cache_pos)
     b, s, _ = x.shape
     decode = cache is not None and s == 1
     q, k_new, v_new = project_qkv(p, x, a, positions)
@@ -262,6 +432,7 @@ def _attn_forward(p, x, a: AttnConfig, cfg: LMConfig, *, positions, kv_len,
 
 def _sub_layer(p, x, lc: LayerConfig, cfg: LMConfig, *, positions, kv_len,
                cache=None, cache_pos=None):
+    """-> (x, the MoE aux loss or 0.0)."""
     dtype = x.dtype
     h = rms_norm(x, p["ln_attn"], cfg.norm_eps)
     h = _attn_forward(p["attn"], h, lc.attn, cfg, positions=positions,
@@ -270,18 +441,22 @@ def _sub_layer(p, x, lc: LayerConfig, cfg: LMConfig, *, positions, kv_len,
         h = rms_norm(h, p["ln_attn_post"], cfg.norm_eps)
     x = (x + h).to(dtype)
     h = rms_norm(x, p["ln_ffn"], cfg.norm_eps)
+    aux = 0.0
     if lc.moe is not None:
-        raise NotImplementedError(MOE_TODO)
-    f = p["ffn"]       # gated SiLU, whatever ``lc.act`` says (as the reference)
-    h = (torch.nn.functional.silu(h @ f["gate"]) * (h @ f["up"])) @ f["down"]
+        b, s, d = h.shape
+        h2, aux = moe_ffn(p["ffn"], h.reshape(-1, d), lc.moe)
+        h = h2.reshape(b, s, d)
+    else:
+        h = _gated_ffn(p["ffn"], h)
     if lc.post_norm:
         h = rms_norm(h, p["ln_ffn_post"], cfg.norm_eps)
-    return (x + h).to(dtype)
+    return (x + h).to(dtype), aux
 
 
 def _trunk(params, tokens, cfg: LMConfig, *, positions=None, kv_len=None,
            caches=None, cache_pos=None):
-    """tokens (B, S) -> final hidden states (B, S, d), before the last norm."""
+    """tokens (B, S) -> (final hidden states (B, S, d) before the last
+    norm, the summed MoE aux loss: 0.0 without MoE layers)."""
     s = tokens.shape[1]
     dtype = params["embed"].dtype
     x = params["embed"][tokens]
@@ -291,6 +466,7 @@ def _trunk(params, tokens, cfg: LMConfig, *, positions=None, kv_len=None,
         positions = torch.arange(s, device=x.device)
     if kv_len is None:
         kv_len = s
+    total_aux = 0.0
     for si, seg in enumerate(cfg.segments):
         seg_p = params[f"seg{si}"]
         seg_cache = caches[f"seg{si}"] if caches is not None else None
@@ -298,12 +474,13 @@ def _trunk(params, tokens, cfg: LMConfig, *, positions=None, kv_len=None,
             p_i = index_layer(seg_p, i)
             cache_i = None if seg_cache is None else index_layer(seg_cache, i)
             for li, lc in enumerate(seg.layers):
-                x = _sub_layer(
+                x, aux = _sub_layer(
                     p_i[f"sub{li}"], x, lc, cfg, positions=positions,
                     kv_len=kv_len,
                     cache=None if cache_i is None else cache_i[f"sub{li}"],
                     cache_pos=cache_pos)
-    return x
+                total_aux = total_aux + aux
+    return x, total_aux
 
 
 def _logits(params, x, cfg: LMConfig):
@@ -317,12 +494,14 @@ def _logits(params, x, cfg: LMConfig):
 
 def forward(params, tokens, cfg: LMConfig, *, positions=None, kv_len=None,
             caches=None, cache_pos=None):
-    """tokens (B, S) -> (logits (B, S, V) float32, aux 0.0, caches).
-    ``caches``: per-segment dicts with a leading ``count`` axis, filled or
-    updated in place and returned (``None`` when not given)."""
-    x = _trunk(params, tokens, cfg, positions=positions, kv_len=kv_len,
-               caches=caches, cache_pos=cache_pos)
-    return _logits(params, x, cfg), 0.0, caches
+    """tokens (B, S) -> (logits (B, S, V) float32, aux, caches). ``aux`` is
+    the MoE layers' summed load-balance loss (a float32 scalar tensor; 0.0
+    without MoE layers). ``caches``: per-segment dicts with a leading
+    ``count`` axis, filled or updated in place and returned (``None`` when
+    not given)."""
+    x, aux = _trunk(params, tokens, cfg, positions=positions, kv_len=kv_len,
+                    caches=caches, cache_pos=cache_pos)
+    return _logits(params, x, cfg), aux, caches
 
 
 # ---------------------------------------------------------------------------
@@ -332,21 +511,23 @@ def forward(params, tokens, cfg: LMConfig, *, positions=None, kv_len=None,
 
 def init_cache(cfg: LMConfig, batch: int, seq: int, dtype=torch.bfloat16,
                device=None):
-    """Per-segment stacked KV caches. Local (windowed) layers ring-buffer at
-    ``window`` instead of ``seq``."""
+    """Per-segment stacked KV caches (MLA: the compressed latent ``ckv``).
+    Local (windowed) layers ring-buffer at ``window`` instead of ``seq``."""
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
     caches = {}
     for si, seg in enumerate(cfg.segments):
         sub = {}
         for li, lc in enumerate(seg.layers):
             a = lc.attn
-            if a.kind == "mla":
-                raise NotImplementedError(MLA_TODO)
             s_eff = min(seq, a.window) if a.window else seq
-            shape = (seg.count, batch, s_eff, a.n_kv_heads, a.d_head)
-            sub[f"sub{li}"] = {"k": torch.zeros(shape, dtype=dtype,
-                                                device=device),
-                               "v": torch.zeros(shape, dtype=dtype,
-                                                device=device)}
+            if a.kind == "mla":
+                sub[f"sub{li}"] = {"ckv": zeros(seg.count, batch, s_eff,
+                                                a.kv_lora + a.d_rope)}
+            else:
+                shape = (seg.count, batch, s_eff, a.n_kv_heads, a.d_head)
+                sub[f"sub{li}"] = {"k": zeros(*shape), "v": zeros(*shape)}
         caches[f"seg{si}"] = sub
     return caches
 
@@ -356,8 +537,8 @@ def make_prefill_step(cfg: LMConfig, batch: int, seq: int):
         """tokens (batch, seq) -> (last-position logits (batch, V), caches).
         The caches are bfloat16, as the reference's default."""
         caches = init_cache(cfg, batch, seq, device=tokens.device)
-        x = _trunk(params, tokens, cfg, caches=caches, cache_pos=0,
-                   kv_len=seq)
+        x, _ = _trunk(params, tokens, cfg, caches=caches, cache_pos=0,
+                      kv_len=seq)
         return _logits(params, x[:, -1:], cfg)[:, 0], caches
     return prefill
 

@@ -93,6 +93,40 @@ def test_attention_bshd_matches_blockwise_attention(window, softcap, block):
     _close(out, ref)
 
 
+@pytest.mark.parametrize("window", [None, 7])
+@pytest.mark.parametrize("softcap", [None, 30.0])
+def test_attention_bshd_narrow_values_match_blockwise_attention(window,
+                                                                softcap):
+    """v narrower than q and k, as MLA's (q/k 24 = d_nope + d_rope, v 16 in
+    deepseek-v2's reduced config), with GQA, the window and the softcap;
+    scale 1 puts scores at several standard deviations, where the cap
+    bends them."""
+    b, s, h, hkv, d, dv = 2, 33, 4, 2, 24, 16
+    q, k, v = _qkv(12, (b, s, h, d), (b, s, hkv, d), (b, s, hkv, dv))
+    kw = dict(causal=True, window=window, softcap=softcap, q_offset=0,
+              kv_len=s, block=8, scale=1.0)
+    ref = JLM.blockwise_attention(jnp.asarray(q), jnp.asarray(k),
+                                  jnp.asarray(v), **kw)
+    out = F.attention_bshd(*map(torch.from_numpy, (q, k, v)), **kw)
+    assert tuple(out.shape) == (b, s, h, dv) and out.dtype == torch.float32
+    _close(out, ref)
+
+
+def test_flash_fwd_takes_narrower_values():
+    """The raw entry point and both plain versions with v of width 8 under
+    q/k of width 24: ``flash_fwd``'s (acc, m, l) normalised against the JAX
+    package's dense oracle (which takes any v width) and the port's."""
+    q, k, v = _qkv(13, (3, 40, 24), (3, 40, 24), (3, 40, 8))
+    kw = dict(causal=True, scale=0.3, window=11)
+    acc, m, l = F.flash_fwd(*map(torch.from_numpy, (q, k, v)), blk_q=16,
+                            blk_k=16, **kw)
+    assert tuple(acc.shape) == (3, 40, 8) and tuple(l.shape) == (3, 40)
+    dense = jax_flash_ref(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                          **kw)
+    _close(acc / l[..., None], dense)
+    _close(F.flash_ref(*map(torch.from_numpy, (q, k, v)), **kw), dense)
+
+
 def test_attention_bshd_kv_len_masks_the_tail():
     b, s, h, hkv, d = 1, 20, 4, 1, 16
     q, k, v = _qkv(5, (b, s, h, d), (b, s, hkv, d), (b, s, hkv, d))
@@ -156,13 +190,12 @@ def _meta(*shape, dtype=torch.float32):
 
 
 def test_kernel_route_refuses_what_the_kernel_lacks():
-    """Off the CPU the wrappers go to the kernel: they refuse softcap, a
-    nonzero q_offset, non-float dtypes, wide heads, and any device that is
-    not CUDA — they never fall back to the plain version."""
+    """Off the CPU the wrappers go to the kernel: they refuse a nonzero
+    q_offset, non-float dtypes, wide heads, a v wider than q, a negative
+    softcap, and any device that is not CUDA — they never fall back to the
+    plain version. A softcap and a narrower v go to the kernel."""
     q, kv = _meta(1, 8, 4, 16), _meta(1, 8, 2, 16)
     base = dict(causal=True, window=None, softcap=None, q_offset=0, kv_len=8)
-    with pytest.raises(NotImplementedError, match="softcap"):
-        F.attention_bshd(q, kv, kv, **{**base, "softcap": 30.0})
     with pytest.raises(NotImplementedError, match="q_offset"):
         F.attention_bshd(q, kv, kv, **{**base, "q_offset": 3})
     qi, kvi = (_meta(*t.shape, dtype=torch.int32) for t in (q, kv))
@@ -171,8 +204,15 @@ def test_kernel_route_refuses_what_the_kernel_lacks():
     with pytest.raises(ValueError, match="D <= 256"):
         F.attention_bshd(_meta(1, 8, 4, 320), _meta(1, 8, 2, 320),
                          _meta(1, 8, 2, 320), **base)
+    with pytest.raises(ValueError, match="Dv <= D"):
+        F.attention_bshd(q, kv, _meta(1, 8, 2, 32), **base)
+    with pytest.raises(ValueError, match="softcap"):
+        F.attention_bshd(q, kv, kv, **{**base, "softcap": -30.0})
     with pytest.raises(ValueError, match="CUDA"):
         F.attention_bshd(q, kv, kv, **base)
+    with pytest.raises(ValueError, match="CUDA"):   # reaches the device check
+        F.attention_bshd(q, kv, _meta(1, 8, 2, 8), **{**base,
+                                                      "softcap": 30.0})
     with pytest.raises(ValueError, match="CUDA"):
         F.flash_fwd(_meta(2, 8, 16), _meta(2, 8, 16), _meta(2, 8, 16))
     with pytest.raises(TypeError):

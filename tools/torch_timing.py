@@ -2,7 +2,8 @@
 ``tools/torch_gat_check.py``: CUDA-event time of back-to-back calls, device
 time of the kernels a call launches (``torch.profiler``), and the library
 calls that compute GAT's edge softmax, its backward and the transposed row
-sums (timed as yardsticks only; the port never calls them).
+sums, and softcapped attention (timed as yardsticks only; the port never
+calls them).
 
 It imports torch alone, so it times the port of whichever checkout the
 caller put on ``sys.path``.
@@ -140,3 +141,41 @@ def softmax_library_ms(csr, s_src, s_dst, alpha, a_b, da_b, ss_b, sd_b, dx,
     out["row_sums_t"] = dict(ms=cuda_ms(sums),
                              max_abs_diff=diff(sums(), sums_t))
     return out
+
+
+def flex_attention_ms(q, k, v, *, window, softcap: float, scale: float):
+    """One ``flex_attention`` call that computes the LM's softcapped causal
+    (windowed) attention: q (B, Sq, H, D), k/v (B, Skv, Hkv, D) as
+    ``attention_bshd`` takes them, copied once to the (B, H, S, D) layout
+    the library takes; ``softcap * tanh(score / softcap)`` as its
+    ``score_mod`` (on the scaled score, as ``blockwise_attention`` caps it),
+    the causal and window mask as a block mask (which skips the tiles no
+    row sees), GQA through ``enable_gqa``. Compiled once (untimed: Triton
+    kernels generated by Inductor, cached under the checkout's ``build/``,
+    compiled in this process). Returns (CUDA-event ms, its output in
+    ``attention_bshd``'s (B, Sq, H, D) layout)."""
+    import os
+    from pathlib import Path
+    build = Path(__file__).resolve().parents[1] / "build"
+    os.environ.setdefault("TORCHINDUCTOR_CACHE_DIR", str(build / "inductor"))
+    os.environ.setdefault("TRITON_CACHE_DIR", str(build / "triton"))
+    os.environ.setdefault("TORCHINDUCTOR_COMPILE_THREADS", "1")
+    from torch.nn.attention.flex_attention import (create_block_mask,
+                                                   flex_attention)
+    qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+
+    def capped(score, b, h, q_idx, kv_idx):
+        return softcap * torch.tanh(score / softcap)
+
+    def visible(b, h, q_idx, kv_idx):
+        seen = kv_idx <= q_idx
+        return seen if window is None else seen & (q_idx - kv_idx < window)
+    mask = create_block_mask(visible, None, None, q.shape[1], k.shape[1],
+                             device=q.device)
+    call = torch.compile(flex_attention, dynamic=False)
+
+    def run():
+        return call(qh, kh, vh, score_mod=capped, block_mask=mask,
+                    scale=scale, enable_gqa=kh.shape[1] != qh.shape[1])
+    out = run().transpose(1, 2)
+    return cuda_ms(run), out
