@@ -75,13 +75,17 @@ Phases, each of which raises (and exits non-zero) on failure:
             and the rest, and a profiled decode step. The prefill once more
             with the kernel and once with the plain attention
             (``attention_bshd_ref``) in its place
-            (``plain_attention_logits``): gemma2's last-position logits
-            within 1e-4 x max(1, largest |logit|), which holds it to more
-            than finite logits though its greedy tokens are all 0; for
-            olmoe (MoE: a rounding can reroute a token) the difference and
-            the top-k assignments that moved, not gated; deepseek-v2's
-            plain score blocks would not fit beside its weights
-            (``PLAIN_SCORES_GB``).
+            (``plain_attention_logits``): gemma2's and olmoe's
+            last-position logits within 1e-4 x max(1, largest |logit|),
+            which holds gemma2 to more than finite logits though its greedy
+            tokens are all 0; olmoe's plain prefill takes the kernel
+            prefill's routing (``carried_routes``: a rounding of the
+            attention would reroute tokens), and the line gives how many of
+            its own top-k assignments would differ. deepseek-v2's plain
+            score blocks would not fit beside its weights
+            (``PLAIN_SCORES_GB``): each of its prefill's flash calls is held
+            to the plain version over 16 of its 128 heads instead
+            (``head_slice_check``).
 8. flash  — the flash kernel against its plain versions on the slice's own
             layer-0 q/k/v: ``flash_fwd`` over (8*32, 2048, 64) with KV heads
             repeated 4:1, in float32 and from bfloat16 inputs, the model's
@@ -102,13 +106,49 @@ Phases, each of which raises (and exits non-zero) on failure:
             ``flex_attention`` (compiled by Inductor; held to the plain
             version within 1e-3; timed here only, the port never calls
             either).
+8b. flash-bwd — the flash backward kernels (``flash_bwd_dq``, then
+            ``flash_bwd_dkdv``, ``attention_bshd_bwd``) at ``FLASH_BWD_SHAPES``:
+            granite-3-2b's training call (4, 2,048, GQA 32:8, D 64), D 128,
+            gemma2's capped local and global layers and deepseek-v2's MLA
+            (D 192, Dv 128) from ``FLASH_LM_SHAPES``, and edges (rows that
+            see no key through kv_len, a window of 5, Sq 333 / Skv 410, D
+            256 under a cap at scale 1, D 75 / Dv 33), on the kernel
+            forward's own output and lse: dq, dk and dv each within 1e-4 x
+            the largest of ``attention_bshd_bwd_ref``'s (over a slice of
+            heads where its scores pass ``PLAIN_SCORES_GB``), two calls
+            bit-equal; the pair's and each kernel's ms beside the bound
+            (five products as 3xTF32), the plain backward, and the backward
+            of ``scaled_dot_product_attention`` (no cap) or
+            ``flex_attention`` (capped) (``flash_bwd_phase``).
+8c. lm-train — ``make_train_step`` at published widths, float32 from
+            seed 0, Adam 1e-3 on ``token_stream`` through the ``Prefetcher``
+            (``LM_TRAIN_RUNS``): granite-3-2b at full depth (40 layers, 4 x
+            2,048; the slice's main path), olmoe-1b-7b cut to 4 of 16
+            layers, gemma2-27b to 1 of 23 (local, global) pairs at 1 x
+            5,120 (past the 4,096 window), deepseek-v2-236b to segment 0
+            (its dense MLA layer). Step 1's loss and every gradient leaf
+            with the kernels against the same step with
+            ``attention_bshd_ref``'s autograd in their place (batch 1 where
+            its scores would not fit; olmoe's routing carried across) within
+            1e-5 and 1e-3 x each leaf's largest; a small SGD step along that
+            gradient lowers the loss by at least half the first-order
+            prediction; launches exact in each of 1 + 5 steps (flash_fwd
+            twice per layer, each backward kernel once, nothing else);
+            finite losses (printed; six steps of fresh batches are too few
+            to gate a falling loss, ``LM_TRAIN_DESCENT``); deepseek-v2's MLA
+            call forward and backward over 16 heads. Step ms (host clock
+            ending in ``float(loss)``, median of 5), tokens/s, peak GB and
+            one profiled step split into flash forward, flash backward,
+            cuBLAS and the rest (``lm_train_phase``; alone: ``python3
+            tools/torch_lm_phase.py train``, ``flash-bwd`` the phase above).
 9. summary — a ``{"kernels": [...]}`` line (each kernel's launches on
             every path: a serving sweep, each kind of training step, the
-            zoo's steps, each LM's ``generate``; ``seg_max_csr`` with its
-            times), the card line, and the last line ``{"ok": true,
+            zoo's steps, each LM's ``generate`` and training step;
+            ``seg_max_csr`` and the flash backward with their times), the
+            card line, and the last line ``{"ok": true,
             "device": {...}}``.
 
-After phase 8 (``flash``) the zoo trains (``zoo_phase``):
+After phase 8c (``lm-train``) the zoo trains (``zoo_phase``):
 
 zoo       — PNA 4x75 on ``reddit_like@paper``, MeshGraphNet 15x128 (MLPs of
             2 layers, 4 edge inputs) on ``mesh_like@paper`` (9,216 nodes)
@@ -314,7 +354,7 @@ analysis  — ``repro_torch.analysis`` on the card (``analysis_phase``): the
             contracts run, the findings (0: any finding fails the script)
             and the seconds.
 
-Run time on an H100: about six minutes of command, the
+Run time on an H100: about ten minutes of command, the
 kernels' build included.
 """
 from __future__ import annotations
@@ -336,7 +376,8 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "tools"))
 from torch_timing import (cuda_ms, device_ms, flex_attention_ms,  # noqa
-                          kernel_times, softmax_library_ms)
+                          kernel_times, sdpa_backward_ms,
+                          softmax_library_ms)
 
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM HBM3 (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
@@ -518,9 +559,9 @@ def bound(n_bytes: float, n_ops: float,
 def profile_device(fn, label: str):
     """Run ``fn`` once under ``torch.profiler``; print its device time by
     kernel and return (fn's result, host ms, device-busy ms, {group: ms},
-    {kernel: launches}) with the groups flash kernel / SpMM / GAT kernels /
-    seg_max / quantize / dequantize / matrix products (cuBLAS) / everything
-    else."""
+    {kernel: launches}) with the groups flash kernel / flash backward /
+    SpMM / GAT kernels / seg_max / quantize / dequantize / matrix products
+    (cuBLAS) / everything else."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -533,11 +574,13 @@ def profile_device(fn, label: str):
     on_dev = [e for e in prof.key_averages()
               if e.device_type == DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in on_dev) / 1e3
-    groups = {"flash": 0.0, "spmm": 0.0, "gat": 0.0, "seg_max": 0.0,
-              "quantize": 0.0, "dequantize": 0.0, "gemm": 0.0, "other": 0.0}
+    groups = {"flash": 0.0, "flash_bwd": 0.0, "spmm": 0.0, "gat": 0.0,
+              "seg_max": 0.0, "quantize": 0.0, "dequantize": 0.0,
+              "gemm": 0.0, "other": 0.0}
     for e in on_dev:
         name = e.key.lower()
         g = "flash" if "flash_fwd_kernel" in name else \
+            "flash_bwd" if "flash_bwd_" in name else \
             "spmm" if "spmm_" in name else \
             "seg_max" if "seg_max_" in name else \
             "gat" if any(w in name for w in ("rows_unit_kernel",
@@ -709,11 +752,7 @@ def lm_moe_phase(all_kernels: dict) -> dict:
     out = {}
     for arch, depth, b, s_ctx, n_params, n_flash in LM_MOE_RUNS:
         t0 = time.perf_counter()
-        cfg = configs.get(arch).config()
-        if depth is not None:
-            cfg = dataclasses.replace(cfg, segments=tuple(
-                dataclasses.replace(sg, count=min(sg.count, depth))
-                for sg in cfg.segments))
+        cfg = cut_config(configs.get(arch).config(), depth)
         check(cfg.param_count() == n_params and cfg.n_layers == n_flash,
               f"{arch}: {cfg.n_layers} layers, {cfg.param_count()} parameters"
               f" (expected {n_flash}, {n_params})")
@@ -862,54 +901,62 @@ def plain_attention_logits(arch, cfg, params, prefill, tokens, b, seq,
                            moe: bool):
     """Prefill twice more, with the kernel and with the plain attention
     (``attention_bshd_ref``) in place of it, and compare the last-position
-    logits: within 1e-4 x max(1, largest |logit|) for a model without MoE
-    layers, a check that holds whatever the greedy tokens are (gemma2's are
-    all 0). Top-k routing and the capacity cut are not continuous: a
-    rounding of the attention can move a token to another expert, or drop
-    it, so for a MoE model the line gives the top-k assignments that differ
-    between the two prefills beside the logits' difference, and gates
-    nothing. Skipped, with a line, where the plain version's (B, H, S,
-    1,024-key) float32 score block passes ``PLAIN_SCORES_GB`` (deepseek-v2:
-    8.6 GB, several alive at once, on a 52.75 GB peak)."""
+    logits within 1e-4 x max(1, largest |logit|), a check that holds
+    whatever the greedy tokens are (gemma2's are all 0). For a MoE model
+    the plain prefill takes the kernel prefill's routing
+    (``carried_routes``): top-k and the capacity cut are not continuous, and
+    a rounding of the attention would reroute tokens; the line gives how
+    many of its own top-k assignments differ. Where the plain version's
+    (B, H, S, 1,024-key) float32 score block passes ``PLAIN_SCORES_GB``
+    (deepseek-v2: 8.6 GB, several alive at once, on a 52.75 GB peak), each
+    flash call of the kernel prefill is held to the plain version over its
+    first ``LM_TRAIN_HEADS`` heads instead (``head_slice_check``)."""
     from repro_torch.kernels.flash import ref as fref
     from repro_torch.models.lm import model as LM
 
     heads = max(lc.attn.n_heads for sg in cfg.segments for lc in sg.layers)
     score_gb = b * heads * seq * 1024 * 4 / 1e9
     if score_gb > PLAIN_SCORES_GB:
-        log(f"[lm-moe] {arch}: prefill against plain attention skipped: its "
-            f"score block is {score_gb:.1f} GB (> {PLAIN_SCORES_GB})")
-        return None
-    real_attn, real_route = LM.attention_bshd, LM.moe_route
-    routes = {"kernel": [], "plain": []}
+        real = LM.attention_bshd
+        calls = []
 
-    def prefill_with(attn, key):
-        def route(*args, **kwargs):
-            out = real_route(*args, **kwargs)
-            routes[key].append(out[2])
-            return out
-        LM.attention_bshd, LM.moe_route = attn, route
+        def checked(q, k, v, **kw):
+            calls.append(head_slice_check(q, k, v, kw, LM_TRAIN_HEADS))
+            return real(q, k, v, **kw)
+        LM.attention_bshd = checked
         try:
-            return prefill(params, tokens)[0]
+            prefill(params, tokens)
         finally:
-            LM.attention_bshd, LM.moe_route = real_attn, real_route
-    last = prefill_with(real_attn, "kernel")
-    last_p = prefill_with(fref.attention_bshd_ref, "plain")
+            LM.attention_bshd = real
+        log(f"[lm-moe] {arch}: its score block is {score_gb:.1f} GB (> "
+            f"{PLAIN_SCORES_GB}): each of the prefill's {len(calls)} flash "
+            f"calls against plain attention over {calls[0]['heads']} heads:"
+            f" max abs err {[c['out_max_abs_err'] for c in calls]} (tol "
+            f"1e-4)")
+        return dict(calls=calls)
+    real_attn = LM.attention_bshd
+    routes, moved = [], []
+    with carried_routes(routes, False, moved):
+        last = prefill(params, tokens)[0]
+    LM.attention_bshd = fref.attention_bshd_ref
+    try:
+        with carried_routes(routes, True, moved):
+            last_p = prefill(params, tokens)[0]
+    finally:
+        LM.attention_bshd = real_attn
     top = float(last_p.abs().max())
     err = float((last - last_p).abs().max())
-    moved = sum(int((a != c).sum())
-                for a, c in zip(routes["kernel"], routes["plain"]))
-    total = sum(a.numel() for a in routes["kernel"])
-    if not moe:
-        check(err <= 1e-4 * max(1.0, top), f"{arch}: prefill logits with the"
-              f" kernel within 1e-4 x max(1, {top:.4g}) of those with the "
-              f"plain attention (max abs err {err})")
+    check(err <= 1e-4 * max(1.0, top), f"{arch}: prefill logits with the"
+          f" kernel within 1e-4 x max(1, {top:.4g}) of those with the "
+          f"plain attention (max abs err {err})")
+    total = sum(r.numel() for r in routes)
     log(f"[lm-moe] {arch}: prefill logits, kernel against plain attention: "
-        f"max abs err {err:.3g} (largest logit {top:.4g})"
-        + (f"; top-k assignments that differ: {moved} of {total} (MoE: "
-           f"not gated)" if moe else " (tol 1e-4 x max(1, largest))"))
-    return dict(max_abs_err=err, max_abs_logit=top, gated=not moe,
-                **({"assignments_moved": moved, "assignments": total}
+        f"max abs err {err:.3g} (largest logit {top:.4g}, tol 1e-4 x max(1,"
+        f" largest))" + (f"; the kernel prefill's routing carried across: "
+                         f"{sum(moved)} of {total} top-k assignments of the "
+                         f"plain prefill's own would differ" if moe else ""))
+    return dict(max_abs_err=err, max_abs_logit=top, gated=True,
+                **({"assignments_moved": sum(moved), "assignments": total}
                    if moe else {}))
 
 
@@ -1060,12 +1107,14 @@ def flash_phase(q, k, v) -> dict:
     return res
 
 
-def visible_pairs(sq: int, window=None) -> int:
+def visible_pairs(sq: int, window=None, kv_end=None) -> int:
     """(query, key) pairs a causal (windowed) attention over ``sq`` rows
-    sees, per head."""
+    sees, per head: key j <= i, i - j < window, j < kv_end (none by
+    default)."""
     i = np.arange(sq, dtype=np.int64)
-    seen = i + 1 if window is None else np.minimum(i + 1, window)
-    return int(seen.sum())
+    hi = i + 1 if kv_end is None else np.minimum(i + 1, kv_end)
+    lo = np.zeros_like(i) if window is None else np.maximum(i - window + 1, 0)
+    return int(np.maximum(hi - lo, 0).sum())
 
 
 # (tag, batch, seq, heads, kv heads, d, dv, window, softcap, scale): the
@@ -1154,6 +1203,174 @@ def flash_lm_shapes() -> dict:
     return out
 
 
+# [flash-bwd]: (tag, batch, sq, skv, heads, kv heads, d, dv, window,
+# softcap, kv_len (None: skv), scale). granite-3-2b's layer call in
+# [lm-train] (batch 4, GQA 32:8, D 64), d = 128 without a cap, the served
+# models' shapes of FLASH_LM_SHAPES (gemma2's capped local and global
+# layers, deepseek-v2's MLA with v a column slice of kv), then edges: rows
+# that see no key (kv_len 100, window 37: rows 136 on), a window smaller
+# than a tile, Sq and Skv that are no tile multiples, the widest head under
+# a cap that bends the scores (scale 1), and odd widths
+FLASH_BWD_SHAPES = (
+    ("granite", 4, 2048, 2048, 32, 8, 64, 64, None, None, None, 64 ** -0.5),
+    ("d 128", 4, 2048, 2048, 32, 32, 128, 128, None, None, None,
+     128 ** -0.5),
+    *((tag, b, s, s, h, hkv, d, dv, window, cap, None, scale)
+      for tag, b, s, h, hkv, d, dv, window, cap, scale in FLASH_LM_SHAPES
+      if scale != 1.0),
+    ("rows that see no key", 2, 300, 300, 4, 2, 64, 64, 37, None, 100,
+     0.125),
+    ("window 5", 2, 300, 300, 4, 4, 64, 64, 5, None, None, 0.125),
+    ("sq 333, skv 410", 2, 333, 410, 4, 2, 64, 64, None, None, None, 0.125),
+    ("d 256, softcap 30, window 37, scale 1", 1, 300, 300, 2, 1, 256, 256,
+     37, 30.0, None, 1.0),
+    ("d 75, dv 33, softcap 20", 2, 130, 130, 3, 1, 75, 33, None, 20.0, None,
+     0.2))
+FLASH_BWD_TOL = 1e-4
+# the shapes timed beside the library's backward
+FLASH_BWD_LIBRARY = ("granite", "d 128",
+                     *(t[0] for t in FLASH_LM_SHAPES if t[-1] != 1.0))
+
+
+def _head_slice(x, n, b, h):
+    """The first ``n`` query heads' rows of an lse-shaped (B * H, S)
+    tensor."""
+    return x.view(b, h, -1)[:, :n].reshape(b * n, -1)
+
+
+def flash_bwd_phase() -> dict:
+    """The flash backward kernels (``flash_bwd_dq``, ``flash_bwd_dkdv``)
+    through ``attention_bshd_bwd`` at ``FLASH_BWD_SHAPES``, float32 from a
+    seeded generator, on the kernel forward's own output and lse: one
+    launch of each kernel a call (their counters), dq, dk and dv each
+    within ``FLASH_BWD_TOL`` x the largest magnitude of
+    ``attention_bshd_bwd_ref``'s (over the first heads where its score
+    blocks pass ``PLAIN_SCORES_GB``), and a second call bit-equal. Times:
+    the pair and each kernel alone (through ``bwd_launch_args``) by CUDA
+    events, the plain backward, and the library's backward (``scaled_dot_product_
+    attention`` without a cap or window, ``flex_attention`` under the cap);
+    the operations bound counts the five products of the backward
+    (2 (3 D + 2 Dv) flops a visible pair) as 3xTF32, the forward's
+    convention; each kernel's own bound counts what its function needs
+    (dq: S, dP, dQ; dkdv: S, dP, dV, dK)."""
+    from repro_torch.kernels.flash import ops as fops
+    from repro_torch.kernels.flash import ref as fref
+
+    t0 = time.perf_counter()
+    gen = torch.Generator("cuda").manual_seed(SEED + 2)
+    out = {}
+    for (tag, b, sq, skv, h, hkv, d, dv, window, cap, kv_len,
+         scale) in FLASH_BWD_SHAPES:
+        q = torch.randn(b, sq, h, d, generator=gen, device="cuda")
+        k = torch.randn(b, skv, hkv, d, generator=gen, device="cuda")
+        if dv < d:      # MLA: v a column slice of kv, as the model's
+            v = torch.randn(b, skv, hkv, 2 * dv, generator=gen,
+                            device="cuda")[..., dv:]
+        else:
+            v = torch.randn(b, skv, hkv, dv, generator=gen, device="cuda")
+        d_out = torch.randn(b, sq, h, dv, generator=gen, device="cuda")
+        kv_len = skv if kv_len is None else kv_len
+        fkw = dict(causal=True, window=window, softcap=cap, q_offset=0,
+                   kv_len=kv_len, block=1024, scale=scale)
+        o, lse = fops._bshd_fwd(q, k, v, **fkw, with_lse=True)
+        bkw = dict(causal=True, window=window, softcap=cap, kv_len=kv_len,
+                   scale=scale)
+
+        def kernel():
+            return fops.attention_bshd_bwd(q, k, v, o, lse, d_out, **bkw)
+        for name in ("flash_bwd_dq", "flash_bwd_dkdv"):
+            getattr(fops, name.upper()).launches = 0
+        got = kernel()
+        torch.cuda.synchronize()
+        check(fops.FLASH_BWD_DQ.launches == fops.FLASH_BWD_DKDV.launches
+              == 1, f"flash-bwd {tag}: one launch of each kernel a call")
+        again = kernel()
+        torch.cuda.synchronize()
+        bits = all(same_bits(a, c) for a, c in zip(got, again))
+        check(bits, f"flash-bwd {tag}: two calls bit-equal")
+        del again
+        # the plain backward, over the first n_kv KV heads and their query
+        # heads where its score blocks would pass PLAIN_SCORES_GB
+        g = h // hkv
+        n_kv = hkv
+        while n_kv > 1 and b * n_kv * g * sq * min(1024, skv) * 4 / 1e9 \
+                > PLAIN_SCORES_GB:
+            n_kv //= 2
+        n_h = n_kv * g
+        sl = (q[:, :, :n_h], k[:, :, :n_kv], v[:, :, :n_kv], o[:, :, :n_h],
+              _head_slice(lse, n_h, b, h), d_out[:, :, :n_h])
+
+        def plain():
+            return fref.attention_bshd_bwd_ref(*sl, **bkw)
+        want = plain()
+        case = dict(shape=[b, sq, skv, h, hkv, d, dv], window=window,
+                    softcap=cap, kv_len=kv_len, scale=scale,
+                    plain_heads=f"{n_h} of {h}", bit_equal=bits)
+        for name, a, w in zip(("dq", "dk", "dv"),
+                              (got[0][:, :, :n_h], got[1][:, :, :n_kv],
+                               got[2][:, :, :n_kv]), want):
+            err = float((a - w).abs().max())
+            top = float(w.abs().max())
+            case[f"{name}_max_abs_err"] = err
+            case[f"{name}_largest"] = top
+            check(bool(torch.isfinite(a).all()) and err <= FLASH_BWD_TOL
+                  * top, f"flash-bwd {tag}: {name} within {FLASH_BWD_TOL} x "
+                  f"{top} of the plain backward (max abs err {err})")
+        if tag == "rows that see no key":
+            rows = torch.arange(sq, device="cuda") >= kv_len - 1 + window
+            check(bool((got[0][:, rows] == 0).all()),
+                  f"flash-bwd {tag}: dq is 0 on the rows that see no key")
+        pairs = visible_pairs(sq, window, min(kv_len, skv)) * b * h
+        # float32 elements: q (and dq), k (and dk), v (and dv), out or dO,
+        # lse or Delta
+        nq, nk, nv = q.numel(), k.numel(), b * skv * hkv * dv
+        no, nr = b * sq * h * dv, b * h * sq
+        case["bound_ms"], case["bound_by"] = bound(
+            4 * (2 * nq + 2 * nk + 2 * nv + 2 * no + nr),
+            3 * 2 * (3 * d + 2 * dv) * pairs, TF32_OPS_PER_S)
+        case["dq_bound_ms"], case["dq_bound_by"] = bound(
+            4 * (2 * nq + nk + nv + 2 * no + 2 * nr),
+            3 * 2 * (2 * d + dv) * pairs, TF32_OPS_PER_S)
+        case["dkdv_bound_ms"], case["dkdv_bound_by"] = bound(
+            4 * (nq + 2 * nk + 2 * nv + no + 2 * nr),
+            3 * 2 * (2 * d + 2 * dv) * pairs, TF32_OPS_PER_S)
+        case["gflop"] = 2 * (3 * d + 2 * dv) * pairs / 1e9
+        big = case["gflop"] > 100
+        reps = dict(iters=3, warmup=1) if big else {}
+        case["ms"] = cuda_ms(kernel, **reps)
+        args, keep = fops.bwd_launch_args(q, k, v, o, lse, d_out, **bkw)
+        for which, k_ in (("dq", fops.FLASH_BWD_DQ),
+                          ("dkdv", fops.FLASH_BWD_DKDV)):
+            case[f"{which}_ms"] = cuda_ms(lambda: k_(*args), **reps)
+        del args, keep
+        case["plain_ms"] = cuda_ms(plain, iters=2, warmup=1)
+        case["library_ms"] = None
+        if tag not in FLASH_BWD_LIBRARY:
+            pass            # the edges: widths and masks the library lacks
+        elif cap:
+            case["library_ms"], lib = flex_attention_ms(
+                q, k, v, window=window, softcap=cap, scale=scale,
+                d_out=d_out)
+            case["library"] = "flex_attention backward"
+        elif window is None and kv_len == skv and sq == skv:
+            case["library_ms"], lib = sdpa_backward_ms(q, k, v, d_out,
+                                                       scale=scale)
+            case["library"] = "scaled_dot_product_attention backward"
+        if case["library_ms"] is not None:
+            lib_err = max(float((a - c).abs().max() / c.abs().max())
+                          for a, c in zip(lib, got))
+            case["library_max_rel_err"] = lib_err
+            check(lib_err <= 1e-3, f"flash-bwd {tag}: the library's backward"
+                  f" (the yardstick) within 1e-3 of the kernels' ({lib_err})")
+            del lib
+        log(f"[flash-bwd] {tag}: {json.dumps(case)}")
+        out[tag] = case
+        del q, k, v, o, lse, d_out, got, want, sl
+        torch.cuda.empty_cache()
+    log(f"[flash-bwd] {len(out)} shapes in {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 @contextlib.contextmanager
 def recording(owner, name: str, calls: list):
     """Wrap ``owner.name`` so that each call appends its arguments to
@@ -1172,6 +1389,310 @@ def recording(owner, name: str, calls: list):
         yield
     finally:
         setattr(owner, name, real)
+
+
+def cut_config(cfg, cut):
+    """``cfg`` cut in depth: ``None`` keeps it, an int cuts every segment of
+    a larger count to it (the reference's ``launch/cells.py::
+    _reduce_depth``), ``"seg0"`` keeps segment 0 alone."""
+    if cut == "seg0":
+        return dataclasses.replace(cfg, segments=cfg.segments[:1])
+    if cut is None:
+        return cfg
+    return dataclasses.replace(cfg, segments=tuple(
+        dataclasses.replace(sg, count=min(sg.count, cut))
+        for sg in cfg.segments))
+
+
+@contextlib.contextmanager
+def carried_routes(routes: list, replay: bool, moved: list):
+    """An override of the LM's ``moe_route`` for one run (here, not a model
+    flag). Recording (``replay`` False): each call's top-k experts are
+    appended to ``routes``. Replaying: each call routes by the next recorded
+    experts instead of its own top-k, with gate weights from its own
+    probabilities at those experts, renormalised as ``moe_route`` does (the
+    same floats where the two agree), and appends to ``moved`` how many of
+    its own top-k assignments differ. A run with the plain attention in the
+    kernel's place then takes the kernel run's routing and drops: top-k and
+    the capacity cut are not continuous, and a rounding of the attention
+    would otherwise reroute tokens (1,584 of 2,097,152 in olmoe's
+    prefill)."""
+    from repro_torch.models.lm import model as LM
+    real = LM.moe_route
+    it = iter(list(routes))
+
+    def route(p, x, m):
+        probs, gate_w, gate_i = real(p, x, m)
+        if not replay:
+            routes.append(gate_i)
+            return probs, gate_w, gate_i
+        want = next(it)
+        moved.append(int((want != gate_i).sum()))
+        w = torch.gather(probs, -1, want)
+        return probs, w / torch.clamp(w.sum(-1, keepdim=True), min=1e-9), want
+    LM.moe_route = route
+    try:
+        yield
+    finally:
+        LM.moe_route = real
+    if replay:
+        check(next(it, None) is None and len(moved) == len(routes),
+              f"the replayed run routed {len(moved)} times, the recorded "
+              f"{len(routes)}")
+
+
+def head_slice_check(q, k, v, kw, n_heads: int, d_out=None) -> dict:
+    """One ``attention_bshd`` call on the card held to its plain version over
+    its first ``n_heads`` query heads (and their KV heads), where the plain
+    score blocks of all heads would not fit beside a model: the kernel's
+    output within 1e-4 (absolute, as ``flash_lm_shapes``); with ``d_out``
+    also the backward kernels' dq, dk and dv (on the whole call) within
+    ``FLASH_BWD_TOL`` x the largest of ``attention_bshd_bwd_ref``'s on the
+    slice."""
+    from repro_torch.kernels.flash import ops as fops
+    from repro_torch.kernels.flash import ref as fref
+
+    b, _, h, _ = q.shape
+    g = h // k.shape[2]
+    n_kv = max(1, n_heads // g)
+    n_h = n_kv * g
+    sl = (q[:, :, :n_h], k[:, :, :n_kv], v[:, :, :n_kv])
+    got, lse = fops._bshd_fwd(q, k, v, **kw, with_lse=True)
+    want = fref.attention_bshd_ref(*sl, **kw)
+    res = dict(heads=f"{n_h} of {h}",
+               out_max_abs_err=float((got[:, :, :n_h] - want).abs().max()))
+    check(res["out_max_abs_err"] <= 1e-4, f"attention over {n_h} heads "
+          f"within 1e-4 of the plain version ({res['out_max_abs_err']})")
+    if d_out is not None:
+        bkw = {x: kw[x] for x in ("causal", "window", "softcap", "kv_len",
+                                  "scale")}
+        grads = fops.attention_bshd_bwd(q, k, v, got, lse, d_out, **bkw)
+        plain = fref.attention_bshd_bwd_ref(
+            *sl, got[:, :, :n_h], _head_slice(lse, n_h, b, h),
+            d_out[:, :, :n_h], **bkw)
+        for name, a, w in zip(("dq", "dk", "dv"),
+                              (grads[0][:, :, :n_h], grads[1][:, :, :n_kv],
+                               grads[2][:, :, :n_kv]), plain):
+            err, top = float((a - w).abs().max()), float(w.abs().max())
+            res[f"{name}_max_abs_err"], res[f"{name}_largest"] = err, top
+            check(err <= FLASH_BWD_TOL * top, f"{name} over {n_h} heads "
+                  f"within {FLASH_BWD_TOL} x {top} of the plain backward "
+                  f"({err})")
+    return res
+
+
+# [lm-train]: (arch, cut (``cut_config``), batch, seq), published widths,
+# float32 from seed 0, Adam at LM_TRAIN_LR on token_stream through the
+# Prefetcher; 1 warm-up step, LM_TRAIN_TIMED timed steps and one profiled.
+# granite-3-2b at full depth is the slice's main path (10.1 GB of
+# parameters, 40.5 GB with gradients and Adam's moments). olmoe-1b-7b: 4 of
+# its 16 layers (the MoE backward); gemma2-27b: 1 of its 23 (local, global)
+# pairs at 5,120 tokens, past the 4,096 window (the softcap in the
+# backward); deepseek-v2-236b: its segment 0, the dense MLA layer (Dv < D in
+# the backward), since one MoE layer in float32 with Adam's moments is
+# 3.77 B x 16 B = 60 GB
+LM_TRAIN_RUNS = (("granite-3-2b", None, 4, 2048),
+                 ("olmoe-1b-7b", 4, 4, 2048),
+                 ("gemma2-27b", 1, 1, 5120),
+                 ("deepseek-v2-236b", "seg0", 4, 2048))
+LM_TRAIN_LR = 1e-3
+LM_TRAIN_TIMED = 5
+LM_TRAIN_LOSS_RTOL = 1e-5
+LM_TRAIN_LEAF_TOL = 1e-3
+# The training loss over a few steps of fresh token_stream batches is no
+# gate: granite-3-2b at Adam 1e-3 (the reference's default) rises from
+# 11.21 over its first 12 steps, and at 3e-4 and 1e-4 stays within 0.04 of
+# it over 8 (``python -m repro_torch.launch.train --arch granite-3-2b
+# --steps 12 --batch 4 --seq 2048 --lr ...`` on an H100), and the reference
+# itself promises a drop after a few hundred steps
+# (``repro/data/pipeline.py:67``). What is gated instead: a plain SGD step
+# of LM_TRAIN_DESCENT x loss / |g|^2 along step 1's gradient (the kernels')
+# lowers that batch's loss by at least half the first-order prediction
+LM_TRAIN_DESCENT = 1e-3
+LM_TRAIN_HEADS = 16         # heads of a per-call check against plain
+
+
+def lm_train_phase(all_kernels: dict) -> dict:
+    """Each model of ``LM_TRAIN_RUNS`` trained through ``make_train_step``
+    and freed before the next. Gates: step 1's loss and gradient with the
+    kernels against the same step with ``attention_bshd_ref``'s autograd in
+    their place (at batch 1 where the plain score blocks pass
+    ``PLAIN_SCORES_GB``; the MoE's routing carried across,
+    ``carried_routes``) within ``LM_TRAIN_LOSS_RTOL`` and, leaf by leaf,
+    ``LM_TRAIN_LEAF_TOL`` x the leaf's largest magnitude; a small SGD step
+    along that gradient lowers the loss (``LM_TRAIN_DESCENT``); launches
+    exact in every step (flash_fwd twice per layer, forward and recompute;
+    each backward kernel once; nothing else); finite losses (printed, not
+    held to fall over six steps). deepseek-v2's MLA call also forward and
+    backward over ``LM_TRAIN_HEADS`` heads at the full batch
+    (``head_slice_check``). Prints step ms (host clock ending in
+    ``float(loss)``, median of the timed steps), tokens/s, peak GB and one
+    profiled step's device ms by group."""
+    from repro_torch import configs
+    from repro_torch.data.pipeline import Prefetcher, token_stream
+    from repro_torch.dist.runtime import resolve_device
+    from repro_torch.kernels.flash import ref as fref
+    from repro_torch.models.lm import model as LM
+    from repro_torch.train import optimizer as optlib
+
+    dev = resolve_device()
+    out = {}
+    t_phase = time.perf_counter()
+
+    def counts():
+        return {name: meta["k"].launches for name, meta in all_kernels.items()}
+
+    def zero():
+        for meta in all_kernels.values():
+            meta["k"].launches = 0
+
+    for arch, cut, b, s in LM_TRAIN_RUNS:
+        t_run = time.perf_counter()
+        cfg = cut_config(configs.get(arch).config(), cut)
+        n = cfg.n_layers
+        want_launches = {name: 0 for name in all_kernels}
+        want_launches.update(flash_fwd=2 * n, flash_bwd_dq=n,
+                             flash_bwd_dkdv=n)
+        heads = max(lc.attn.n_heads for _, _, lc, _ in cfg.sub_layers())
+        params = LM.init_params(cfg, torch.Generator(dev).manual_seed(SEED),
+                                dtype=torch.float32)
+        n_alloc = sum(t.numel() for _, t in LM.tree_leaves(params))
+        log(f"[lm-train] {arch}: {n} layers ({[sg.count for sg in cfg.segments]}"
+            f" per segment), d_model {cfg.d_model}, {cfg.param_count()} "
+            f"parameters ({n_alloc} allocated), float32 "
+            f"{n_alloc * 4 / 1e9:.2f} GB, x4 with gradients and Adam's "
+            f"moments; batch {b} x {s}, Adam {LM_TRAIN_LR}")
+        stream = Prefetcher(token_stream(cfg.vocab, b, s, SEED,
+                                         n_batches=LM_TRAIN_TIMED + 2),
+                            device=dev)
+        batches = list(stream)
+        run = dict(layers=n, params=cfg.param_count(), batch=b, seq=s,
+                   cut=cut)
+
+        # step 1 with the kernels and with the plain attention
+        bc = b if b * heads * s * min(1024, s) * 4 / 1e9 <= PLAIN_SCORES_GB \
+            else 1
+        tok, lab = (x[:bc] for x in batches[0])
+        routes, moved = [], []
+        zero()
+        with carried_routes(routes, False, moved):
+            loss_k, grads_k = LM.loss_and_grads(params, tok, lab, cfg)
+        torch.cuda.synchronize()
+        got = counts()
+        check(got == want_launches, f"[lm-train] {arch}: step 1's gradient "
+              f"launched {got}, expected {want_launches}")
+        real_attn = LM.attention_bshd
+        LM.attention_bshd = fref.attention_bshd_ref
+        try:
+            with carried_routes(routes, True, moved):
+                loss_p, grads_p = LM.loss_and_grads(params, tok, lab, cfg)
+        finally:
+            LM.attention_bshd = real_attn
+        rel = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+        worst = ("", 0.0)
+        for path, gk in LM.tree_leaves(grads_k):
+            gp = grads_p
+            for key in path:
+                gp = gp[key]
+            top = float(gp.abs().max())
+            ratio = float((gk - gp).abs().max()) / max(top, 1e-30)
+            if ratio >= worst[1]:
+                worst = ("/".join(path), ratio)
+        del grads_p
+        # a small step along the kernels' gradient lowers the loss (Armijo):
+        # predicted drop LM_TRAIN_DESCENT x the loss
+        gsq = sum(float(gk.double().square().sum())
+                  for _, gk in LM.tree_leaves(grads_k))
+        eta = LM_TRAIN_DESCENT * float(loss_k) / gsq
+        stepped = optlib.tree_map(lambda p_, g_: p_ - eta * g_, params,
+                                  grads_k)
+        del grads_k
+        with torch.no_grad():
+            loss_s = float(LM.lm_loss(stepped, tok, lab, cfg))
+        del stepped
+        descent = dict(sgd_lr=eta, predicted_drop=eta * gsq,
+                       drop=float(loss_k) - loss_s)
+        check(descent["drop"] >= 0.5 * descent["predicted_drop"],
+              f"[lm-train] {arch}: a step of {eta:.3g} along the kernels' "
+              f"gradient lowers the loss by at least half the first-order "
+              f"prediction ({descent})")
+        run["plain_step1"] = dict(
+            batch=bc, loss_kernels=float(loss_k), loss_plain=float(loss_p),
+            loss_rel_err=rel, worst_leaf=worst[0],
+            worst_leaf_err_over_largest=worst[1],
+            moe_assignments_moved=sum(moved) if routes else None,
+            moe_assignments=sum(r.numel() for r in routes) if routes
+            else None, descent=descent)
+        log(f"[lm-train] {arch}: step 1 against plain attention at batch "
+            f"{bc}: {json.dumps(run['plain_step1'])}")
+        check(rel <= LM_TRAIN_LOSS_RTOL and worst[1] <= LM_TRAIN_LEAF_TOL,
+              f"[lm-train] {arch}: step 1 with the kernels within "
+              f"{LM_TRAIN_LOSS_RTOL} (loss, {rel}) and {LM_TRAIN_LEAF_TOL} x "
+              f"each leaf's largest (worst {worst}) of the plain attention's")
+        del routes
+        torch.cuda.empty_cache()
+
+        if any(lc.attn.kind == "mla" for _, _, lc, _ in cfg.sub_layers()):
+            calls = []
+            with recording(LM, "attention_bshd", calls), torch.no_grad():
+                LM.forward(params, batches[0][0], cfg)
+            q, k, v = calls[0][:3]
+            kw = dict(zip(("causal", "window", "softcap", "q_offset",
+                           "kv_len", "block", "scale"), calls[0][3:]))
+            del calls
+            d_out = torch.randn(q.shape[:3] + v.shape[-1:], device=dev,
+                                generator=torch.Generator(dev)
+                                .manual_seed(SEED))
+            run["mla_call"] = head_slice_check(q, k, v, kw, LM_TRAIN_HEADS,
+                                               d_out)
+            log(f"[lm-train] {arch}: the MLA call {tuple(q.shape)} / "
+                f"{tuple(v.shape)} over {run['mla_call']['heads']} heads, "
+                f"forward and backward: {json.dumps(run['mla_call'])}")
+            del q, k, v, d_out
+            torch.cuda.empty_cache()
+
+        # the training steps
+        opt = optlib.adam(LM_TRAIN_LR)
+        state = (params, opt.init(params),
+                 torch.zeros((), dtype=torch.int32, device=dev))
+        step_fn = LM.make_train_step(cfg, opt)
+        torch.cuda.reset_peak_memory_stats()
+        losses, ms = [], []
+        for i, (tok, lab) in enumerate(batches[:LM_TRAIN_TIMED + 1]):
+            zero()
+            t0 = time.perf_counter()
+            state, loss = step_fn(state, tok, lab)
+            losses.append(float(loss))
+            ms.append((time.perf_counter() - t0) * 1e3)
+            got = counts()
+            check(got == want_launches, f"[lm-train] {arch}: step {i + 1} "
+                  f"launched {got}, expected {want_launches}")
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        check(all(np.isfinite(losses)), f"[lm-train] {arch}: losses finite "
+              f"({losses})")
+        (state, _), *prof = profile_device(
+            lambda: step_fn(state, *batches[-1]),
+            f"{arch}: one training step (batch {b} x {s})")
+        step_ms = float(np.median(ms[1:]))
+        run.update(
+            losses=losses, step_ms=ms, median_step_ms=step_ms,
+            tokens_per_s=b * s / step_ms * 1e3, peak_gb=peak,
+            step1_equals_gradient_run=bc == b and losses[0] == float(loss_k),
+            launches=dict(want_launches),
+            profile=dict(host_ms=prof[0], device_busy_ms=prof[1],
+                         flash_fwd_ms=prof[2]["flash"],
+                         flash_bwd_ms=prof[2]["flash_bwd"],
+                         cublas_ms=prof[2]["gemm"],
+                         rest_ms=prof[1] - prof[2]["flash"]
+                         - prof[2]["flash_bwd"] - prof[2]["gemm"]),
+            seconds=time.perf_counter() - t_run)
+        log(f"[lm-train] {arch}: {json.dumps(run)}")
+        out[arch] = run
+        del params, state, batches, stream, step_fn, opt, tok, lab, loss
+        torch.cuda.empty_cache()
+    log(f"[lm-train] {len(out)} models in "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return out
 
 
 def train_phase(all_kernels: dict) -> dict:
@@ -3461,10 +3982,20 @@ def kernel_groups() -> tuple:
             source="src/repro_torch/kernels/csrc/gat.cu",
             replaces="src/repro/models/gnn/blocks.py:132"),
     }
+    # the flash backward replaces no Pallas kernel: the JAX package
+    # differentiates blockwise_attention itself, at this line
     lm_kernels = {
         fops.FLASH_FWD.name: dict(
             k=fops.FLASH_FWD, source="src/repro_torch/kernels/csrc/flash.cu",
             replaces="src/repro/kernels/flash/flash.py:32"),
+        fops.FLASH_BWD_DQ.name: dict(
+            k=fops.FLASH_BWD_DQ,
+            source="src/repro_torch/kernels/csrc/flash_bwd.cu",
+            replaces="src/repro/models/lm/model.py:126"),
+        fops.FLASH_BWD_DKDV.name: dict(
+            k=fops.FLASH_BWD_DKDV,
+            source="src/repro_torch/kernels/csrc/flash_bwd.cu",
+            replaces="src/repro/models/lm/model.py:126"),
     }
     # the zoo's kernel, the port's own: jax.ops.segment_max in the JAX
     # package's agg_max (agg_min is -agg_max(-msgs))
@@ -3539,7 +4070,7 @@ def main() -> int:
     serve_launches = {name: meta["k"].launches
                       for name, meta in all_kernels.items()}
     launches = {name: serve_launches[name] for name in kernels}
-    check(all(serve_launches[k] == 0 for k in ("flash_fwd", *gat_kernels,
+    check(all(serve_launches[k] == 0 for k in (*lm_kernels, *gat_kernels,
                                                *zoo_kernels)),
           "the GCN path launches no flash, no GAT and no zoo kernel")
     log(f"[slice] full sweep {rep.seconds * 1e3:.3f} ms (first, host clock), "
@@ -3767,6 +4298,12 @@ def main() -> int:
     fl = flash_phase(*lm.pop("qkv"))
     torch.cuda.empty_cache()
 
+    # -- 11'. the flash backward kernels vs their plain version ---------------
+    fb = flash_bwd_phase()
+
+    # -- 11''. LM training: granite-3-2b (40 layers), olmoe, gemma2, deepseek --
+    lmt = lm_train_phase(all_kernels)
+
     # -- 11a. the zoo: PNA, MeshGraphNet, SchNet at full width -----------------
     zoo = zoo_phase(all_kernels)
     torch.cuda.empty_cache()
@@ -3824,7 +4361,9 @@ def main() -> int:
         **{path: n[name] for path, n in zoo["launches"].items()},
         lm_generate=lm["launches"][name],
         **{f"{arch}_generate": run["launches"][name]
-           for arch, run in moe.items()}) for name in all_kernels}
+           for arch, run in moe.items()},
+        **{f"{arch}_train_step": run["launches"][name]
+           for arch, run in lmt.items()}) for name in all_kernels}
     summary = []
     for name, meta in kernels.items():
         key, lib = times[name]
@@ -3883,6 +4422,30 @@ def main() -> int:
         model_call_ms=fl["bshd_ms"], model_call_bound_ms=fl["bshd_bound_ms"],
         d128_ms=fl["d128_ms"], d128_library_ms=fl["d128_library_ms"],
         lm_shapes=fl["lm_shapes"]))
+    # the flash backward: launches in one granite-3-2b training step (the
+    # main path), times at its layer call; the plain version and the
+    # library compute the whole backward (dq, dk and dv), beside each kernel
+    main = fb["granite"]
+    for name, key in (("flash_bwd_dq", "dq"), ("flash_bwd_dkdv", "dkdv")):
+        meta = lm_kernels[name]
+        summary.append(dict(
+            name=name, route="cuda", source=meta["source"],
+            replaces=meta["replaces"],
+            launches=lmt["granite-3-2b"]["launches"][name],
+            launches_per_path=per_path[name],
+            max_abs_err=max(c[f"{w}_max_abs_err"] for c in fb.values()
+                            for w in (("dq",) if key == "dq"
+                                      else ("dk", "dv"))),
+            ms=main[f"{key}_ms"], plain_ms=main["plain_ms"],
+            bound_ms=main[f"{key}_bound_ms"],
+            bound_by=main[f"{key}_bound_by"],
+            library_ms=main["library_ms"], library=main["library"],
+            plain_and_library_compute="dq, dk and dv",
+            pair_ms=main["ms"], pair_bound_ms=main["bound_ms"],
+            shape=main["shape"],
+            shapes={tag: {x: c[x] for x in (
+                f"{key}_ms", f"{key}_bound_ms", "ms", "plain_ms",
+                "library_ms") if x in c} for tag, c in fb.items()}))
     sm = zoo["seg_max"]
     summary.append(dict(
         name="seg_max_csr", route="cuda",

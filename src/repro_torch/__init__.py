@@ -22,6 +22,10 @@ asks for the CPU. Ported so far:
 * batched LM serving (prefill + greedy decode,
   ``python -m repro_torch.launch.train --arch granite-3-2b --serve``): every
   prefill layer's attention is the flash-attention kernel;
+* LM training (``models.lm.model.make_train_step``, ``python -m
+  repro_torch.launch.train --arch granite-3-2b``) on the token stream and
+  its prefetcher (``data``), the attention's gradient on the flash backward
+  kernels;
 * fault-tolerant training (``faults``, ``python -m
   repro_torch.launch.chaos``), the overlap schedule on a side CUDA stream
   (``dist.overlap``), the scenario matrix (``launch.scenarios``, ``--scenario``)

@@ -11,8 +11,8 @@ Flags, per source (:func:`nvcc_flags`): every source gets ``sm_90a``
 ``gat.cu`` and ``seg.cu`` also get ``-fmad=false``: they promise the same
 bits as their plain PyTorch versions (``gat.cu`` wherever ``exp`` agrees),
 so a multiply followed by an add must stay two IEEE roundings.
-``flash.cu`` does not: it is held to a tolerance, not to bits, and lets the
-compiler contract to FMA.
+``flash.cu`` and ``flash_bwd.cu`` do not: they are held to a tolerance,
+not to bits, and let the compiler contract to FMA.
 
 Nothing here runs at import time; a CPU-only machine imports this module and
 never calls it.
@@ -30,7 +30,8 @@ from typing import Optional, Sequence
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("quant.cu", "spmm.cu", "flash.cu", "gat.cu", "seg.cu")
+SOURCES = ("quant.cu", "spmm.cu", "flash.cu", "flash_bwd.cu", "gat.cu",
+           "seg.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 # the sources whose kernels are bit-equal to their plain versions

@@ -9,7 +9,13 @@
   at the serving path's shapes on the card.
 * :func:`attention_bshd_ref` — the LM's ``blockwise_attention``
   (``repro/models/lm/model.py:126``): (B, S, H, D) layout, GQA, ``kv_len``,
-  window and softcap, v of its own width Dv, q scaled in its own dtype.
+  window and softcap, v of its own width Dv, q scaled in its own dtype;
+  with ``return_lse`` also each row's log-sum-exp of its (capped) scores.
+* :func:`attention_bshd_bwd_ref` — its gradient by the explicit formulas
+  over KV blocks (not autograd), the plain version of ``csrc/flash_bwd.cu``.
+  The JAX package has no backward kernel: it differentiates
+  ``blockwise_attention`` itself, and the tests hold this function to
+  ``jax.vjp`` of it.
 
 Masked scores contribute exactly 0 here and in the kernel
 (``p = where(mask, exp(s - m), 0)``). For every query row that sees at least
@@ -107,10 +113,13 @@ def apply_softcap(x, cap):
 
 def attention_bshd_ref(q, k, v, *, causal: bool, window: Optional[int],
                        softcap: Optional[float], q_offset: int, kv_len: int,
-                       block: int = 1024, scale: float = 1.0) -> torch.Tensor:
+                       block: int = 1024, scale: float = 1.0,
+                       return_lse: bool = False):
     """``blockwise_attention``: q (B, Sq, H, D), k/v (B, Skv, Hkv, D|Dv) ->
     (B, Sq, H, Dv) in q's dtype. Query head ``h`` reads KV head
-    ``h // (H / Hkv)``; scores and sums in float32."""
+    ``h // (H / Hkv)``; scores and sums in float32. With ``return_lse`` also
+    the float32 log-sum-exp (B * H, Sq) of each row's capped scores,
+    ``m + log(l)`` (``-inf`` for a row that sees no key)."""
     b, sq, h, d = q.shape
     _, skv, hkv, dv = v.shape
     g = h // hkv
@@ -133,4 +142,67 @@ def attention_bshd_ref(q, k, v, *, causal: bool, window: Optional[int],
         m, s, acc = online_softmax_step(m, s, acc, logits, mask[None, None],
                                         vc.transpose(1, 2))
     out = acc / torch.clamp(s[..., None], min=1e-30)
-    return out.transpose(1, 2).to(q.dtype)
+    out = out.transpose(1, 2).to(q.dtype)
+    if return_lse:
+        return out, (m + torch.log(s)).reshape(b * h, sq)
+    return out
+
+
+def _group_sum(x, b, blk, hkv, g):
+    """(B, blk, H, W) over query heads -> (B, blk, Hkv, W): the sum over
+    each KV head's ``g`` query heads, in head order."""
+    return x.reshape(b, blk, hkv, g, x.shape[-1]).sum(3) if g > 1 else x
+
+
+def attention_bshd_bwd_ref(q, k, v, out, lse, d_out, *, causal: bool,
+                           window: Optional[int], softcap: Optional[float],
+                           kv_len: int, scale: float = 1.0,
+                           block: int = 1024):
+    """The gradient of :func:`attention_bshd_ref` (``q_offset`` 0) by the
+    explicit formulas, one KV block of ``block`` keys at a time, in float32:
+
+    * Delta = rowsum(dO * O);
+    * P = exp(S_c - lse), S_c the scaled (and capped) score, 0 where masked;
+    * dP = dO V^T; dS = P * (dP - Delta), times 1 - (S_c / cap)^2 under a
+      softcap (the derivative of ``cap * tanh(s / cap)``);
+    * dQ = scale * dS K, dK = scale * dS^T Q, dV = P^T dO.
+
+    q (B, Sq, H, D), k (B, Skv, Hkv, D), v (B, Skv, Hkv, Dv), out and d_out
+    (B, Sq, H, Dv), lse (B * H, Sq) from the forward. Returns (dq, dk, dv)
+    in the dtypes of q, k and v. dK and dV sum each KV head's H / Hkv query
+    heads. A masked score, or a row that sees no key, contributes exactly
+    0."""
+    b, sq, h, d = q.shape
+    _, skv, hkv, dv = v.shape
+    g = h // hkv
+    dev = q.device
+    qs = (q * scale).float()                       # the forward's scores
+    do = d_out.float().transpose(1, 2)             # (B, H, Sq, Dv)
+    delta = (d_out.float() * out.float()).sum(-1).transpose(1, 2)
+    lse = lse.reshape(b, h, sq)
+    q_pos = torch.arange(sq, device=dev)
+    dq = torch.zeros((b, h, sq, d), dtype=torch.float32, device=dev)
+    dk = torch.zeros((b, skv, hkv, d), dtype=torch.float32, device=dev)
+    dvv = torch.zeros((b, skv, hkv, dv), dtype=torch.float32, device=dev)
+    for k_lo in range(0, skv, block):
+        kc, vc = k[:, k_lo:k_lo + block].float(), v[:, k_lo:k_lo + block].float()
+        blk = kc.shape[1]
+        if g > 1:
+            kc = kc.repeat_interleave(g, dim=2)        # (b, blk, H, d)
+            vc = vc.repeat_interleave(g, dim=2)
+        s = torch.einsum("bqhd,bkhd->bhqk", qs, kc)
+        s = apply_softcap(s, softcap)
+        mask = _mask(q_pos, k_lo + torch.arange(blk, device=dev),
+                     causal=causal, window=window, kv_len=kv_len)[None, None]
+        p = torch.where(mask, torch.exp(s - lse[..., None]), 0.0)
+        dp = torch.einsum("bhqe,bkhe->bhqk", do, vc)
+        ds = p * (dp - delta[..., None])
+        if softcap:
+            ds = ds * (1.0 - torch.square(s / softcap))
+        dq += torch.einsum("bhqk,bkhd->bhqd", ds, kc)
+        dk[:, k_lo:k_lo + blk] = _group_sum(
+            torch.einsum("bhqk,bqhd->bkhd", ds, qs), b, blk, hkv, g)
+        dvv[:, k_lo:k_lo + blk] = _group_sum(
+            torch.einsum("bhqk,bhqe->bkhe", p, do), b, blk, hkv, g)
+    dq = (dq * scale).transpose(1, 2)
+    return dq.to(q.dtype), dk.to(k.dtype), dvv.to(v.dtype)

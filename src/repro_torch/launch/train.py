@@ -1,7 +1,7 @@
 """End-to-end launcher of the port, as ``python -m repro.launch.train``:
 full-graph training of GCN / GraphSAGE / GAT and of PNA / MeshGraphNet /
-SchNet with Sylvie's quantized halo exchange, and batched LM serving
-(prefill + greedy decode).
+SchNet with Sylvie's quantized halo exchange, LM training on the synthetic
+token stream, and batched LM serving (prefill + greedy decode).
 
     python -m repro_torch.launch.train --arch gcn --graph reddit_like@paper \\
         --parts 4 --mode async --bits 1 --eps-s 4 --epochs 20
@@ -13,6 +13,10 @@ SchNet with Sylvie's quantized halo exchange, and batched LM serving
         --parts 4 --mode async --bits 1 --eps-s 4 --epochs 10
     python -m repro_torch.launch.train --arch meshgraphnet --reduced \\
         --graph mesh_like@smoke --epochs 2 --device cpu
+    python -m repro_torch.launch.train --arch granite-3-2b --steps 100 \
+        --lr 1e-3 --batch 4 --seq 2048
+    python -m repro_torch.launch.train --arch olmoe-1b-7b --reduced \
+        --steps 3 --device cpu
     python -m repro_torch.launch.train --arch granite-3-2b --serve
     python -m repro_torch.launch.train --arch olmoe-1b-7b --serve
     python -m repro_torch.launch.train --arch deepseek-v2-236b --serve \\
@@ -28,13 +32,17 @@ none); ``--device cpu`` runs the kernels' plain PyTorch versions on the CPU.
 ``artifacts/torch/scenarios/``; ``--schedule overlap`` issues each halo
 exchange on a side CUDA stream (``dist/overlap.py``). LM parameters are
 float32 from a seeded generator; prompts are random tokens from the same
-seed. ``--serve`` takes every LM of the registry (granite-3-2b, yi-34b,
-olmoe-1b-7b, deepseek-v2-236b, gemma2-27b); at their full configs
-deepseek-v2-236b, gemma2-27b and yi-34b do not fit one 80 GB card in
-float32. MeshGraphNet and SchNet read edge geometry, computed on the host
-after the self-loops are added (random positions from seed 0 where the
-graph has none). NequIP, LM and DLRM training are not ported yet (ROADMAP
-queue A).
+seed. An LM without ``--serve`` trains (``train_lm``, the reference's):
+Adam at ``--lr`` for ``--steps`` batches of ``token_stream`` through the
+``Prefetcher``, every layer recomputed in the backward, the attention's
+gradient on the flash backward kernels. Every LM of the registry
+(granite-3-2b, yi-34b, olmoe-1b-7b, deepseek-v2-236b, gemma2-27b) trains
+and serves; at their full configs deepseek-v2-236b, gemma2-27b and yi-34b
+do not fit one 80 GB card in float32 (to serve; with gradients and Adam's
+moments, neither does olmoe-1b-7b). MeshGraphNet and SchNet read edge
+geometry, computed on the host after the self-loops are added (random
+positions from seed 0 where the graph has none). NequIP and DLRM are not
+ported yet (ROADMAP queue A).
 """
 from __future__ import annotations
 
@@ -109,6 +117,40 @@ def serve_lm(args) -> Generation:
           f"{b * (new - 1) / max(res.decode_s, 1e-9):.1f} tok/s")
     print("sample:", res.tokens[0][:16])
     return res
+
+
+def train_lm(args) -> list:
+    """The reference's ``train_lm``: float32 parameters from the seed, Adam
+    at ``args.lr``, ``args.steps`` batches of ``token_stream`` (batch x
+    seq) through a ``Prefetcher`` onto the device. Prints the step lines
+    and the final loss as the reference does; returns the losses."""
+    from ..data.pipeline import Prefetcher, token_stream
+    from ..train import optimizer as optlib
+
+    dev = resolve_device(args.device)
+    spec = configlib.get(args.arch)
+    cfg = spec.reduced() if args.reduced else spec.config()
+    opt = optlib.adam(args.lr)
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    params = LM.init_params(cfg, gen, dtype=torch.float32)
+    state = (params, opt.init(params),
+             torch.zeros((), dtype=torch.int32, device=dev))
+    step_fn = LM.make_train_step(cfg, opt)
+    stream = Prefetcher(token_stream(cfg.vocab, args.batch, args.seq,
+                                     args.seed, n_batches=args.steps),
+                        device=dev)
+    losses = []
+    t0 = time.perf_counter()
+    for i, (tok, lab) in enumerate(stream):
+        state, loss = step_fn(state, tok, lab)
+        losses.append(loss)
+        if (i + 1) % args.log_every == 0:
+            print(f"step {i + 1:5d} loss {float(loss):.4f} "
+                  f"({(i + 1) * args.batch * args.seq / (time.perf_counter() - t0):.0f}"
+                  f" tok/s)")
+    losses = [float(x) for x in losses]
+    print(f"final loss {losses[-1]:.4f}" if losses else "no steps")
+    return losses
 
 
 def build_policy(args):
@@ -241,6 +283,8 @@ def main(argv=None) -> None:
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--log-every", type=int, default=10)
     # LM
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--lr", type=float, default=1e-3)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--decode-tokens", type=int, default=32)
@@ -264,10 +308,10 @@ def main(argv=None) -> None:
                          f"{sorted(configlib.REGISTRY)}")
     if configlib.get(args.arch).kind == "gnn":
         train_gnn(args)
-    elif not args.serve:
-        raise SystemExit(f"LM training: {NOT_PORTED}; pass --serve")
-    else:
+    elif args.serve:
         serve_lm(args)
+    else:
+        train_lm(args)
 
 
 if __name__ == "__main__":

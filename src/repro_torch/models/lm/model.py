@@ -11,12 +11,27 @@ so weights carry across (``repro_torch.models.convert``).
 
 Differences of form, not of function:
 
-* ``lax.scan`` over a segment's ``count`` is a Python loop; ``remat`` and
-  ``unroll`` have no counterpart (no autodiff, no tracing here).
+* ``lax.scan`` over a segment's ``count`` is a Python loop; ``unroll`` has
+  no counterpart (no tracing here). ``remat`` is always on:
+  ``torch.utils.checkpoint`` (non-reentrant) around one iteration of a
+  segment's body, all its sub-layers, as the reference's
+  ``jax.checkpoint(body, nothing_saveable)``; it is active only when a
+  gradient is taken (grad enabled and a parameter or the stream requiring
+  grad), so serving runs each layer once, as before.
 * Prefill attention is ``kernels.flash.ops.attention_bshd``: the CUDA flash
   kernel on the card (one launch per layer, with the softcap and MLA's
   narrower value heads inside it), ``blockwise_attention``'s plain version
-  on the CPU. Decode attention is plain PyTorch, as in the reference.
+  on the CPU. Under a gradient it is ``FlashAttention``, whose backward is
+  the two kernels of ``flash_bwd.cu`` on the card (the plain backward on the
+  CPU); with remat a training step launches the forward kernel twice per
+  layer (forward and recompute) and each backward kernel once. Decode
+  attention is plain PyTorch, as in the reference.
+* ``make_train_step`` takes the gradient with ``torch.autograd.grad`` and
+  updates the parameters and the optimizer's state in place, leaf by leaf
+  (``train.optimizer.update_in_place``: the reference's ``optimizer.update``
+  and ``apply_updates``, the same bits), where JAX's step returns a new
+  state; a full-width model's second copy of parameters and moments would
+  not fit the card.
 * The MoE dispatch writes each kept assignment into its own slot of the
   capacity buffer (``index_copy_``: a permutation, nothing accumulated);
   the reference's ``segment_sum`` also adds the dropped assignments' zeros
@@ -42,10 +57,12 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ...kernels.flash.ops import attention_bshd
 from ...kernels.flash.ref import NEG
 from ...kernels.flash.ref import apply_softcap as _softcap
+from ...train.optimizer import update_in_place
 from .config import AttnConfig, LayerConfig, LMConfig, MoEConfig
 
 MOE_GROUP = 8192          # dispatch-group length in token-assignments
@@ -456,7 +473,10 @@ def _sub_layer(p, x, lc: LayerConfig, cfg: LMConfig, *, positions, kv_len,
 def _trunk(params, tokens, cfg: LMConfig, *, positions=None, kv_len=None,
            caches=None, cache_pos=None):
     """tokens (B, S) -> (final hidden states (B, S, d) before the last
-    norm, the summed MoE aux loss: 0.0 without MoE layers)."""
+    norm, the summed MoE aux loss: 0.0 without MoE layers). With a
+    gradient to take, each iteration of a segment's body is checkpointed:
+    its activations are recomputed in the backward (the reference's
+    remat)."""
     s = tokens.shape[1]
     dtype = params["embed"].dtype
     x = params["embed"][tokens]
@@ -473,13 +493,23 @@ def _trunk(params, tokens, cfg: LMConfig, *, positions=None, kv_len=None,
         for i in range(seg.count):
             p_i = index_layer(seg_p, i)
             cache_i = None if seg_cache is None else index_layer(seg_cache, i)
-            for li, lc in enumerate(seg.layers):
-                x, aux = _sub_layer(
-                    p_i[f"sub{li}"], x, lc, cfg, positions=positions,
-                    kv_len=kv_len,
-                    cache=None if cache_i is None else cache_i[f"sub{li}"],
-                    cache_pos=cache_pos)
-                total_aux = total_aux + aux
+
+            def body(x, p_i=p_i, cache_i=cache_i, seg=seg):
+                aux_i = 0.0
+                for li, lc in enumerate(seg.layers):
+                    x, aux = _sub_layer(
+                        p_i[f"sub{li}"], x, lc, cfg, positions=positions,
+                        kv_len=kv_len,
+                        cache=None if cache_i is None else cache_i[f"sub{li}"],
+                        cache_pos=cache_pos)
+                    aux_i = aux_i + aux
+                return x, aux_i
+            if torch.is_grad_enabled() and (x.requires_grad or any(
+                    t.requires_grad for _, t in tree_leaves(p_i))):
+                x, aux_i = checkpoint(body, x, use_reentrant=False)
+            else:
+                x, aux_i = body(x)
+            total_aux = total_aux + aux_i
     return x, total_aux
 
 
@@ -502,6 +532,62 @@ def forward(params, tokens, cfg: LMConfig, *, positions=None, kv_len=None,
     x, aux = _trunk(params, tokens, cfg, positions=positions, kv_len=kv_len,
                     caches=caches, cache_pos=cache_pos)
     return _logits(params, x, cfg), aux, caches
+
+
+# ---------------------------------------------------------------------------
+# training
+# ---------------------------------------------------------------------------
+
+
+def lm_loss(params, tokens, labels, cfg: LMConfig):
+    """The reference's ``lm_loss``: mean cross-entropy of ``labels`` under
+    the logits over the real vocab (the padded entries are cut by
+    ``forward``), plus ``0.01 * aux``, the MoE layers' load-balance loss. A
+    float32 scalar."""
+    logits, aux, _ = forward(params, tokens, cfg)
+    logz = torch.logsumexp(logits, -1)
+    ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    return (logz - ll).mean() + 0.01 * aux
+
+
+def make_train_step(cfg: LMConfig, optimizer):
+    """``train_step(state, tokens, labels) -> (state, loss)`` with ``state =
+    (params, opt_state, step)``, as the reference's: the loss and its
+    gradient with respect to every parameter leaf (``torch.autograd.grad``),
+    then ``optimizer.update`` and ``apply_updates``, leaf by leaf and in
+    place (``update_in_place``): the parameters and the optimizer's state
+    that ``state`` holds are updated, and returned with ``step + 1``. The
+    loss is detached."""
+    def train_step(state, tokens, labels):
+        params, opt_state, step = state
+        loss, grads = loss_and_grads(params, tokens, labels, cfg)
+        update_in_place(optimizer, grads, opt_state, params)
+        return (params, opt_state, step + 1), loss
+    return train_step
+
+
+def loss_and_grads(params, tokens, labels, cfg: LMConfig):
+    """``lm_loss`` (detached) and its gradient with respect to every leaf
+    of ``params``, a dict shaped as ``params``, by ``torch.autograd.grad``.
+    The leaves require grad only while it runs."""
+    leaves = [t for _, t in tree_leaves(params)]
+    with torch.enable_grad():
+        for t in leaves:
+            t.requires_grad_(True)
+        try:
+            loss = lm_loss(params, tokens, labels, cfg)
+            grads = torch.autograd.grad(loss, leaves)
+        finally:
+            for t in leaves:
+                t.requires_grad_(False)
+    return loss.detach(), _tree_like(params, iter(grads))
+
+
+def _tree_like(tree: dict, values):
+    """A dict shaped as ``tree`` whose leaves are taken from ``values`` in
+    ``tree_leaves`` order."""
+    return {k: _tree_like(v, values) if isinstance(v, dict) else next(values)
+            for k, v in tree.items()}
 
 
 # ---------------------------------------------------------------------------

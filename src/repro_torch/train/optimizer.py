@@ -116,3 +116,92 @@ def adamw(lr: float, weight_decay: float = 0.01, **kw) -> Optimizer:
 
 def apply_updates(params, updates):
     return tree_map(lambda p, u: p + u.to(p.dtype), params, updates)
+
+
+# elements of one leaf updated at a time by ``update_in_place``: bounds its
+# temporaries to a few times 256 MB
+UPDATE_CHUNK = 1 << 26
+
+
+def update_in_place(optimizer: Optimizer, grads: dict, state,
+                    params: dict) -> None:
+    """``params`` and ``state`` updated in place to what
+    ``apply_updates(params, optimizer.update(grads, state, params)[0])`` and
+    the new state would be, bit for bit, with at most ``UPDATE_CHUNK``
+    elements of one leaf's temporaries alive at a time (a full-width LM's parameters,
+    gradients and Adam moments fill most of the card; a second copy of them
+    would not fit). ``params`` is a nested dict; ``state`` holds subtrees
+    keyed as ``params`` (Adam's ``m`` and ``v``, momentum), shared leaves
+    (Adam's step ``t``, advanced once) or nothing. Each gradient leaf is
+    dropped from ``grads`` once it has been used.
+
+    The update is elementwise, so it runs on flat slices of every leaf:
+    ``optimizer.update`` on one slice of the gradient, its state and the
+    parameter, ``apply_updates`` on that slice, the results copied back."""
+    keys = params.keys()
+
+    def is_param_tree(node) -> bool:
+        return isinstance(node, dict) and node.keys() == keys
+
+    def pick(node, path, sl):
+        """``node`` with each params-shaped subtree's leaf at ``path``
+        replaced by its flat slice ``sl``."""
+        if is_param_tree(node):
+            leaf = node
+            for k in path:
+                leaf = leaf[k]
+            return leaf.view(-1)[sl]
+        if isinstance(node, dict):
+            return {k: pick(v, path, sl) for k, v in node.items()}
+        if isinstance(node, (tuple, list)):
+            return type(node)(pick(v, path, sl) for v in node)
+        return node
+
+    def put(node, new, path, sl) -> None:
+        if is_param_tree(node):
+            leaf = node
+            for k in path:
+                leaf = leaf[k]
+            leaf.view(-1)[sl].copy_(new)
+        elif isinstance(node, dict):
+            for k, v in node.items():
+                put(v, new[k], path, sl)
+        elif isinstance(node, (tuple, list)):
+            for v, n in zip(node, new):
+                put(v, n, path, sl)
+
+    def shared(node, new):
+        """``node`` with its shared leaves taken from ``new``."""
+        if is_param_tree(node):
+            return node
+        if isinstance(node, dict):
+            return {k: shared(v, new[k]) for k, v in node.items()}
+        if isinstance(node, (tuple, list)):
+            return type(node)(shared(v, n) for v, n in zip(node, new))
+        return new
+
+    def paths(tree, prefix=()):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                yield from paths(v, prefix + (k,))
+            else:
+                yield prefix + (k,)
+
+    new_sub = None
+    for path in list(paths(params)):
+        p, g_node = params, grads
+        for k in path[:-1]:
+            p, g_node = p[k], g_node[k]
+        p = p[path[-1]]
+        g = g_node.pop(path[-1]).reshape(-1)
+        if not p.is_contiguous():
+            raise ValueError(f"parameter {'/'.join(path)} is not contiguous")
+        for lo in range(0, p.numel(), UPDATE_CHUNK):
+            sl = slice(lo, lo + UPDATE_CHUNK)
+            sub = pick(state, path, sl)
+            upd, new_sub = optimizer.update(g[sl], sub, p.view(-1)[sl])
+            p.view(-1)[sl].copy_(apply_updates(p.view(-1)[sl], upd))
+            put(state, new_sub, path, sl)
+        del g
+    if new_sub is not None and isinstance(state, dict):
+        state.update(shared(state, new_sub))

@@ -411,9 +411,12 @@ def test_entry_point_needs_a_card_unless_asked_for_the_cpu(monkeypatch,
     launch.main(argv + ["--device", "cpu"])
     out = capsys.readouterr().out
     assert "decoded 2x3 tokens" in out and "sample:" in out
-    for bad in (["--arch", "nequip"], ["--arch", "granite-3-2b"]):
-        with pytest.raises(SystemExit, match="not ported yet"):
-            launch.main(bad)
+    with pytest.raises(SystemExit, match="not ported yet"):
+        launch.main(["--arch", "nequip"])
+    # an LM without --serve trains (it was refused before it was ported):
+    # on the card, so without one it raises
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        launch.main(["--arch", "granite-3-2b", "--reduced", "--steps", "1"])
     # --scenario is ported: it trains on the card, so without one it raises
     # (tests/test_torch_scenarios.py runs it on the CPU)
     with pytest.raises(RuntimeError, match="device='cpu'"):

@@ -2,8 +2,8 @@
 ``tools/torch_gat_check.py``: CUDA-event time of back-to-back calls, device
 time of the kernels a call launches (``torch.profiler``), and the library
 calls that compute GAT's edge softmax, its backward and the transposed row
-sums, and softcapped attention (timed as yardsticks only; the port never
-calls them).
+sums, softcapped attention and the attention's backward (timed as
+yardsticks only; the port never calls them).
 
 It imports torch alone, so it times the port of whichever checkout the
 caller put on ``sys.path``.
@@ -143,7 +143,8 @@ def softmax_library_ms(csr, s_src, s_dst, alpha, a_b, da_b, ss_b, sd_b, dx,
     return out
 
 
-def flex_attention_ms(q, k, v, *, window, softcap: float, scale: float):
+def flex_attention_ms(q, k, v, *, window, softcap: float, scale: float,
+                      d_out=None):
     """One ``flex_attention`` call that computes the LM's softcapped causal
     (windowed) attention: q (B, Sq, H, D), k/v (B, Skv, Hkv, D) as
     ``attention_bshd`` takes them, copied once to the (B, H, S, D) layout
@@ -153,7 +154,10 @@ def flex_attention_ms(q, k, v, *, window, softcap: float, scale: float):
     row sees), GQA through ``enable_gqa``. Compiled once (untimed: Triton
     kernels generated by Inductor, cached under the checkout's ``build/``,
     compiled in this process). Returns (CUDA-event ms, its output in
-    ``attention_bshd``'s (B, Sq, H, D) layout)."""
+    ``attention_bshd``'s (B, Sq, H, D) layout). With ``d_out`` (the output's
+    gradient, in that layout) it times the backward instead (its compiled
+    backward, ``torch.autograd.grad`` of one forward kept alive) and returns
+    (ms, (dq, dk, dv) in ``attention_bshd``'s layouts)."""
     import os
     from pathlib import Path
     build = Path(__file__).resolve().parents[1] / "build"
@@ -177,5 +181,43 @@ def flex_attention_ms(q, k, v, *, window, softcap: float, scale: float):
     def run():
         return call(qh, kh, vh, score_mod=capped, block_mask=mask,
                     scale=scale, enable_gqa=kh.shape[1] != qh.shape[1])
-    out = run().transpose(1, 2)
-    return cuda_ms(run), out
+    if d_out is None:
+        out = run().transpose(1, 2)
+        return cuda_ms(run), out
+    for t in (qh, kh, vh):
+        t.requires_grad_(True)
+    out = run()
+    g = d_out.transpose(1, 2).contiguous()
+
+    def grads():
+        return torch.autograd.grad(out, (qh, kh, vh), g, retain_graph=True)
+    ms = cuda_ms(grads, iters=3, warmup=1)
+    return ms, tuple(x.transpose(1, 2) for x in grads())
+
+
+def sdpa_backward_ms(q, k, v, d_out, *, scale: float):
+    """The backward of one ``scaled_dot_product_attention`` call (causal,
+    float32) that computes ``attention_bshd`` with neither window nor
+    softcap: q (B, S, H, D), k (B, S, Hkv, D), v (B, S, Hkv, Dv) copied to
+    the (B, H, S, D) layout, KV heads repeated to H (what a GQA call costs
+    the library beside the port's in-kernel sum). ``torch.autograd.grad`` of
+    one forward kept alive, by CUDA events; returns (ms, (dq, dk, dv) in
+    ``attention_bshd``'s layouts, dk and dv summed over each KV head's
+    query heads)."""
+    import torch.nn.functional as F
+    g = q.shape[2] // k.shape[2]
+    kh, vh = (x.repeat_interleave(g, dim=2).transpose(1, 2).contiguous()
+              .requires_grad_(True) for x in (k, v))
+    qh = q.transpose(1, 2).contiguous().requires_grad_(True)
+    out = F.scaled_dot_product_attention(qh, kh, vh, is_causal=True,
+                                         scale=scale)
+    do = d_out.transpose(1, 2).contiguous()
+
+    def grads():
+        return torch.autograd.grad(out, (qh, kh, vh), do, retain_graph=True)
+    ms = cuda_ms(grads, iters=3, warmup=1)
+    dq, dk, dv = (x.transpose(1, 2) for x in grads())
+    b, s, hkv = k.shape[:3]
+    dk = dk.reshape(b, s, hkv, g, -1).sum(3)
+    dv = dv.reshape(b, s, hkv, g, -1).sum(3)
+    return ms, (dq, dk, dv)
