@@ -112,14 +112,17 @@ Phases, each of which raises (and exits non-zero) on failure:
             gemma2's capped local and global layers and deepseek-v2's MLA
             (D 192, Dv 128) from ``FLASH_LM_SHAPES``, and edges (rows that
             see no key through kv_len, a window of 5, Sq 333 / Skv 410, D
-            256 under a cap at scale 1, D 75 / Dv 33), on the kernel
-            forward's own output and lse: dq, dk and dv each within 1e-4 x
-            the largest of ``attention_bshd_bwd_ref``'s (over a slice of
-            heads where its scores pass ``PLAIN_SCORES_GB``), two calls
-            bit-equal; the pair's and each kernel's ms beside the bound
-            (five products as 3xTF32), the plain backward, and the backward
-            of ``scaled_dot_product_attention`` (no cap) or
-            ``flex_attention`` (capped) (``flash_bwd_phase``).
+            256 under a cap at scale 1, D 75 / Dv 33; GQA groups of 1 and
+            8, D 32, one query row, Skv under a key tile, kv_len inside a
+            tile under a window, MLA at Sq 333), on the kernel forward's
+            own output and lse: dq, dk and dv each within 1e-4 x the
+            largest of ``attention_bshd_bwd_ref``'s (over a slice of heads
+            where its scores pass ``PLAIN_SCORES_GB``), two calls bit-equal,
+            dq 0 on rows that see no key; the pair's and each kernel's ms
+            beside the bound (five products as 3xTF32; each kernel's own:
+            dq three, dkdv four) and its share of it, the plain backward,
+            and the backward of ``scaled_dot_product_attention`` (no cap)
+            or ``flex_attention`` (capped) (``flash_bwd_phase``).
 8c. lm-train — ``make_train_step`` at published widths, float32 from
             seed 0, Adam 1e-3 on ``token_stream`` through the ``Prefetcher``
             (``LM_TRAIN_RUNS``): granite-3-2b at full depth (40 layers, 4 x
@@ -1107,12 +1110,16 @@ def flash_phase(q, k, v) -> dict:
     return res
 
 
-def visible_pairs(sq: int, window=None, kv_end=None) -> int:
+def visible_pairs(sq: int, window=None, kv_end=None, causal=True) -> int:
     """(query, key) pairs a causal (windowed) attention over ``sq`` rows
     sees, per head: key j <= i, i - j < window, j < kv_end (none by
-    default)."""
+    default; without ``causal`` every key j < kv_end, which is then
+    needed, with i - j < window)."""
     i = np.arange(sq, dtype=np.int64)
-    hi = i + 1 if kv_end is None else np.minimum(i + 1, kv_end)
+    if not causal:
+        hi = np.full_like(i, kv_end)
+    else:
+        hi = i + 1 if kv_end is None else np.minimum(i + 1, kv_end)
     lo = np.zeros_like(i) if window is None else np.maximum(i - window + 1, 0)
     return int(np.maximum(hi - lo, 0).sum())
 
@@ -1204,13 +1211,17 @@ def flash_lm_shapes() -> dict:
 
 
 # [flash-bwd]: (tag, batch, sq, skv, heads, kv heads, d, dv, window,
-# softcap, kv_len (None: skv), scale). granite-3-2b's layer call in
-# [lm-train] (batch 4, GQA 32:8, D 64), d = 128 without a cap, the served
-# models' shapes of FLASH_LM_SHAPES (gemma2's capped local and global
-# layers, deepseek-v2's MLA with v a column slice of kv), then edges: rows
-# that see no key (kv_len 100, window 37: rows 136 on), a window smaller
-# than a tile, Sq and Skv that are no tile multiples, the widest head under
-# a cap that bends the scores (scale 1), and odd widths
+# softcap, kv_len (None: skv), scale[, causal (default True)]).
+# granite-3-2b's layer call in [lm-train] (batch 4, GQA 32:8, D 64), d =
+# 128 without a cap, the served models' shapes of FLASH_LM_SHAPES (gemma2's
+# capped local and global layers, deepseek-v2's MLA with v a column slice
+# of kv), then edges: rows that see no key (kv_len 100, window 37: rows 136
+# on), a window smaller than a tile, Sq and Skv that are no tile multiples,
+# the widest head under a cap that bends the scores (scale 1), odd widths;
+# and the edges of the tensor-core tiling: GQA groups of 1 and 8, D 32, one
+# query row (not causal: a causal row 0 sees key 0 alone, and its dq and dk
+# are 0 up to rounding), Skv under one key tile, kv_len inside a tile under
+# a window, MLA's column-slice v with Sq no tile multiple
 FLASH_BWD_SHAPES = (
     ("granite", 4, 2048, 2048, 32, 8, 64, 64, None, None, None, 64 ** -0.5),
     ("d 128", 4, 2048, 2048, 32, 32, 128, 128, None, None, None,
@@ -1225,7 +1236,18 @@ FLASH_BWD_SHAPES = (
     ("d 256, softcap 30, window 37, scale 1", 1, 300, 300, 2, 1, 256, 256,
      37, 30.0, None, 1.0),
     ("d 75, dv 33, softcap 20", 2, 130, 130, 3, 1, 75, 33, None, 20.0, None,
-     0.2))
+     0.2),
+    ("gqa group 1", 2, 300, 300, 4, 4, 64, 64, None, None, None, 0.125),
+    ("gqa group 8", 2, 300, 300, 8, 1, 64, 64, None, None, None, 0.125),
+    ("d 32", 2, 300, 300, 4, 2, 32, 32, None, None, None, 32 ** -0.5),
+    ("sq 1, skv 200, not causal", 2, 1, 200, 4, 2, 64, 64, None, None, None,
+     0.125, False),
+    ("skv 20 under a key tile, sq 100", 2, 100, 20, 4, 2, 64, 64, None, None,
+     None, 0.125),
+    ("kv_len 77 inside a tile, window 50", 2, 300, 300, 4, 2, 64, 64, 50,
+     None, 77, 0.125),
+    ("MLA, sq 333", 1, 333, 333, 4, 4, 192, 128, None, None, None,
+     192 ** -0.5))
 FLASH_BWD_TOL = 1e-4
 # the shapes timed beside the library's backward
 FLASH_BWD_LIBRARY = ("granite", "d 128",
@@ -1252,15 +1274,18 @@ def flash_bwd_phase() -> dict:
     the operations bound counts the five products of the backward
     (2 (3 D + 2 Dv) flops a visible pair) as 3xTF32, the forward's
     convention; each kernel's own bound counts what its function needs
-    (dq: S, dP, dQ; dkdv: S, dP, dV, dK)."""
+    (dq: S, dP, dQ; dkdv: S, dP, dV, dK), and ``*_bound_share`` is a bound
+    over its time. Where rows see no key (causal, a window and kv_len
+    short of Skv), their dq must be exactly 0."""
     from repro_torch.kernels.flash import ops as fops
     from repro_torch.kernels.flash import ref as fref
 
     t0 = time.perf_counter()
     gen = torch.Generator("cuda").manual_seed(SEED + 2)
     out = {}
-    for (tag, b, sq, skv, h, hkv, d, dv, window, cap, kv_len,
-         scale) in FLASH_BWD_SHAPES:
+    for (tag, b, sq, skv, h, hkv, d, dv, window, cap, kv_len, scale,
+         *causal) in FLASH_BWD_SHAPES:
+        causal = causal[0] if causal else True
         q = torch.randn(b, sq, h, d, generator=gen, device="cuda")
         k = torch.randn(b, skv, hkv, d, generator=gen, device="cuda")
         if dv < d:      # MLA: v a column slice of kv, as the model's
@@ -1270,10 +1295,10 @@ def flash_bwd_phase() -> dict:
             v = torch.randn(b, skv, hkv, dv, generator=gen, device="cuda")
         d_out = torch.randn(b, sq, h, dv, generator=gen, device="cuda")
         kv_len = skv if kv_len is None else kv_len
-        fkw = dict(causal=True, window=window, softcap=cap, q_offset=0,
+        fkw = dict(causal=causal, window=window, softcap=cap, q_offset=0,
                    kv_len=kv_len, block=1024, scale=scale)
         o, lse = fops._bshd_fwd(q, k, v, **fkw, with_lse=True)
-        bkw = dict(causal=True, window=window, softcap=cap, kv_len=kv_len,
+        bkw = dict(causal=causal, window=window, softcap=cap, kv_len=kv_len,
                    scale=scale)
 
         def kernel():
@@ -1304,7 +1329,7 @@ def flash_bwd_phase() -> dict:
             return fref.attention_bshd_bwd_ref(*sl, **bkw)
         want = plain()
         case = dict(shape=[b, sq, skv, h, hkv, d, dv], window=window,
-                    softcap=cap, kv_len=kv_len, scale=scale,
+                    softcap=cap, kv_len=kv_len, scale=scale, causal=causal,
                     plain_heads=f"{n_h} of {h}", bit_equal=bits)
         for name, a, w in zip(("dq", "dk", "dv"),
                               (got[0][:, :, :n_h], got[1][:, :, :n_kv],
@@ -1316,11 +1341,12 @@ def flash_bwd_phase() -> dict:
             check(bool(torch.isfinite(a).all()) and err <= FLASH_BWD_TOL
                   * top, f"flash-bwd {tag}: {name} within {FLASH_BWD_TOL} x "
                   f"{top} of the plain backward (max abs err {err})")
-        if tag == "rows that see no key":
+        if causal and window is not None and kv_len < skv:
             rows = torch.arange(sq, device="cuda") >= kv_len - 1 + window
             check(bool((got[0][:, rows] == 0).all()),
                   f"flash-bwd {tag}: dq is 0 on the rows that see no key")
-        pairs = visible_pairs(sq, window, min(kv_len, skv)) * b * h
+        pairs = visible_pairs(sq, window, min(kv_len, skv),
+                              causal) * b * h
         # float32 elements: q (and dq), k (and dk), v (and dv), out or dO,
         # lse or Delta
         nq, nk, nv = q.numel(), k.numel(), b * skv * hkv * dv
@@ -1342,6 +1368,9 @@ def flash_bwd_phase() -> dict:
         for which, k_ in (("dq", fops.FLASH_BWD_DQ),
                           ("dkdv", fops.FLASH_BWD_DKDV)):
             case[f"{which}_ms"] = cuda_ms(lambda: k_(*args), **reps)
+            case[f"{which}_bound_share"] = (case[f"{which}_bound_ms"]
+                                            / case[f"{which}_ms"])
+        case["bound_share"] = case["bound_ms"] / case["ms"]
         del args, keep
         case["plain_ms"] = cuda_ms(plain, iters=2, warmup=1)
         case["library_ms"] = None

@@ -213,3 +213,65 @@ def test_backward_kernel_route_refuses_what_the_kernels_lack():
     with pytest.raises(NotImplementedError, match="q_offset"):
         F.attention_bshd(q, kv, kv, causal=True, window=None, softcap=None,
                          q_offset=2, kv_len=s)
+
+
+def _tf32(x: np.ndarray) -> np.ndarray:
+    """``cvt.rna.tf32.f32``: float32 rounded to 10 mantissa bits, to nearest
+    with ties away from zero (the low 13 bits cleared)."""
+    u = np.ascontiguousarray(x, dtype=np.float32).view(np.uint32)
+    return ((u + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _product(a: np.ndarray, b: np.ndarray, scheme: str) -> np.ndarray:
+    """a @ b as the kernels' tensor cores take it, float32 accumulation: in
+    3xTF32 each operand is split into big = tf32(x) and small = tf32(x -
+    big) and small*big + big*small + big*big are summed; in 1xTF32 only
+    big*big."""
+    a, b = a.astype(np.float32), b.astype(np.float32)
+    a_big, b_big = _tf32(a), _tf32(b)
+    out = a_big @ b_big
+    if scheme == "3xtf32":
+        out = _tf32(a - a_big) @ b_big + a_big @ _tf32(b - b_big) + out
+    return out
+
+
+@pytest.mark.parametrize("scheme", ["3xtf32", "1xtf32"])
+@pytest.mark.parametrize("widths", [(64, 64, 512), (192, 128, 256)],
+                         ids=["d 64", "d 192, dv 128"])
+def test_tensor_core_precision_scheme_holds_the_kernel_gate(widths, scheme):
+    """The products of ``csrc/flash_bwd.cu`` run on the tensor cores in
+    3xTF32. With every product of the backward's formulas (S, dP, dQ, dK, dV)
+    taken that way, dq, dk and dv stay within a tenth of the card's gate
+    (``chip_smoke.FLASH_BWD_TOL`` x the largest) of float64, at B 1, H 2,
+    causal; with one TF32 product (big*big alone) at least one misses the
+    gate. The forward's O and lse are float64's."""
+    import chip_smoke
+    tol = chip_smoke.FLASH_BWD_TOL
+    d, dv, s = widths
+    scale = d ** -0.5
+    rng = np.random.default_rng(7)
+    q, k = (rng.normal(0, 1, (2, s, d)) for _ in range(2))
+    v, do = (rng.normal(0, 1, (2, s, dv)) for _ in range(2))
+    seen = np.tril(np.ones((s, s), dtype=bool))
+    sc = np.where(seen, scale * q @ k.transpose(0, 2, 1), -np.inf)
+    lse = np.log(np.exp(sc - sc.max(-1, keepdims=True)).sum(-1)) \
+        + sc.max(-1)
+    p64 = np.exp(sc - lse[..., None])
+    o = p64 @ v
+    delta = (do * o).sum(-1, keepdims=True)
+
+    def grads(mm):
+        tr = (0, 2, 1)
+        sc_ = np.where(seen, scale * mm(q, k.transpose(tr)), -np.inf)
+        p = np.exp(sc_ - lse[..., None])
+        ds = p * (mm(do, v.transpose(tr)) - delta)
+        return (scale * mm(ds, k), scale * mm(ds.transpose(tr), q),
+                mm(p.transpose(tr), do))
+    want = grads(np.matmul)
+    got = grads(lambda a, b: _product(a, b, scheme).astype(np.float64))
+    errs = [float(np.abs(g - w).max() / np.abs(w).max())
+            for g, w in zip(got, want)]
+    if scheme == "3xtf32":
+        assert max(errs) <= tol / 10, errs
+    else:
+        assert max(errs) > tol, errs
