@@ -146,8 +146,8 @@ Phases, each of which raises (and exits non-zero) on failure:
             tools/torch_lm_phase.py train``, ``flash-bwd`` the phase above).
 9. summary — a ``{"kernels": [...]}`` line (each kernel's launches on
             every path: a serving sweep, each kind of training step, the
-            zoo's steps, each LM's ``generate`` and training step;
-            ``seg_max_csr`` and the flash backward with their times), the
+            zoo's steps, each LM's ``generate`` and training step; the
+            zoo's seg kernels and the flash backward with their times), the
             card line, and the last line ``{"ok": true,
             "device": {...}}``.
 
@@ -166,10 +166,13 @@ zoo       — PNA 4x75 on ``reddit_like@paper``, MeshGraphNet 15x128 (MLPs of
             fall, 1-bit losses are finite (whether they fall is printed).
             Median epoch ms, peak GB, ``_gnn_model_flops`` per epoch; one
             Sylvie-A sync and async epoch of each profiled by kernel group.
-            ``seg_max`` on one PNA Sylvie-S step's own messages (8 calls):
-            bit-equal to ``seg_max_ref`` on the card, ties included, the
-            same bits twice; timed beside its bytes bound, the plain version
-            and ``scatter_reduce`` (amax). The reduced configs' 32-bit
+            ``seg_max_min`` and ``seg_max_min_bwd`` on one PNA Sylvie-S
+            step's own tensors (4 calls each): bit-equal to their plain
+            versions on the card, ties included, the same bits twice, also
+            over ``SEG_ROW_LENGTHS`` x ``SEG_WIDTHS`` (±0 ties, a NaN,
+            padded rows); timed beside their bytes bounds, the plain
+            versions and, for the forward, ``scatter_reduce`` (amax +
+            amin). The reduced configs' 32-bit
             logits on the smoke graphs, card against the CPU
             (``ZOO_PARITY_ATOL``), and a TF32 control that must fail that
             gate (``zoo_parity``). ``python3 tools/torch_zoo_phase.py`` runs
@@ -443,7 +446,7 @@ ZOO_SMOKE = {"pna": "yelp_like@smoke", "meshgraphnet": "mesh_like@smoke",
 # CPU's BLAS) are ulps apart.
 ZOO_PARITY_ATOL = 1e-5
 ZOO_KERNELS = ("quantize_pack", "unpack_dequantize", "spmm_csr",
-               "seg_max_csr")
+               "seg_max_min_csr", "seg_max_min_bwd_csr")
 # kernel launches per training step of the full configs, by (arch, run,
 # step), in ZOO_KERNELS order (tests/test_torch_zoo.py holds the plain
 # versions to the same counts). Every site's input has a gradient, so at
@@ -451,12 +454,14 @@ ZOO_KERNELS = ("quantize_pack", "unpack_dequantize", "spmm_csr",
 # sync or async. SpMM per layer: PNA 3 forward (the mean's sum and the two
 # sums of std) and 3 backward (gather_src's over ecsr_t, gather_dst's over
 # ecsr, the boundary scatter); MeshGraphNet 1 + 3; SchNet 1 + 2 (no
-# gather_dst). seg_max: PNA's max and min at each layer.
-_ZOO_STEP = {"pna": (4, (2, 6, 2)), "meshgraphnet": (15, (2, 4, 0)),
+# gather_dst). seg_max_min: PNA's max and min at each layer, forward and
+# backward.
+_ZOO_STEP = {"pna": (4, (2, 6, 1)), "meshgraphnet": (15, (2, 4, 0)),
              "schnet": (3, (2, 3, 0))}
 ZOO_LAUNCHES = {
     (arch, run, mode): (0 if run == "vanilla" else q * n,
-                        0 if run == "vanilla" else q * n, s * n, m * n)
+                        0 if run == "vanilla" else q * n, s * n, m * n,
+                        m * n)
     for arch, (n, (q, s, m)) in _ZOO_STEP.items()
     for run, mode in (("vanilla", "sync"), ("sylvie_s", "sync"),
                       ("sylvie_a", "sync"), ("sylvie_a", "async"))}
@@ -563,8 +568,8 @@ def profile_device(fn, label: str):
     """Run ``fn`` once under ``torch.profiler``; print its device time by
     kernel and return (fn's result, host ms, device-busy ms, {group: ms},
     {kernel: launches}) with the groups flash kernel / flash backward /
-    SpMM / GAT kernels / seg_max / quantize / dequantize / matrix products
-    (cuBLAS) / everything else."""
+    SpMM / GAT kernels / seg_max (forward) / seg_bwd / quantize / dequantize
+    / matrix products (cuBLAS) / everything else."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -578,13 +583,14 @@ def profile_device(fn, label: str):
               if e.device_type == DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in on_dev) / 1e3
     groups = {"flash": 0.0, "flash_bwd": 0.0, "spmm": 0.0, "gat": 0.0,
-              "seg_max": 0.0, "quantize": 0.0, "dequantize": 0.0,
-              "gemm": 0.0, "other": 0.0}
+              "seg_max": 0.0, "seg_bwd": 0.0, "quantize": 0.0,
+              "dequantize": 0.0, "gemm": 0.0, "other": 0.0}
     for e in on_dev:
         name = e.key.lower()
         g = "flash" if "flash_fwd_kernel" in name else \
             "flash_bwd" if "flash_bwd_" in name else \
             "spmm" if "spmm_" in name else \
+            "seg_bwd" if "seg_max_min_bwd_" in name else \
             "seg_max" if "seg_max_" in name else \
             "gat" if any(w in name for w in ("rows_unit_kernel",
                                              "rows_segment_kernel",
@@ -2113,10 +2119,16 @@ def gat_kernels_phase(rec: dict, block) -> dict:
             # device time, with no host time or gap between launches in it
             t = name.endswith("_t")     # the row sums: one phase less
             hubs = (csr_t if t else csr).long_rows.numel() > 0
-            ph = kernel_times(kern, expect=1 + hubs * (1 if t else 2))
-            res[name]["device_ms"] = sum(v[0] for v in ph.values())
-            res[name]["phases_ms"] = {k: v[0] for k, v in ph.items()}
-            res[name]["cuda_launches_per_call"] = len(ph)
+            try:
+                ph = kernel_times(kern, expect=1 + hubs * (1 if t else 2))
+            except RuntimeError as err:
+                # the profiler held none of them in three traces (ROADMAP
+                # §C): the phases go unmeasured, as device_ms' fall back
+                log(f"[gat-kernels] {name}: {err}; phases not measured")
+                ph = None
+            res[name]["device_ms"] = ph and sum(v[0] for v in ph.values())
+            res[name]["phases_ms"] = ph and {k: v[0] for k, v in ph.items()}
+            res[name]["cuda_launches_per_call"] = ph and len(ph)
         if name.startswith(("spmm_csr_heads", "sddmm")):
             # the table rows they gather, a d-wide row per edge, and the
             # rate at which they gather them
@@ -2161,10 +2173,11 @@ def gat_kernels_phase(rec: dict, block) -> dict:
     calls = {"gat_softmax": len(rec["softmax"]),
              "gat_softmax_bwd": len(rec["softmax_bwd"]),
              "gat_softmax_bwd_t": len(rec["row_sums_t"])}
+    launched = None if None in per_call.values() else sum(
+        per_call[n] * calls[n] for n in calls)
     log(f"[gat-kernels] CUDA launches per wrapper call {per_call}; a GAT "
         f"step's wrapper calls {calls} (TRAIN_LAUNCHES: gat_softmax 2, "
-        f"gat_softmax_bwd 4 = both modes) launch "
-        f"{sum(per_call[n] * calls[n] for n in calls)} CUDA kernels")
+        f"gat_softmax_bwd 4 = both modes) launch {launched} CUDA kernels")
     one = alpha[:, :1].contiguous()
     check(same_bits(sops.spmm_heads(table, csr, one), sops.spmm(
         table, dataclasses.replace(csr, w=alpha[:, 0].contiguous()))),
@@ -2277,16 +2290,28 @@ def train_parity_phase() -> dict:
     return res
 
 
-# seg_max also over rows of these lengths (0: an empty row; 129 and 1,300
-# are split into 128-edge segments), at these widths (1 column; PNA's 75;
-# two and three column chunks of 128), on messages drawn from a coarse
-# grid, so that ties are common
+# seg_max_min and its backward also over rows of these lengths (0: an empty
+# row; 129 and 1,300 are split into 128-edge segments), at these widths (1
+# column; PNA's 75; two and four column chunks of 80), on messages drawn
+# from a coarse grid, half their zeros -0, so that ties of +0 and -0 are
+# common, with a NaN, and 10 padded message rows no edge reaches
 SEG_ROW_LENGTHS = (0, 1, 128, 129, 1_300, 33)
 SEG_WIDTHS = (1, 75, 130, 257)
 
 
+def seg_inputs(msgs: torch.Tensor, csr, seed: int):
+    """Gradients of ``seg_max_min``'s two (n_rows, d) results as PNA's
+    ``cat`` hands them (column slices of one (n_rows, 4d) tensor), from
+    ``seed``."""
+    gen = torch.Generator(msgs.device).manual_seed(seed)
+    d = msgs.shape[1]
+    g = torch.randn((csr.n_rows, 4 * d), generator=gen, device=msgs.device)
+    return g[:, d:2 * d], g[:, 2 * d:3 * d]
+
+
 def seg_max_shapes(device) -> int:
-    """``seg_max`` against ``seg_max_ref`` on the card, bit for bit, over
+    """``seg_max_min`` against ``seg_max_min_ref`` and ``seg_max_min_bwd``
+    against ``seg_max_min_vjp_ref`` on the card, bit for bit, over
     ``SEG_ROW_LENGTHS`` x ``SEG_WIDTHS``; returns the cases checked."""
     from repro_torch.kernels.seg import ops as segops
     from repro_torch.kernels.seg import ref as segref
@@ -2294,70 +2319,117 @@ def seg_max_shapes(device) -> int:
 
     rng = np.random.default_rng(SEED)
     dst = np.repeat(np.arange(len(SEG_ROW_LENGTHS)), SEG_ROW_LENGTHS)
-    n_msgs = 4 * dst.size
-    src = rng.choice(n_msgs, dst.size, replace=False)
+    n_msgs = dst.size + 10
+    src = rng.permutation(n_msgs)[:dst.size]
     csr = csr_from_edges(src, dst, np.ones(dst.size, np.float32),
                          len(SEG_ROW_LENGTHS), n_msgs).to(device)
+    named = np.zeros(n_msgs, bool)
+    named[src] = True
+    pad = torch.as_tensor(np.nonzero(~named)[0], dtype=torch.int32,
+                          device=device)
     for d in SEG_WIDTHS:
-        msgs = torch.as_tensor(np.round(rng.normal(0, 1, (n_msgs, d)) * 2)
-                               / 2, dtype=torch.float32, device=device)
-        for (a, b) in zip(segops.seg_max(msgs, csr),
-                          segref.seg_max_ref(msgs, csr)):
-            check(same_bits(a, b), f"[zoo] seg_max at rows "
-                  f"{SEG_ROW_LENGTHS}, d {d}: bit-equal to the plain version")
+        m = np.round(rng.normal(0, 1, (n_msgs, d)) * 2) / 2
+        m[(m == 0) & (rng.random(m.shape) < 0.5)] = -0.0
+        m[src[5], d // 2] = np.nan
+        msgs = torch.as_tensor(m, dtype=torch.float32, device=device)
+        outs = segops.seg_max_min(msgs, csr)
+        tag = f"[zoo] seg_max_min at rows {SEG_ROW_LENGTHS}, d {d}"
+        for a, b in zip(outs, segref.seg_max_min_ref(msgs, csr)):
+            check(same_bits(a, b), f"{tag}: bit-equal to the plain version")
+        g_max, g_min = seg_inputs(msgs, csr, d)
+        got = segops.seg_max_min_bwd(msgs, csr, *outs, g_max, g_min, pad)
+        check(same_bits(got, segref.seg_max_min_vjp_ref(
+            msgs, csr, *outs, g_max, g_min, pad)),
+              f"{tag}: the backward bit-equal to the plain version")
     return len(SEG_WIDTHS)
 
 
-def seg_max_check(rec: list) -> dict:
-    """``seg_max`` on the messages one PNA Sylvie-S step gave it (max and
-    min at each layer): bit-equal to ``seg_max_ref`` run on the card, ties
+def seg_check(rec: list, rec_bwd: list) -> dict:
+    """``seg_max_min`` and ``seg_max_min_bwd`` on the tensors one PNA
+    Sylvie-S step gave them (max and min at each layer, forward and
+    backward): bit-equal to their plain versions run on the card, ties
     included, and the same bits on a second run; also at
-    ``seg_max_shapes``; the first layer's max
-    timed beside its bytes bound, the plain version and ``scatter_reduce``
-    (amax, one call; a yardstick only, the port never calls it)."""
+    ``seg_max_shapes``. The first layer's calls timed beside their bytes
+    bounds and plain versions, the forward also beside ``scatter_reduce``
+    (amax and amin, two calls; a yardstick only, the port never calls
+    it)."""
     from repro_torch.kernels.seg import ops as segops
     from repro_torch.kernels.seg import ref as segref
 
-    check(len(rec) == 2 * _ZOO_STEP["pna"][0],
-          f"[zoo] a PNA step called seg_max {len(rec)} times")
+    n_layers = _ZOO_STEP["pna"][0]
+    check(len(rec) == n_layers and len(rec_bwd) == n_layers,
+          f"[zoo] a PNA step called seg_max_min {len(rec)} and "
+          f"seg_max_min_bwd {len(rec_bwd)} times")
     rec = [(msgs.detach(), csr) for msgs, csr in rec]
     err, ties = 0.0, 0
     for i, (msgs, csr) in enumerate(rec):
-        (mk, ck), (mr, cr) = segops.seg_max(msgs, csr), \
-            segref.seg_max_ref(msgs, csr)
-        err = max(err, float((mk - mr).abs().max()))
-        check(same_bits(mk, mr) and same_bits(ck, cr),
-              f"[zoo] seg_max call {i}: bit-equal to the plain version")
-        mk2, ck2 = segops.seg_max(msgs, csr)
-        check(same_bits(mk, mk2) and same_bits(ck, ck2),
-              f"[zoo] seg_max call {i}: the same bits twice")
-        ties += int((ck > 1).sum())
+        got, want = segops.seg_max_min(msgs, csr), \
+            segref.seg_max_min_ref(msgs, csr)
+        err = max(err, float((got[0] - want[0]).abs().max()),
+                  float((got[2] - want[2]).abs().max()))
+        check(all(same_bits(a, b) for a, b in zip(got, want)),
+              f"[zoo] seg_max_min call {i}: bit-equal to the plain version")
+        check(all(same_bits(a, b) for a, b in zip(
+            got, segops.seg_max_min(msgs, csr))),
+              f"[zoo] seg_max_min call {i}: the same bits twice")
+        ties += int((got[1] > 1).sum()) + int((got[3] > 1).sum())
+    bwd_err = 0.0
+    for i, args in enumerate(rec_bwd):
+        got = segops.seg_max_min_bwd(*args)
+        want = segref.seg_max_min_vjp_ref(*args)
+        bwd_err = max(bwd_err, float((got - want).abs().max()))
+        check(same_bits(got, want),
+              f"[zoo] seg_max_min_bwd call {i}: bit-equal to the plain "
+              f"version")
+        check(same_bits(got, segops.seg_max_min_bwd(*args)),
+              f"[zoo] seg_max_min_bwd call {i}: the same bits twice")
     msgs, csr = rec[0]
     n_rows, d = csr.n_rows, msgs.shape[1]
+    n_msgs, nnz = msgs.shape[0], csr.nnz
     # padded edges go to a row of their own, which the output leaves out
-    idx = torch.full((csr.n_cols,), n_rows, dtype=torch.int64,
+    idx = torch.full((n_msgs,), n_rows, dtype=torch.int64,
                      device=msgs.device)
     idx[csr.col.long()] = torch.repeat_interleave(
         torch.arange(n_rows, device=msgs.device),
         torch.diff(csr.row_ptr.long()))
     idx = idx[:, None].expand(-1, d)
-    lib_out = torch.zeros((n_rows + 1, d), device=msgs.device)
-    b, bo = bound(csr.nnz * d * 4 + csr.nnz * 4 + csr.units.numel() * 4
-                  + (csr.long_rows.numel() + csr.long_ptr.numel()) * 4
-                  + n_rows * d * 8, csr.nnz * d)
+    lib_max = torch.zeros((n_rows + 1, d), device=msgs.device)
+    lib_min = torch.zeros((n_rows + 1, d), device=msgs.device)
+
+    def library():
+        lib_max.scatter_reduce_(0, idx, msgs, "amax", include_self=False)
+        lib_min.scatter_reduce_(0, idx, msgs, "amin", include_self=False)
+    plan_bytes = 4 * (nnz + csr.units.numel() + csr.long_rows.numel()
+                      + csr.long_ptr.numel())
+    # forward: the messages read once, four (n_rows, d) outputs written;
+    # two compares per (edge, column)
+    b, bo = bound(nnz * d * 4 + plan_bytes + n_rows * d * 16, 2 * nnz * d)
+    # backward: the messages read and every gradient row written once, the
+    # six per-row tensors and the padded rows' ids read once; two compares
+    # and an add per (edge, column)
+    args = rec_bwd[0]
+    n_pad = args[-1].numel()
+    bb, bbo = bound(nnz * d * 4 + n_msgs * d * 4 + plan_bytes + n_pad * 4
+                    + 6 * n_rows * d * 4, 3 * nnz * d)
     res = dict(
-        shape=[n_rows, csr.n_cols, d, csr.nnz], max_abs_err=err,
-        bit_equal=True, calls_checked=len(rec), tied_outputs=ties,
+        shape=[n_rows, n_msgs, d, nnz], max_abs_err=err,
+        bwd_max_abs_err=bwd_err, bit_equal=True, calls_checked=len(rec),
+        bwd_calls_checked=len(rec_bwd), tied_outputs=ties,
         row_shapes_checked=seg_max_shapes(msgs.device),
         split_rows=int(csr.long_rows.numel()),
-        gathered_gb=csr.nnz * d * 4 / 1e9,
-        ms=cuda_ms(lambda: segops.seg_max(msgs, csr)),
-        plain_ms=cuda_ms(lambda: segref.seg_max_ref(msgs, csr), iters=2,
+        gathered_gb=nnz * d * 4 / 1e9,
+        ms=cuda_ms(lambda: segops.seg_max_min(msgs, csr)),
+        plain_ms=cuda_ms(lambda: segref.seg_max_min_ref(msgs, csr), iters=2,
                          warmup=1),
-        library_ms=cuda_ms(lambda: lib_out.scatter_reduce_(
-            0, idx, msgs, "amax", include_self=False)),
-        bound_ms=b, bound_by=bo)
-    log(f"[zoo] seg_max: {json.dumps(res)}")
+        library_ms=cuda_ms(library), library="scatter_reduce amax + amin",
+        bound_ms=b, bound_by=bo,
+        bwd_ms=cuda_ms(lambda: segops.seg_max_min_bwd(*args)),
+        bwd_plain_ms=cuda_ms(lambda: segref.seg_max_min_vjp_ref(*args),
+                             iters=2, warmup=1),
+        bwd_bound_ms=bb, bwd_bound_by=bbo)
+    res["bound_share"] = res["bound_ms"] / res["ms"]
+    res["bwd_bound_share"] = res["bwd_bound_ms"] / res["bwd_ms"]
+    log(f"[zoo] seg_max_min: {json.dumps(res)}")
     return res
 
 
@@ -2423,8 +2495,8 @@ def zoo_phase(all_kernels: dict) -> dict:
     zeroed before each epoch and read after it: they must equal
     ``ZOO_LAUNCHES``, and no other kernel may launch. Vanilla losses fall;
     1-bit losses are finite (whether they fall is printed). Then one
-    Sylvie-A sync and async epoch of each profiled by kernel, ``seg_max``
-    checked on one PNA Sylvie-S step's messages (``seg_max_check``), and the
+    Sylvie-A sync and async epoch of each profiled by kernel, the seg kernels
+    checked on one PNA Sylvie-S step's tensors (``seg_check``), and the
     reduced configs' 32-bit logits on the smoke graphs, card against the
     CPU's plain versions (``zoo_parity``)."""
     from repro_torch import configs
@@ -2505,10 +2577,12 @@ def zoo_phase(all_kernels: dict) -> dict:
                                                   by_group=groups)
             if name == "sylvie_s" and arch == "pna":
                 rec: list = []
-                with recording(B, "seg_max", rec):
+                rec_bwd: list = []
+                with recording(B, "seg_max_min", rec), \
+                        recording(B, "seg_max_min_bwd", rec_bwd):
                     tr.train_epoch()
-                out["seg_max"] = seg_max_check(rec)
-                del rec
+                out["seg_max_min"] = seg_check(rec, rec_bwd)
+                del rec, rec_bwd
             del tr, model
             torch.cuda.empty_cache()
     out.update(zoo_parity())
@@ -4026,13 +4100,13 @@ def kernel_groups() -> tuple:
             source="src/repro_torch/kernels/csrc/flash_bwd.cu",
             replaces="src/repro/models/lm/model.py:126"),
     }
-    # the zoo's kernel, the port's own: jax.ops.segment_max in the JAX
-    # package's agg_max (agg_min is -agg_max(-msgs))
+    # the zoo's kernels, the port's own: jax.ops.segment_max in the JAX
+    # package's agg_max (agg_min is -agg_max(-msgs)), and its VJP (JAX
+    # autodiff)
     zoo_kernels = {
-        segops.SEG_MAX.name: dict(
-            k=segops.SEG_MAX, source="src/repro_torch/kernels/csrc/seg.cu",
-            replaces="src/repro/models/gnn/blocks.py:104"),
-    }
+        k.name: dict(k=k, source="src/repro_torch/kernels/csrc/seg.cu",
+                     replaces="src/repro/models/gnn/blocks.py:104")
+        for k in (segops.SEG_MAX_MIN, segops.SEG_MAX_MIN_BWD)}
     return kernels, gat_kernels, lm_kernels, zoo_kernels
 
 
@@ -4475,18 +4549,23 @@ def main() -> int:
             shapes={tag: {x: c[x] for x in (
                 f"{key}_ms", f"{key}_bound_ms", "ms", "plain_ms",
                 "library_ms") if x in c} for tag, c in fb.items()}))
-    sm = zoo["seg_max"]
-    summary.append(dict(
-        name="seg_max_csr", route="cuda",
-        source=zoo_kernels["seg_max_csr"]["source"],
-        replaces=zoo_kernels["seg_max_csr"]["replaces"],
-        launches=zoo["launches"]["pna_train_sylvie_s_sync_step"][
-            "seg_max_csr"],
-        max_abs_err=sm["max_abs_err"], ms=sm["ms"], plain_ms=sm["plain_ms"],
-        bound_ms=sm["bound_ms"], bound_by=sm["bound_by"],
-        library_ms=sm["library_ms"], shape=sm["shape"],
-        bit_equal=sm["bit_equal"], tied_outputs=sm["tied_outputs"],
-        launches_per_path=per_path["seg_max_csr"]))
+    # the zoo's kernels: launches in one PNA Sylvie-S step (the main path),
+    # times at its first layer's calls
+    sm = zoo["seg_max_min"]
+    for name, pre in (("seg_max_min_csr", ""), ("seg_max_min_bwd_csr",
+                                                "bwd_")):
+        summary.append(dict(
+            name=name, route="cuda", source=zoo_kernels[name]["source"],
+            replaces=zoo_kernels[name]["replaces"],
+            launches=zoo["launches"]["pna_train_sylvie_s_sync_step"][name],
+            max_abs_err=sm[f"{pre}max_abs_err"], ms=sm[f"{pre}ms"],
+            plain_ms=sm[f"{pre}plain_ms"], bound_ms=sm[f"{pre}bound_ms"],
+            bound_by=sm[f"{pre}bound_by"],
+            library_ms=None if pre else sm["library_ms"],
+            **({} if pre else {"library": sm["library"]}),
+            shape=sm["shape"], bit_equal=sm["bit_equal"],
+            tied_outputs=sm["tied_outputs"],
+            launches_per_path=per_path[name]))
     print(json.dumps({"kernels": summary}))
     print(card_line)
     print(json.dumps({"ok": True, "device": {

@@ -11,7 +11,8 @@ PyTorch version (``ref.py``) and its wrapper (``ops.py``).
 | ``gat_softmax`` | ``gat.ops.softmax`` | none: ``repro/models/gnn/blocks.py::edge_softmax`` |
 | ``sddmm_heads`` | ``gat.ops.sddmm_heads`` | none: the gradient of alpha (JAX autodiff) |
 | ``gat_softmax_bwd`` | ``gat.ops.softmax_bwd``, ``gat.ops.row_sums_t`` | none: ``edge_softmax``'s VJP (JAX autodiff) |
-| ``seg_max_csr`` | ``seg.ops.seg_max`` | none: ``repro/models/gnn/blocks.py::agg_max`` / ``agg_min`` (``jax.ops.segment_max``) |
+| ``seg_max_min_csr`` | ``seg.ops.seg_max_min`` | none: ``repro/models/gnn/blocks.py::agg_max`` and ``agg_min`` (``jax.ops.segment_max``), in one pass |
+| ``seg_max_min_bwd_csr`` | ``seg.ops.seg_max_min_bwd`` | none: the VJP of both (JAX autodiff) |
 
 The wrappers dispatch on the tensor's device: the plain version on the CPU,
 the kernel on CUDA, nothing else, no fallback.

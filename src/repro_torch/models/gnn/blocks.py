@@ -32,10 +32,11 @@ The primitives over them:
 * :func:`agg_sum` — per-edge messages summed onto their destinations, the
   SpMM over ``ecsr``; its gradient a plain gather ``g[dst]`` (0 on padded
   edges). :func:`agg_mean_msgs` and :func:`agg_std` (PNA) build on it;
-* :func:`agg_max` / :func:`agg_min` — the per-column maximum (minimum) of
-  each destination's messages through ``kernels.seg`` over ``ecsr``, which
-  also counts the edges that reach it; the gradient, a plain elementwise
-  pass, splits ``g`` evenly among them, as ``jax.ops.segment_max``'s does;
+* :func:`agg_max_min` — the per-column maximum and minimum of each
+  destination's messages in one pass of ``kernels.seg`` over ``ecsr``,
+  which also counts the edges that reach each; the gradient, a second
+  kernel, splits ``g`` evenly among them, as ``jax.ops.segment_max``'s does;
+  :func:`agg_max` / :func:`agg_min` are its halves;
 * :func:`gat_aggregate` — GAT's attention-weighted sum per head: the edge
   softmax (``kernels.gat``) and the per-head SpMM forward; the per-head SpMM
   over ``csr_t`` (alpha read through ``perm_t``, no transposed copy
@@ -53,7 +54,7 @@ import torch
 from ...core.exchange import PlanArrays
 from ...graph.partition import PartitionedGraph
 from ...kernels.gat import ops as gat
-from ...kernels.seg.ops import seg_max
+from ...kernels.seg.ops import seg_max_min, seg_max_min_bwd
 from ...kernels.spmm.ops import spmm, spmm_heads
 from ...kernels.spmm.ref import CSR, csr_from_edges
 from . import so3
@@ -109,6 +110,13 @@ class GraphBlock:
         return dataclasses.replace(
             self.csr, col=col, n_cols=self.edge_mask.numel(),
             w=torch.ones(col.shape, dtype=torch.float32, device=col.device))
+
+    @functools.cached_property
+    def epad(self) -> torch.Tensor:
+        """(n_pad,) int32: the flat ids of the padded edges, the message
+        rows that ``ecsr`` names no edge of."""
+        return torch.nonzero(~self.edge_mask.reshape(-1)).squeeze(1).to(
+            torch.int32)
 
     @functools.cached_property
     def ecsr_t(self) -> CSR:
@@ -286,42 +294,48 @@ def agg_std(block: GraphBlock, msgs: torch.Tensor,
     return torch.sqrt(torch.maximum(var, torch.zeros_like(var)) + eps)
 
 
-class _SegMax(torch.autograd.Function):
-    """``seg_max(msgs, ecsr)`` forward (the max; the tie counts kept for the
-    backward). Backward, as ``jax.ops.segment_max``'s VJP: ``d msg[e] =
-    where(msg[e] == max[dst], g[dst] * (1 / count[dst]), 0)`` on real edges
-    (the reciprocal first, then the product, as JAX's ``updates_coef``), 0
-    on padded ones."""
+class _SegMaxMin(torch.autograd.Function):
+    """``seg_max_min(msgs, ecsr)`` forward: the max and the min (the tie
+    counts kept for the backward). Backward, as ``jax.ops.segment_max``'s
+    VJP of each: ``d msg[e] = where(msg[e] == max[dst], g_max[dst] * (1 /
+    count_max[dst]), 0) + where(msg[e] == min[dst], g_min[dst] * (1 /
+    count_min[dst]), 0)`` on real edges, 0 on padded ones
+    (``seg_max_min_bwd``)."""
 
     @staticmethod
     def forward(ctx, msgs, block: GraphBlock):
-        out, count = seg_max(msgs, block.ecsr)
+        mx, cmx, mn, cmn = seg_max_min(msgs, block.ecsr)
         ctx.block = block
-        ctx.save_for_backward(msgs, out, count)
-        return out
+        ctx.save_for_backward(msgs, mx, cmx, mn, cmn)
+        return mx, mn
 
     @staticmethod
-    def backward(ctx, g):
-        msgs, out, count = ctx.saved_tensors
+    def backward(ctx, g_max, g_min):
+        msgs, mx, cmx, mn, cmn = ctx.saved_tensors
         blk = ctx.block
-        share = g * torch.reciprocal(count.to(g.dtype))
-        hit = blk.edge_mask.reshape(-1, 1) \
-            & (msgs == out.index_select(0, blk.dst_flat))
-        return torch.where(hit, share.index_select(0, blk.dst_flat),
-                           0.0), None
+        return seg_max_min_bwd(msgs, blk.ecsr, mx, cmx, mn, cmn, g_max,
+                               g_min, blk.epad), None
+
+
+def agg_max_min(block: GraphBlock, msgs: torch.Tensor
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(P, E, d) per-edge messages -> the (P, n_local, d) per-column maximum
+    and minimum over each destination's real edges (0 where it has none),
+    from one read of the messages."""
+    mx, mn = _SegMaxMin.apply(_flat_msgs(msgs), block)
+    shape = (block.n_parts, block.n_local, -1)
+    return mx.reshape(shape), mn.reshape(shape)
 
 
 def agg_max(block: GraphBlock, msgs: torch.Tensor) -> torch.Tensor:
-    """(P, E, d) per-edge messages -> (P, n_local, d) per-column maximum
-    over each destination's real edges (0 where it has none)."""
-    out = _SegMax.apply(_flat_msgs(msgs), block)
-    return out.reshape(block.n_parts, block.n_local, -1)
+    """The per-column maximum: the JAX package's ``agg_max``."""
+    return agg_max_min(block, msgs)[0]
 
 
 def agg_min(block: GraphBlock, msgs: torch.Tensor) -> torch.Tensor:
-    """The per-column minimum: ``-agg_max(block, -msgs)``, as the JAX
-    package takes it."""
-    return -agg_max(block, -msgs)
+    """The per-column minimum, bit for bit the JAX package's ``agg_min``
+    (``-agg_max(block, -msgs)``)."""
+    return agg_max_min(block, msgs)[1]
 
 
 class _Aggregate(torch.autograd.Function):

@@ -245,8 +245,9 @@ class PNA(_Model):
             src = B.gather_src(block, table)
             dst = B.gather_dst(block, h)
             msg = torch.relu(linear(lp["pre"], torch.cat([src, dst], -1)))
-            a = torch.cat([B.agg_mean_msgs(block, msg), B.agg_max(block, msg),
-                           B.agg_min(block, msg), B.agg_std(block, msg)], -1)
+            mx, mn = B.agg_max_min(block, msg)
+            a = torch.cat([B.agg_mean_msgs(block, msg), mx, mn,
+                           B.agg_std(block, msg)], -1)
             scaled = torch.cat([a, a * amp, a * att], -1)       # (P, n, 12d)
             h = torch.relu(h + linear(lp["post"], scaled))
         return linear(params["out"], h)

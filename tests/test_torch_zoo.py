@@ -17,11 +17,17 @@ a graph of rows of 0, 1, 128, 129 and 1,300 edges (two partitions).
   for bit an explicit loop in CSR order with the split plan, and within
   1e-6 of ``jax.ops.segment_sum`` (relative to each row's sum of |terms|:
   float32 sums in another order).
-* ``seg_max_ref`` (through ``agg_max`` / ``agg_min``) and its backward are
+* ``seg_max_ref`` and the fused ``seg_max_min_ref`` (through ``agg_max``
+  / ``agg_min``, the halves of ``agg_max_min``) and their backward are
   equal to ``jax.ops.segment_max`` and ``jax.vjp`` (signed zeros compare
   equal), on ReLU'd messages with ties of 2, 3 and 7 and on empty rows,
-  whatever the split plan; ``agg_std`` and its VJP, at rows where ``mu2 -
-  mu*mu == 0``, within 1e-6 of the reference's.
+  whatever the split plan; ``agg_max_min``'s VJP within rtol 1e-6 of
+  ``jax.vjp`` of the pair. ``seg_max_min_ref`` is bit for bit
+  ``seg_max_ref`` and ``-seg_max_ref(-msgs)`` (±0 ties, a NaN, -0 on empty
+  rows) under plans of 1, 7, 64 and 128 edges, and ``seg_max_min_vjp_ref``
+  bit for bit the autograd chain of the separate max and ``-max(-msgs)``;
+  ``agg_std`` and its VJP, at rows where ``mu2 - mu*mu == 0``, within 1e-6
+  of the reference's.
 * Each model, reduced: logits at 32 bits (rtol 1e-5) and at 1 bit
   deterministic (rtol 1e-4); the full config's logits at 32 bits; one sync
   and one async step (loss 1e-5, parameters 1e-4); 10 epochs of
@@ -64,6 +70,7 @@ from repro_torch.core.sylvie import SylvieComm, SylvieConfig
 from repro_torch.dist.runtime import Runtime
 from repro_torch.graph import formats, partition, synthetic
 from repro_torch.kernels.quant import ref as qref
+from repro_torch.kernels.seg import ops as segops
 from repro_torch.kernels.seg import ref as segref
 from repro_torch.kernels.spmm import ref as sref
 from repro_torch.launch import train as launch
@@ -350,11 +357,160 @@ def test_seg_max_and_its_vjp_equal_jax_segment_max(hubs):
     flat = torch.from_numpy(msgs.reshape(-1, msgs.shape[-1]))
     want = segref.seg_max_ref(flat, blk.ecsr)
     for seg in (1, 7, 64):
-        csr = dataclasses.replace(blk.ecsr, **dict(zip(
-            ("units", "long_rows", "long_ptr", "n_partials"),
-            sref.split_plan(blk.ecsr.row_ptr.numpy(), seg))))
-        for a, b in zip(segref.seg_max_ref(flat, csr), want):
+        for a, b in zip(segref.seg_max_ref(flat, _replan(blk.ecsr, seg)),
+                        want):
             assert torch.equal(a, b)
+
+
+def _replan(csr, segment: int):
+    """``csr`` under the split plan of ``segment``-edge units."""
+    return dataclasses.replace(csr, **dict(zip(
+        ("units", "long_rows", "long_ptr", "n_partials"),
+        sref.split_plan(csr.row_ptr.numpy(), segment))))
+
+
+def _signed_tied_msgs(pg, seed: int) -> np.ndarray:
+    """``_tied_msgs`` with half of its zeros made -0 (so +0 and -0 tie) and
+    a NaN at one real edge."""
+    msgs = _tied_msgs(pg, seed=seed)
+    rng = np.random.default_rng(seed + 10)
+    msgs[(msgs == 0) & (rng.random(msgs.shape) < 0.5)] = -0.0
+    p, e = np.argwhere(pg.edge_mask)[7]
+    msgs[p, e, 1] = np.nan
+    return msgs
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    return t.contiguous().view(torch.int32)
+
+
+@pytest.mark.parametrize("segment", (1, 7, 64, sref.SEGMENT))
+def test_seg_max_min_ref_is_seg_max_ref_and_its_negation(hubs, segment):
+    """Max and min from one scan, bit for bit the separate max and
+    ``-max(-msgs)`` (what ``agg_min`` was) under any plan: the first of
+    tied +0 / -0 in CSR order, a NaN that stays, -0 on an empty row."""
+    pg, _, blk, _ = hubs
+    msgs = _signed_tied_msgs(pg, seed=2)
+    flat = torch.from_numpy(msgs.reshape(-1, msgs.shape[-1]))
+    mx, cmx, mn, cmn = segref.seg_max_min_ref(flat, _replan(blk.ecsr,
+                                                            segment))
+    want_mx, want_cmx = segref.seg_max_ref(flat, blk.ecsr)
+    neg_mx, neg_cmx = segref.seg_max_ref(-flat, blk.ecsr)
+    assert torch.equal(_bits(mx), _bits(want_mx))
+    assert torch.equal(_bits(mn), _bits(-neg_mx))
+    assert torch.equal(cmx, want_cmx) and torch.equal(cmn, neg_cmx)
+    assert cmx.dtype == cmn.dtype == torch.int32
+    empty = torch.from_numpy(np.diff(blk.ecsr.row_ptr.numpy()) == 0)
+    assert empty.any()
+    assert (_bits(mx[empty]) == _bits(torch.tensor(0.0))).all()
+    assert (_bits(mn[empty]) == _bits(torch.tensor(-0.0))).all()
+    assert (cmx[empty] == 0).all() and (cmn[empty] == 0).all()
+    # both zeros won a tie somewhere, and the NaN stayed
+    for t in (mx[~empty], mn[~empty]):
+        zero = t == 0
+        assert (zero & torch.signbit(t)).any() and (zero & ~torch.signbit(
+            t)).any()
+    assert torch.isnan(mx).any() and torch.isnan(mn).any()
+
+
+class _SegMaxBefore(torch.autograd.Function):
+    """The max the port ran before the fused kernel: ``seg_max_ref``
+    forward, the elementwise backward; ``agg_min`` ran it as
+    ``-agg_max(-msgs)``."""
+
+    @staticmethod
+    def forward(ctx, msgs, block):
+        out, count = segref.seg_max_ref(msgs, block.ecsr)
+        ctx.block = block
+        ctx.save_for_backward(msgs, out, count)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        msgs, out, count = ctx.saved_tensors
+        blk = ctx.block
+        share = g * torch.reciprocal(count.to(g.dtype))
+        hit = blk.edge_mask.reshape(-1, 1) \
+            & (msgs == out.index_select(0, blk.dst_flat))
+        return torch.where(hit, share.index_select(0, blk.dst_flat),
+                           0.0), None
+
+
+def test_seg_max_min_vjp_ref_is_the_autograd_chain_before(hubs):
+    """``seg_max_min_vjp_ref`` and ``agg_max_min``'s backward, bit for bit
+    the gradient through the separate max and ``-max(-msgs)`` (``-((-g) *
+    r) == g * r``), with the gradients column slices of a wider one, as
+    PNA's ``cat`` hands them (the gradients have no -0 entry, where the two
+    could differ in the sign of a zero); padded edges get 0."""
+    pg, _, blk, _ = hubs
+    msgs = _signed_tied_msgs(pg, seed=6)
+    d = msgs.shape[-1]
+    n_rows = blk.n_parts * blk.n_local
+    g = torch.from_numpy(np.random.default_rng(7).normal(
+        0, 1, (n_rows, 4 * d)).astype(np.float32))
+    g_max, g_min = g[:, d:2 * d], g[:, 2 * d:3 * d]
+    mt = torch.from_numpy(msgs).requires_grad_()
+    flat = mt.reshape(-1, d)
+    (want,) = torch.autograd.grad(
+        (_SegMaxBefore.apply(flat, blk), -_SegMaxBefore.apply(-flat, blk)),
+        mt, (g_max, g_min))
+    want = want.reshape(-1, d)
+    flat = flat.detach()
+    got = segref.seg_max_min_vjp_ref(
+        flat, blk.ecsr, *segref.seg_max_min_ref(flat, blk.ecsr), g_max,
+        g_min, blk.epad)
+    assert torch.equal(_bits(got), _bits(want))
+    assert (got[~blk.edge_mask.reshape(-1)] == 0).all()
+    assert (got != 0).sum() > 100
+    shape = (blk.n_parts, blk.n_local, d)
+    (dm,) = torch.autograd.grad(B.agg_max_min(blk, mt), mt,
+                                (g_max.reshape(shape), g_min.reshape(shape)))
+    assert torch.equal(_bits(dm.reshape(-1, d)), _bits(want))
+
+
+def test_agg_max_min_and_its_vjp_match_jax(hubs):
+    """``agg_max_min``'s values equal JAX's ``agg_max`` / ``agg_min``; its
+    VJP is within rtol 1e-6 (atol 0) of ``jax.vjp`` of the pair: the same
+    shares of the gradient, each edge's two terms added in one order or the
+    other."""
+    pg, _, blk, jblk = hubs
+    msgs = _tied_msgs(pg, seed=8)
+    mt = torch.from_numpy(msgs).requires_grad_()
+    mx, mn = B.agg_max_min(blk, mt)
+    (jmx, jmn), vjp = jax.vjp(
+        lambda a: (JB.agg_max(jblk, a), JB.agg_min(jblk, a)),
+        jnp.asarray(msgs))
+    np.testing.assert_array_equal(mx.detach().numpy(), np.asarray(jmx))
+    np.testing.assert_array_equal(mn.detach().numpy(), np.asarray(jmn))
+    g = np.random.default_rng(9).normal(0, 1, (2, *mx.shape)).astype(
+        np.float32)
+    (dm,) = torch.autograd.grad((mx, mn), mt, tuple(torch.from_numpy(g)))
+    (want,) = vjp((g[0], g[1]))
+    np.testing.assert_allclose(dm.numpy(), np.asarray(want), rtol=1e-6,
+                               atol=0)
+
+
+def test_seg_wrappers_take_the_cpu_route_and_refuse_the_rest(hubs):
+    """On the CPU the wrappers are the plain versions; a tensor elsewhere
+    than the CPU or a CUDA device, or a wrong shape, raises."""
+    pg, _, blk, _ = hubs
+    msgs = torch.from_numpy(_signed_tied_msgs(pg, seed=3).reshape(
+        -1, _tied_msgs(pg).shape[-1]))
+    outs = segops.seg_max_min(msgs, blk.ecsr)
+    for a, b in zip(outs, segref.seg_max_min_ref(msgs, blk.ecsr)):
+        assert torch.equal(_bits(a), _bits(b))
+    g = torch.ones_like(outs[0])
+    got = segops.seg_max_min_bwd(msgs, blk.ecsr, *outs, g, g, blk.epad)
+    want = segref.seg_max_min_vjp_ref(msgs, blk.ecsr, *outs, g, g, blk.epad)
+    assert torch.equal(_bits(got), _bits(want))
+    with pytest.raises(ValueError, match="msgs must be"):
+        segops.seg_max_min(msgs[1:], blk.ecsr)
+    with pytest.raises(ValueError, match="CPU or a CUDA device"):
+        segops.seg_max_min(msgs.to("meta"), blk.ecsr)
+    with pytest.raises(ValueError, match="pad must name"):
+        segops.seg_max_min_bwd(msgs, blk.ecsr, *outs, g, g, blk.epad[1:])
+    with pytest.raises(ValueError, match="g_min must be"):
+        segops.seg_max_min_bwd(msgs, blk.ecsr, *outs, g, g[1:], blk.epad)
 
 
 def test_agg_std_and_its_vjp_at_the_tie_match_jax(hubs):
@@ -558,7 +714,8 @@ def test_ten_epochs_match_jax_trainer(zoo, name, run):
 
 # the plain versions of chip_smoke.ZOO_KERNELS, in its order
 REFS = ((qref, "quantize_pack_ref"), (qref, "unpack_dequantize_ref"),
-        (sref, "spmm_ref"), (segref, "seg_max_ref"))
+        (sref, "spmm_ref"), (segref, "seg_max_min_ref"),
+        (segref, "seg_max_min_vjp_ref"))
 
 
 @pytest.mark.parametrize("name", ZOO)
