@@ -154,9 +154,10 @@ Phases, each of which raises (and exits non-zero) on failure:
 After phase 8c (``lm-train``) the zoo trains (``zoo_phase``):
 
 zoo       — PNA 4x75 on ``reddit_like@paper``, MeshGraphNet 15x128 (MLPs of
-            2 layers, 4 edge inputs) on ``mesh_like@paper`` (9,216 nodes)
-            and SchNet 3x64 (300 RBF, cutoff 10) on ``molecule_like@paper``
-            (400 nodes), the registry's full configs, through
+            2 layers, 4 edge inputs) on ``mesh_like@paper`` (9,216 nodes),
+            SchNet 3x64 (300 RBF, cutoff 10) and NequIP 5 x 32 (l <= 2, 8
+            RBF, cutoff 5) on ``molecule_like@paper`` (400 nodes), the
+            registry's full configs, through
             ``launch.train.gnn_graph`` (edge geometry on the host) and
             ``GNNTrainer``, P = 4, seed 0, ``ZOO_EPOCHS`` epochs each of
             vanilla, Sylvie-S (``Uniform(1)``) and Sylvie-A
@@ -165,7 +166,16 @@ zoo       — PNA 4x75 on ``reddit_like@paper``, MeshGraphNet 15x128 (MLPs of
             it: exactly ``ZOO_LAUNCHES`` and no other kernel. Vanilla losses
             fall, 1-bit losses are finite (whether they fall is printed).
             Median epoch ms, peak GB, ``_gnn_model_flops`` per epoch; one
-            Sylvie-A sync and async epoch of each profiled by kernel group.
+            Sylvie-A sync and async epoch of each profiled by kernel group
+            (NequIP's ``tensor_product`` inside a ``nequip_tp`` range, its
+            forward and backward device ms apart). NequIP on
+            ``yelp_like@paper`` (20,000 nodes, 419,018 edges; ``ZOO_WIDE``):
+            one warm Sylvie-A sync epoch, its 15 SpMM calls (over
+            ``ecsr``, ``ecsr_t``, the scatter CSR) and 10 quantize calls at
+            d = 288 recorded and each bit-equal to its plain version on
+            the card and the same bits twice, dequantize of each result
+            too (``zoo_wide_kernels``); one profiled epoch, exact
+            launches, finite losses, peak GB (``zoo_wide``).
             ``seg_max_min`` and ``seg_max_min_bwd`` on one PNA Sylvie-S
             step's own tensors (4 calls each): bit-equal to their plain
             versions on the card, ties included, the same bits twice, also
@@ -389,7 +399,7 @@ HBM_BYTES_PER_S = 3.35e12    # H100 SXM HBM3 (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
 TF32_OPS_PER_S = 495e12      # H100 SXM TF32 on the tensor cores, dense
 SEED = 0
-SWEEP_D = (1, 3, 31, 32, 33, 75, 255, 256, 600, 602, 1433, 4099)
+SWEEP_D = (1, 3, 31, 32, 33, 75, 255, 256, 288, 600, 602, 1433, 4099)
 TRAIN_EPOCHS = 20
 TRAIN_ARCHS = ("gcn", "graphsage", "gat")
 TRAIN_KERNELS = ("quantize_pack", "unpack_dequantize", "spmm_csr",
@@ -426,21 +436,28 @@ TRAIN_LAUNCHES = {
     ("gat", "sylvie_s", "sync"): (4, 4, 2, 4, 2, 2, 4),
     ("gat", "sylvie_a", "sync"): (4, 4, 2, 4, 2, 2, 4),
     ("gat", "sylvie_a", "async"): (4, 4, 2, 4, 2, 2, 4)}
-# [zoo]: the JAX package's PNA, MeshGraphNet and SchNet at their published
-# widths (the configs of the port's registry), P = 4, seed 0, trained
-# ZOO_EPOCHS epochs each of vanilla, Sylvie-S and Sylvie-A, on the graph and
-# with the Adam rate given. At the trainer's default Adam 1e-2 the first
-# updates overshoot (on the CPU, 10 vanilla epochs: PNA 4.8 -> 132 -> 1.2
-# on yelp_like@small, SchNet 14.9 -> 210 -> 59 on molecule_like@paper);
+# [zoo]: the JAX package's PNA, MeshGraphNet, SchNet and NequIP at their
+# published widths (the configs of the port's registry), P = 4, seed 0,
+# trained ZOO_EPOCHS epochs each of vanilla, Sylvie-S and Sylvie-A, on the
+# graph and with the Adam rate given. At the trainer's default Adam 1e-2 the
+# first updates overshoot (on the CPU, 10 vanilla epochs: PNA 4.8 -> 132 ->
+# 1.2 on yelp_like@small, SchNet 14.9 -> 210 -> 59 on molecule_like@paper);
 # at 1e-3 both fall. MeshGraphNet as the reference defines it (15 residual
 # MLP layers, no normalization) starts at a loss of ~1e7 and diverges at
-# 1e-2 in both packages; at 1e-5 its loss falls epoch by epoch.
+# 1e-2 in both packages; at 1e-5 its loss falls epoch by epoch. NequIP's
+# falls at 1e-2 (on the CPU, 10 vanilla epochs on molecule_like@paper:
+# 1.3948 -> 0.9136; 1e-3 1.3948 -> 1.3679).
 ZOO_EPOCHS = 10
 ZOO_ARCHS = {"pna": ("reddit_like@paper", 1e-3),
              "meshgraphnet": ("mesh_like@paper", 1e-5),
-             "schnet": ("molecule_like@paper", 1e-3)}
+             "schnet": ("molecule_like@paper", 1e-3),
+             "nequip": ("molecule_like@paper", 1e-2)}
 ZOO_SMOKE = {"pna": "yelp_like@smoke", "meshgraphnet": "mesh_like@smoke",
-             "schnet": "molecule_like@smoke"}
+             "schnet": "molecule_like@smoke", "nequip": "molecule_like@smoke"}
+# NequIP at full width on a larger graph: one warm Sylvie-A sync epoch,
+# then one profiled epoch (20,000 nodes, 419,018 edges with self-loops;
+# random positions from default_rng(0), as gnn_graph gives them)
+ZOO_WIDE = ("nequip", "yelp_like@paper")
 # atol of the reduced configs' 32-bit logits, card against the CPU (rtol
 # 1e-5). The aggregations are bit-equal on both; the products (cuBLAS, the
 # CPU's BLAS) are ulps apart.
@@ -454,10 +471,11 @@ ZOO_KERNELS = ("quantize_pack", "unpack_dequantize", "spmm_csr",
 # sync or async. SpMM per layer: PNA 3 forward (the mean's sum and the two
 # sums of std) and 3 backward (gather_src's over ecsr_t, gather_dst's over
 # ecsr, the boundary scatter); MeshGraphNet 1 + 3; SchNet 1 + 2 (no
-# gather_dst). seg_max_min: PNA's max and min at each layer, forward and
-# backward.
+# gather_dst); NequIP 1 + 2 (one agg_sum over the flat irreps, where the
+# reference sums each l apart). seg_max_min: PNA's max and min at each
+# layer, forward and backward.
 _ZOO_STEP = {"pna": (4, (2, 6, 1)), "meshgraphnet": (15, (2, 4, 0)),
-             "schnet": (3, (2, 3, 0))}
+             "schnet": (3, (2, 3, 0)), "nequip": (5, (2, 3, 0))}
 ZOO_LAUNCHES = {
     (arch, run, mode): (0 if run == "vanilla" else q * n,
                         0 if run == "vanilla" else q * n, s * n, m * n,
@@ -564,12 +582,60 @@ def bound(n_bytes: float, n_ops: float,
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def profile_device(fn, label: str):
+def range_ms(prof, label: str) -> dict:
+    """Device ms of the kernels launched inside a profile's ``label`` ranges
+    (``record_function``), and of the backward of the operations run there:
+    autograd's ``evaluate_function`` events carry the sequence number and
+    the thread of the forward operation they differentiate."""
+    from torch.autograd import DeviceType
+
+    def walk(ev):
+        yield ev
+        for ch in ev.cpu_children:
+            yield from walk(ch)
+
+    events = prof.events()
+    ranges = [r for r in events
+              if r.name == label and r.device_type == DeviceType.CPU]
+    fwd = [e for r in ranges for e in walk(r)]
+    seqs = {(e.sequence_nr, e.thread) for e in fwd if e.sequence_nr >= 0}
+    bwd = [e for r in events
+           if r.name.startswith("autograd::engine::evaluate_function")
+           and (r.sequence_nr, getattr(r, "fwd_thread", None)) in seqs
+           for e in walk(r)]
+
+    def ms(evs):
+        return sum(k.duration for e in evs for k in e.kernels) / 1e3
+    return dict(calls=len(ranges), fwd_ms=ms(fwd), bwd_ms=ms(bwd),
+                ms=ms(fwd) + ms(bwd),
+                fwd_kernels=sum(len(e.kernels) for e in fwd),
+                bwd_kernels=sum(len(e.kernels) for e in bwd))
+
+
+@contextlib.contextmanager
+def marked(owner, name: str, label: str):
+    """``owner.name`` run inside a ``record_function(label)`` range (for
+    :func:`range_ms`); restored on exit."""
+    from torch.profiler import record_function
+    real = getattr(owner, name)
+
+    def wrapper(*args, **kwargs):
+        with record_function(label):
+            return real(*args, **kwargs)
+    setattr(owner, name, wrapper)
+    try:
+        yield
+    finally:
+        setattr(owner, name, real)
+
+
+def profile_device(fn, label: str, marks: dict | None = None):
     """Run ``fn`` once under ``torch.profiler``; print its device time by
     kernel and return (fn's result, host ms, device-busy ms, {group: ms},
     {kernel: launches}) with the groups flash kernel / flash backward /
     SpMM / GAT kernels / seg_max (forward) / seg_bwd / quantize / dequantize
-    / matrix products (cuBLAS) / everything else."""
+    / matrix products (cuBLAS) / everything else. Each label of ``marks``
+    gets :func:`range_ms` of its ranges (they overlap the groups)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -579,8 +645,10 @@ def profile_device(fn, label: str):
         out = fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
+    # a range shows on the device's timeline too, spanning its kernels
     on_dev = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA]
+              if e.device_type == DeviceType.CUDA
+              and e.key not in (marks or {})]
     busy = sum(e.self_device_time_total for e in on_dev) / 1e3
     groups = {"flash": 0.0, "flash_bwd": 0.0, "spmm": 0.0, "gat": 0.0,
               "seg_max": 0.0, "seg_bwd": 0.0, "quantize": 0.0,
@@ -607,6 +675,10 @@ def profile_device(fn, label: str):
     for e in sorted(on_dev, key=lambda e: -e.self_device_time_total)[:8]:
         log(f"[profile]   {e.self_device_time_total / 1e3:9.3f} ms "
             f"{e.count:5d}x  {e.key[:100]}")
+    for mark in marks or {}:
+        marks[mark] = range_ms(prof, mark)
+        log(f"[profile]   inside {mark!r} (and its backward): "
+            f"{json.dumps(marks[mark])}")
     return out, wall, busy, groups, {e.key: e.count for e in on_dev}
 
 
@@ -750,7 +822,7 @@ def lm_moe_phase(all_kernels: dict) -> dict:
     their published widths with the depth cut of ``LM_MOE_RUNS``, each
     served through ``generate`` and freed before the next. Returns each
     run's launches and numbers."""
-    from torch.profiler import ProfilerActivity, profile, record_function
+    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch import configs
     from repro_torch.dist.runtime import resolve_device
@@ -854,25 +926,15 @@ def lm_moe_phase(all_kernels: dict) -> dict:
         tokens = torch.zeros((b, s_ctx + new), dtype=torch.long, device=dev)
         tokens[:, :s_ctx] = torch.as_tensor(prompts)
         prefill = LM.make_prefill_step(cfg, b, s_ctx + new)
-        real_ffn, real_exp = LM.moe_ffn, LM.expert_ffn
-
-        def marked(fn, label):
-            def wrapper(*args, **kwargs):
-                with record_function(label):
-                    return fn(*args, **kwargs)
-            return wrapper
-        LM.moe_ffn = marked(real_ffn, "lm_moe_ffn")
-        LM.expert_ffn = marked(real_exp, "lm_moe_experts")
         torch.cuda.synchronize()
-        try:
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                t1 = time.perf_counter()
-                last, caches = prefill(params, tokens)
-                torch.cuda.synchronize()
-                host_ms = (time.perf_counter() - t1) * 1e3
-        finally:
-            LM.moe_ffn, LM.expert_ffn = real_ffn, real_exp
+        with marked(LM, "moe_ffn", "lm_moe_ffn"), \
+                marked(LM, "expert_ffn", "lm_moe_experts"), \
+                profile(activities=[ProfilerActivity.CPU,
+                                    ProfilerActivity.CUDA]) as prof:
+            t1 = time.perf_counter()
+            last, caches = prefill(params, tokens)
+            torch.cuda.synchronize()
+            host_ms = (time.perf_counter() - t1) * 1e3
         split = dict(host_ms=host_ms, **prefill_split(prof))
         check(tuple(last.shape) == (b, cfg.vocab)
               and bool(torch.isfinite(last).all()),
@@ -2486,66 +2548,209 @@ def zoo_parity() -> dict:
     return out
 
 
-def zoo_phase(all_kernels: dict) -> dict:
-    """PNA 4x75, MeshGraphNet 15x128 and SchNet 3x64 (the registry's full
-    configs) trained full-graph through ``launch.train.gnn_graph`` and
-    ``GNNTrainer`` (``ZOO_ARCHS``), P = 4, seed 0: ``ZOO_EPOCHS`` epochs
-    each of vanilla, Sylvie-S (``Uniform(1)``) and Sylvie-A
-    (``BoundedStaleness(eps_s=4)``, 1 bit), stochastic rounding. Counts are
-    zeroed before each epoch and read after it: they must equal
-    ``ZOO_LAUNCHES``, and no other kernel may launch. Vanilla losses fall;
-    1-bit losses are finite (whether they fall is printed). Then one
-    Sylvie-A sync and async epoch of each profiled by kernel, the seg kernels
-    checked on one PNA Sylvie-S step's tensors (``seg_check``), and the
-    reduced configs' 32-bit logits on the smoke graphs, card against the
-    CPU's plain versions (``zoo_parity``)."""
+def zoo_epoch(tr, all_kernels: dict, arch: str, run: str):
+    """One epoch of the trainer ``tr`` (``run`` of ``arch``) with every
+    count zeroed just before it and read just after it: exactly
+    ``ZOO_LAUNCHES`` for its mode and no other kernel. Returns (its
+    metrics, every kernel's count)."""
+    for meta in all_kernels.values():
+        meta["k"].launches = 0
+    m = tr.train_epoch()                         # ends in float(loss)
+    counts = {k: meta["k"].launches for k, meta in all_kernels.items()}
+    got = tuple(counts[k] for k in ZOO_KERNELS)
+    want = ZOO_LAUNCHES[(arch, run, m.mode)]
+    others = {k: n for k, n in counts.items() if k not in ZOO_KERNELS and n}
+    check(got == want and not others,
+          f"[zoo] {arch} {run} {m.mode} epoch {m.epoch}: launches "
+          f"{dict(zip(ZOO_KERNELS, got))}, expected "
+          f"{dict(zip(ZOO_KERNELS, want))}, others {others}")
+    return m, counts
+
+
+def zoo_trainer(arch: str, pg, run: str):
+    """``arch``'s full config on ``pg``, weights from ``SEED``, in a
+    ``GNNTrainer`` for ``run``: vanilla, Sylvie-S (``Uniform(1)``) or
+    Sylvie-A (``BoundedStaleness(eps_s=4)``, 1 bit), stochastic rounding,
+    Adam at ``ZOO_ARCHS``' rate. Returns (trainer, model)."""
     from repro_torch import configs
     from repro_torch.core.sylvie import SylvieConfig
-    from repro_torch.launch.cells import _gnn_model_flops
-    from repro_torch.launch.train import gnn_graph
-    from repro_torch.models.gnn import blocks as B
     from repro_torch.policy import BoundedStaleness, Uniform
     from repro_torch.train import optimizer as optlib
     from repro_torch.train.trainer import GNNTrainer
 
+    cfg, pol = {
+        "vanilla": (SylvieConfig(mode="vanilla"), None),
+        "sylvie_s": (SylvieConfig(mode="sync", bits=1), Uniform(bits=1)),
+        "sylvie_a": (SylvieConfig(mode="async", bits=1),
+                     BoundedStaleness(eps_s=4, bits=1))}[run]
+    torch.manual_seed(SEED)
+    model = configs.get(arch).config().make(pg.x.shape[-1], pg.n_classes)
+    return GNNTrainer(model, pg, cfg, opt=optlib.adam(ZOO_ARCHS[arch][1]),
+                      policy=pol, seed=SEED), model
+
+
+def zoo_profile(fn, arch: str, label: str):
+    """:func:`profile_device` of ``fn``, with NequIP's tensor product marked
+    (``nequip_tp``) when ``arch`` is NequIP. Returns (fn's result, host ms,
+    device-busy ms, {group: ms}, {mark: range_ms})."""
+    from repro_torch.models.gnn import nequip as NQ
+    if arch != "nequip":
+        return (*profile_device(fn, label)[:4], {})
+    marks = {"nequip_tp": None}
+    with marked(NQ, "tensor_product", "nequip_tp"):
+        return (*profile_device(fn, label, marks)[:4], marks)
+
+
+def zoo_wide_kernels(rec: dict, block, width: int, want: tuple) -> dict:
+    """Every SpMM (over ``ecsr``, ``ecsr_t`` and the scatter CSR) and every
+    quantize call that one NequIP Sylvie-A sync step on ``ZOO_WIDE``'s graph
+    made, on the tensors the step gave them (``width`` columns): the SpMM
+    bit-equal to its plain version run on the card and the same bits on a
+    second call; quantize (the step's bits and noise) and dequantize of its
+    result bit-equal to the plain versions, scale/zero in float32 and
+    bfloat16 (:func:`check_quant`), the quantize the same bits twice.
+    ``want`` is the step's ``ZOO_LAUNCHES``. Returns the largest errors and
+    the calls checked by CSR."""
+    from repro_torch.kernels.quant import ops as qops
+    from repro_torch.kernels.quant import ref as qref
+    from repro_torch.kernels.spmm import ops as sops
+    from repro_torch.kernels.spmm import ref as sref
+
+    tag = f"[zoo] {ZOO_WIDE[0]} on {ZOO_WIDE[1]}"
+    csrs = {"ecsr": block.ecsr, "ecsr_t": block.ecsr_t,
+            "scatter": block.plan.scatter}
+    name = {id(c): k for k, c in csrs.items()}
+    calls = rec["aggregate"] + rec["scatter"]
+    check(len(calls) == want[2] and len(rec["quantize"]) == want[0],
+          f"{tag}: {len(calls)} SpMM and {len(rec['quantize'])} quantize "
+          f"calls recorded in a sync step, expected {want[2]} and {want[0]}")
+    res = dict(spmm_csr=0.0, quantize_pack=0.0, unpack_dequantize=0.0,
+               spmm_calls={}, quantize_calls=len(rec["quantize"]))
+    for g, csr in calls:
+        what = name.get(id(csr))
+        check(what is not None and g.shape[1] == width,
+              f"{tag}: SpMM over {what} at d = {g.shape[1]}, expected one "
+              f"of the step's CSRs at d = {width}")
+        got, again = sops.spmm(g, csr), sops.spmm(g, csr)
+        ref = sref.spmm_ref(g, csr)
+        err = float((got - ref).abs().max())
+        check(same_bits(got, ref) and same_bits(got, again),
+              f"{tag}: spmm over {what} {tuple(g.shape)}, nnz {csr.nnz}: "
+              f"bit-equal to the plain version and twice (max abs err {err})")
+        res["spmm_csr"] = max(res["spmm_csr"], err)
+        res["spmm_calls"][what] = res["spmm_calls"].get(what, 0) + 1
+        del got, again, ref
+    for h, u, bits, _ in rec["quantize"]:
+        check(h.shape[1] == width, f"{tag}: quantize at d = {h.shape[1]}, "
+              f"expected {width}")
+        q_err, d_err = check_quant(qops, qref, h, u, bits,
+                                   f"{tag} site rows {tuple(h.shape)}")
+        first, second = (qops.quantize_pack_rows(h, u, bits) for _ in "ab")
+        check(all(same_bits(x, y) for x, y in zip(first, second)),
+              f"{tag}: quantize {tuple(h.shape)} the same bits twice")
+        res["quantize_pack"] = max(res["quantize_pack"], q_err)
+        res["unpack_dequantize"] = max(res["unpack_dequantize"], d_err)
+    log(f"{tag}: the sync step's SpMM and Low-bit Module calls at d = "
+        f"{width}, bit-equal to the plain versions and twice: "
+        f"{json.dumps(res)}")
+    return res
+
+
+def zoo_wide(all_kernels: dict) -> dict:
+    """NequIP's full config on ``ZOO_WIDE``'s graph under Sylvie-A
+    (``zoo_trainer``): one warm sync epoch with its SpMM and quantize calls
+    recorded and checked against the plain versions (``zoo_wide_kernels``),
+    then one epoch profiled with the tensor product marked (``nequip_tp``),
+    each launching exactly ``ZOO_LAUNCHES``; finite losses. Host and busy
+    ms, the groups, the tensor product's device ms (forward and backward),
+    and the profiled epoch's peak GB (the warm epoch's is raised by the
+    tensors recorded)."""
+    from repro_torch import configs
+    from repro_torch.core import exchange as X
+    from repro_torch.kernels.quant import ops as qops
+    from repro_torch.launch.train import gnn_graph
+    from repro_torch.models.gnn import blocks as B
+
+    arch, graph = ZOO_WIDE
+    t0 = time.perf_counter()
+    pg = gnn_graph(configs.get(arch).config(), graph, 4, SEED)
+    n, e = int(pg.node_mask.sum()), int(pg.edge_mask.sum())
+    tr, model = zoo_trainer(arch, pg, "sylvie_a")
+    log(f"[zoo] {arch} on {graph}: {n} nodes, {e} edges, d_feat "
+        f"{pg.x.shape[-1]}, {pg.n_classes} classes "
+        f"({time.perf_counter() - t0:.1f} s to build)")
+    launches = {}
+    rec = dict(aggregate=[], scatter=[], quantize=[])
+    with recording(B, "spmm", rec["aggregate"]), \
+            recording(X, "spmm", rec["scatter"]), \
+            recording(qops, "quantize_pack_rows", rec["quantize"]):
+        m0, launches[f"{arch}_wide_sylvie_a_sync_step"] = zoo_epoch(
+            tr, all_kernels, arch, "sylvie_a")
+    check(m0.mode == "sync", f"[zoo] {arch} on {graph}: epoch 0 is sync")
+    kernels = zoo_wide_kernels(rec, tr.block, model.width,
+                               ZOO_LAUNCHES[(arch, "sylvie_a", "sync")])
+    del rec
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    (m1, counts), wall, busy, groups, marks = zoo_profile(
+        lambda: zoo_epoch(tr, all_kernels, arch, "sylvie_a"), arch,
+        f"the epoch after the warm one of {arch} Sylvie-A on {graph} "
+        f"(epoch {tr.epoch})")
+    launches[f"{arch}_wide_sylvie_a_{m1.mode}_step"] = counts
+    peak = torch.cuda.max_memory_allocated()
+    losses = [m0.loss, m1.loss]
+    check(all(np.isfinite(losses)), f"[zoo] {arch} on {graph}: losses "
+          f"{losses} finite")
+    tp = marks["nequip_tp"]
+    res = dict(graph=graph, nodes=n, edges=e, losses=losses,
+               warm_sync_epoch_ms=m0.seconds * 1e3, profiled_mode=m1.mode,
+               profiled_epoch_ms=m1.seconds * 1e3, host_ms=wall,
+               busy_ms=busy, by_group=groups, nequip_tp=tp,
+               nequip_tp_share_of_busy=tp["ms"] / busy if busy else None,
+               payload_mb=m1.comm_payload_mb, peak_gb=peak / 1e9,
+               kernels=kernels, launches=launches)
+    log(f"[zoo] {arch} on {graph}: " + json.dumps(
+        {k: v for k, v in res.items() if k not in ("launches", "kernels")}))
+    del tr, model
+    torch.cuda.empty_cache()
+    return res
+
+
+def zoo_phase(all_kernels: dict) -> dict:
+    """PNA 4x75, MeshGraphNet 15x128, SchNet 3x64 and NequIP 5 x 32 (l <=
+    2) (the registry's full configs) trained full-graph through
+    ``launch.train.gnn_graph`` and ``GNNTrainer`` (``ZOO_ARCHS``,
+    ``zoo_trainer``), P = 4, seed 0: ``ZOO_EPOCHS`` epochs each of vanilla,
+    Sylvie-S and Sylvie-A. Counts are zeroed before each epoch and read
+    after it: they must equal ``ZOO_LAUNCHES``, and no other kernel may
+    launch. Vanilla losses fall; 1-bit losses are finite (whether they fall
+    is printed). Then one Sylvie-A sync and async epoch of each profiled by
+    kernel (``zoo_profile``), the seg kernels checked on one PNA Sylvie-S
+    step's tensors (``seg_check``), NequIP on ``ZOO_WIDE``'s graph
+    (``zoo_wide``), and the reduced configs' 32-bit logits on the smoke
+    graphs, card against the CPU's plain versions (``zoo_parity``)."""
+    from repro_torch import configs
+    from repro_torch.launch.cells import _gnn_model_flops
+    from repro_torch.launch.train import gnn_graph
+    from repro_torch.models.gnn import blocks as B
+
     t_phase = time.perf_counter()
-    runs = {"vanilla": (SylvieConfig(mode="vanilla"), None),
-            "sylvie_s": (SylvieConfig(mode="sync", bits=1), Uniform(bits=1)),
-            "sylvie_a": (SylvieConfig(mode="async", bits=1),
-                         BoundedStaleness(eps_s=4, bits=1))}
     out = dict(launches={})
     for arch, (graph, lr) in ZOO_ARCHS.items():
-        spec = configs.get(arch).config()
         t0 = time.perf_counter()
-        pg = gnn_graph(spec, graph, 4, SEED)
+        pg = gnn_graph(configs.get(arch).config(), graph, 4, SEED)
         n, e = int(pg.node_mask.sum()), int(pg.edge_mask.sum())
         log(f"[zoo] {arch} on {graph}: {n} nodes, {e} edges, d_feat "
             f"{pg.x.shape[-1]}, {pg.n_classes} classes, edge attrs "
             f"{None if pg.edge_attr is None else pg.edge_attr.shape[-1]} "
             f"({time.perf_counter() - t0:.1f} s)")
-        for name, (cfg, pol) in runs.items():
-            torch.manual_seed(SEED)
-            model = spec.make(pg.x.shape[-1], pg.n_classes)
-            tr = GNNTrainer(model, pg, cfg, opt=optlib.adam(lr), policy=pol,
-                            seed=SEED)
+        for name in ("vanilla", "sylvie_s", "sylvie_a"):
+            tr, model = zoo_trainer(arch, pg, name)
             torch.cuda.reset_peak_memory_stats()
             hist = []
             for _ in range(ZOO_EPOCHS):
-                for meta in all_kernels.values():
-                    meta["k"].launches = 0
-                m = tr.train_epoch()                 # ends in float(loss)
-                got = tuple(all_kernels[k]["k"].launches
-                            for k in ZOO_KERNELS)
-                want = ZOO_LAUNCHES[(arch, name, m.mode)]
-                others = {k: meta["k"].launches
-                          for k, meta in all_kernels.items()
-                          if k not in ZOO_KERNELS and meta["k"].launches}
-                check(got == want and not others,
-                      f"[zoo] {arch} {name} {m.mode} epoch {m.epoch}: "
-                      f"launches {dict(zip(ZOO_KERNELS, got))}, expected "
-                      f"{dict(zip(ZOO_KERNELS, want))}, others {others}")
-                out["launches"][f"{arch}_train_{name}_{m.mode}_step"] = {
-                    k: meta["k"].launches for k, meta in all_kernels.items()}
+                m, counts = zoo_epoch(tr, all_kernels, arch, name)
+                out["launches"][f"{arch}_train_{name}_{m.mode}_step"] = counts
                 hist.append(m)
             peak = torch.cuda.max_memory_allocated()
             losses = [m.loss for m in hist]
@@ -2570,11 +2775,11 @@ def zoo_phase(all_kernels: dict) -> dict:
             log(f"[zoo] {tag} ({tr.policy.name}): {json.dumps(res)}")
             if name == "sylvie_a":
                 for mode in ("sync", "async"):
-                    _, wall, busy, groups, _ = profile_device(
-                        tr.train_epoch, f"one {mode} epoch of {arch} "
+                    _, wall, busy, groups, marks = zoo_profile(
+                        tr.train_epoch, arch, f"one {mode} epoch of {arch} "
                         f"Sylvie-A (epoch {tr.epoch})")
                     res[f"profile_{mode}"] = dict(host_ms=wall, busy_ms=busy,
-                                                  by_group=groups)
+                                                  by_group=groups, **marks)
             if name == "sylvie_s" and arch == "pna":
                 rec: list = []
                 rec_bwd: list = []
@@ -2585,6 +2790,8 @@ def zoo_phase(all_kernels: dict) -> dict:
                 del rec, rec_bwd
             del tr, model
             torch.cuda.empty_cache()
+    out["wide"] = zoo_wide(all_kernels)
+    out["launches"].update(out["wide"].pop("launches"))
     out.update(zoo_parity())
     log(f"[zoo] kernel launches per step: {json.dumps(out['launches'])}")
     out["seconds"] = time.perf_counter() - t_phase
@@ -4407,8 +4614,10 @@ def main() -> int:
     # -- 11''. LM training: granite-3-2b (40 layers), olmoe, gemma2, deepseek --
     lmt = lm_train_phase(all_kernels)
 
-    # -- 11a. the zoo: PNA, MeshGraphNet, SchNet at full width -----------------
+    # -- 11a. the zoo: PNA, MeshGraphNet, SchNet, NequIP at full width --------
     zoo = zoo_phase(all_kernels)
+    for name in errs:
+        errs[name] = max(errs[name], zoo["wide"]["kernels"][name])
     torch.cuda.empty_cache()
 
     # -- 11b. the serving front: serve_once, store, degraded mode, tracing -----

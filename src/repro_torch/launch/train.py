@@ -1,7 +1,7 @@
 """End-to-end launcher of the port, as ``python -m repro.launch.train``:
 full-graph training of GCN / GraphSAGE / GAT and of PNA / MeshGraphNet /
-SchNet with Sylvie's quantized halo exchange, LM training on the synthetic
-token stream, and batched LM serving (prefill + greedy decode).
+SchNet / NequIP with Sylvie's quantized halo exchange, LM training on the
+synthetic token stream, and batched LM serving (prefill + greedy decode).
 
     python -m repro_torch.launch.train --arch gcn --graph reddit_like@paper \\
         --parts 4 --mode async --bits 1 --eps-s 4 --epochs 20
@@ -13,6 +13,8 @@ token stream, and batched LM serving (prefill + greedy decode).
         --parts 4 --mode async --bits 1 --eps-s 4 --epochs 10
     python -m repro_torch.launch.train --arch meshgraphnet --reduced \\
         --graph mesh_like@smoke --epochs 2 --device cpu
+    python -m repro_torch.launch.train --arch nequip --reduced \\
+        --graph molecule_like@smoke --epochs 2 --device cpu
     python -m repro_torch.launch.train --arch granite-3-2b --steps 100 \
         --lr 1e-3 --batch 4 --seq 2048
     python -m repro_torch.launch.train --arch olmoe-1b-7b --reduced \
@@ -39,10 +41,10 @@ gradient on the flash backward kernels. Every LM of the registry
 (granite-3-2b, yi-34b, olmoe-1b-7b, deepseek-v2-236b, gemma2-27b) trains
 and serves; at their full configs deepseek-v2-236b, gemma2-27b and yi-34b
 do not fit one 80 GB card in float32 (to serve; with gradients and Adam's
-moments, neither does olmoe-1b-7b). MeshGraphNet and SchNet read edge
-geometry, computed on the host after the self-loops are added (random
-positions from seed 0 where the graph has none). NequIP and DLRM are not
-ported yet (ROADMAP queue A).
+moments, neither does olmoe-1b-7b). MeshGraphNet, SchNet and NequIP read
+edge geometry, computed on the host after the self-loops are added (random
+positions from seed 0 where the graph has none). DLRM is not ported yet
+(ROADMAP queue A).
 """
 from __future__ import annotations
 
@@ -58,7 +60,7 @@ from ..dist.runtime import resolve_device
 from ..models.lm import model as LM
 from ..models.lm.config import LMConfig
 
-NOT_PORTED = "not ported yet (ROADMAP queue A)"
+NOT_PORTED = "not ported yet (ROADMAP queue A, item 15: DLRM)"
 
 
 @dataclasses.dataclass(frozen=True)

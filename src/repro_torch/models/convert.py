@@ -4,7 +4,8 @@ The JAX package keeps parameters as nested dicts
 (``{"layer0": {"w": (d_in, d_out), "b": (d_out,)}, ...}``). The port keeps
 the GNN's in ``nn.Module``s whose parameter names follow the same path
 (``layer0.w``; GraphSAGE's ``layer0.self.w`` / ``layer0.nb.w``, GAT's
-``layer0.w.w`` / ``layer0.a_src`` / ``out.b``), and the LM's in a nested
+``layer0.w.w`` / ``layer0.a_src`` / ``out.b``; NequIP's ``layer0.w_self.0``
+for the JAX tree's integer key ``0``), and the LM's in a nested
 dict of tensors with the JAX tree's keys. These functions carry weights across, so both packages can run on the
 same numbers.
 """
@@ -25,6 +26,9 @@ def params_from_numpy(model: nn.Module, tree: dict, device=None) -> nn.Module:
     for name, param in model.named_parameters():
         node = tree
         for part in name.split("."):
+            if isinstance(node, dict) and part not in node \
+                    and part.isdigit():
+                part = int(part)           # the JAX tree's integer keys
             if not isinstance(node, dict) or part not in node:
                 raise KeyError(f"parameter tree has no leaf "
                                f"{name.replace('.', '/')!r}")

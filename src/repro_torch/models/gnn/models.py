@@ -16,6 +16,7 @@ tree (``layer0.w`` is ``params["layer0"]["w"]``; GAT's ``layer0.w.w`` is
 """
 from __future__ import annotations
 
+from functools import lru_cache
 from typing import Optional
 
 import torch
@@ -61,12 +62,33 @@ def softplus(x: torch.Tensor) -> torch.Tensor:
     return _Softplus.apply(x)
 
 
+def xla_linspace(stop: float, n: int) -> np.ndarray:
+    """(n,) float32, bit for bit ``jnp.linspace(0, stop, n)`` as XLA
+    computes it: ``stop * (i / (n - 1))`` with its constants folded, ``i *
+    (stop * (1 / (n - 1)))`` in float32, and the last exactly ``stop``
+    (``torch.linspace`` rounds from both ends)."""
+    f32 = np.float32
+    stop = f32(stop)
+    if n == 1:
+        return np.zeros(1, f32)
+    out = np.arange(n - 1, dtype=f32) * (stop * (f32(1) / f32(n - 1)))
+    return np.append(out, stop).astype(f32)
+
+
+@lru_cache(maxsize=None)
+def rbf_centers(stop: float, n: int, device: str) -> torch.Tensor:
+    """:func:`xla_linspace` ``(stop, n)`` on ``device`` (copied once)."""
+    return torch.as_tensor(xla_linspace(stop, n), device=device)
+
+
 def param_tree(module: nn.Module) -> dict:
     """``module``'s parameters as the JAX tree: ``layer0.w`` ->
-    ``{"layer0": {"w": ...}}``."""
+    ``{"layer0": {"w": ...}}``; a part of digits is an integer key, as in
+    the JAX tree (NequIP's ``layer0.w_self.1`` -> ``{"w_self": {1:
+    ...}}``)."""
     tree: dict = {}
     for name, param in module.named_parameters():
-        *path, leaf = name.split(".")
+        *path, leaf = (int(k) if k.isdigit() else k for k in name.split("."))
         node = tree
         for part in path:
             node = node.setdefault(part, {})
@@ -328,19 +350,11 @@ class SchNet(_Model):
         return [self.d_hidden] * self.n_interactions
 
     def centers(self) -> np.ndarray:
-        """(n_rbf,) float32, bit for bit ``jnp.linspace(0, cutoff, n_rbf)``
-        as XLA computes it: ``stop * (i / (n - 1))`` with its constants
-        folded, ``i * (stop * (1 / (n - 1)))`` in float32, and the last
-        exactly ``cutoff`` (``torch.linspace`` rounds from both ends)."""
-        n, f32 = self.n_rbf, np.float32
-        stop = f32(self.cutoff)
-        if n == 1:
-            return np.zeros(1, f32)
-        out = np.arange(n - 1, dtype=f32) * (stop * (f32(1) / f32(n - 1)))
-        return np.append(out, stop).astype(f32)
+        """The RBF centers, :func:`xla_linspace` ``(cutoff, n_rbf)``."""
+        return xla_linspace(self.cutoff, self.n_rbf)
 
     def _rbf(self, dist: torch.Tensor) -> torch.Tensor:
-        centers = torch.as_tensor(self.centers(), device=dist.device)
+        centers = rbf_centers(self.cutoff, self.n_rbf, str(dist.device))
         gamma = 0.5 * (self.n_rbf / self.cutoff) ** 2
         z = -gamma * (dist[..., None] - centers) ** 2
         return torch.exp(z.to(torch.float64)).to(dist.dtype)

@@ -1,13 +1,15 @@
-"""PNA, MeshGraphNet and SchNet of the port against the JAX reference, on
-the CPU.
+"""PNA, MeshGraphNet, SchNet and NequIP of the port against the JAX
+reference, on the CPU.
 
 The same numpy graphs and the JAX parameters (``model.init``, carried in by
 ``params_from_numpy``) go to both packages; the JAX side runs as
 ``tests/test_arch_smoke.py`` runs it. Graphs: the smoke tiers the reference
 trains these models on (``yelp_like`` for PNA, ``mesh_like`` for
-MeshGraphNet, ``molecule_like`` for SchNet; 4 partitions, self-loops, edge
-geometry for the last two), ``molecules(n_nodes=40)`` with self-loops, and
-a graph of rows of 0, 1, 128, 129 and 1,300 edges (two partitions).
+MeshGraphNet, ``molecule_like`` for SchNet and NequIP; 4 partitions,
+self-loops, edge geometry for the last three), ``molecules(n_nodes=40)``
+with self-loops, and a graph of rows of 0, 1, 128, 129 and 1,300 edges (two
+partitions). NequIP's own cases (``so3``, the tensor product, rotations,
+its integer-keyed tree) are in ``tests/test_torch_nequip.py``.
 
 * The generators, both registry workloads, ``geometry_edge_attr`` and
   ``real_sh_np`` equal the reference's array for array.
@@ -35,11 +37,12 @@ a graph of rows of 0, 1, 128, 129 and 1,300 edges (two partitions).
   (1e-4; PNA's epoch by epoch from JAX's state, ``LOCKSTEP``); the plain
   versions' calls per step of the full configs, which
   ``chip_smoke.ZOO_LAUNCHES`` holds the card to.
-* ``python -m repro_torch.launch.train --arch pna|meshgraphnet|schnet
-  --reduced ... --device cpu`` trains, and raises without a card otherwise.
+* ``python -m repro_torch.launch.train --arch
+  pna|meshgraphnet|schnet|nequip --reduced ... --device cpu`` trains, and
+  raises without a card otherwise.
 * One rank's block (``part=p``, as ``GNNTrainer`` builds it under a sharded
-  runtime) runs PNA's and MeshGraphNet's forward to its rows of the
-  simulated stack's, given the stack's halos.
+  runtime) runs PNA's, MeshGraphNet's and NequIP's forward to its rows of
+  the simulated stack's, given the stack's halos.
 """
 import dataclasses
 import tempfile
@@ -87,7 +90,7 @@ from repro_torch.train.trainer import GNNTrainer
 P = 4
 CPU = Runtime.simulated(P, device="cpu")
 GRAPHS = {"pna": "yelp_like@smoke", "meshgraphnet": "mesh_like@smoke",
-          "schnet": "molecule_like@smoke"}
+          "schnet": "molecule_like@smoke", "nequip": "molecule_like@smoke"}
 ZOO = tuple(GRAPHS)
 KEY = jax.random.PRNGKey(0)
 
@@ -795,7 +798,7 @@ class _Record:
         return out
 
 
-@pytest.mark.parametrize("name", ["pna", "meshgraphnet"])
+@pytest.mark.parametrize("name", ["pna", "meshgraphnet", "nequip"])
 def test_one_ranks_block_runs_its_rows_of_the_stack(zoo, name):
     """``GNNTrainer``'s block of one rank (``part=p``): its edge CSRs and
     edge attributes give the forward that rank's rows of the simulated

@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
 """Run ``chip_smoke.py``'s ``[zoo]`` phase alone on one CUDA card: build the
 kernels, print the card line, then ``chip_smoke.zoo_phase`` (PNA 4x75,
-MeshGraphNet 15x128 and SchNet 3x64 trained full-graph at P = 4, exact
-launches per step, the seg kernels against their plain versions, card
-against the CPU on the reduced configs), or with ``parity`` only the last
-(``chip_smoke.zoo_parity``).
+MeshGraphNet 15x128, SchNet 3x64 and NequIP 5 x 32 trained full-graph at P
+= 4, exact launches per step, the seg kernels against their plain versions,
+NequIP on ``yelp_like@paper``, card against the CPU on the reduced
+configs), or with ``parity`` only the last (``chip_smoke.zoo_parity``).
 
     python3 tools/torch_zoo_phase.py [parity]
 """
