@@ -146,7 +146,9 @@ Phases, each of which raises (and exits non-zero) on failure:
             tools/torch_lm_phase.py train``, ``flash-bwd`` the phase above).
 9. summary — a ``{"kernels": [...]}`` line (each kernel's launches on
             every path: a serving sweep, each kind of training step, the
-            zoo's steps, each LM's ``generate`` and training step; the
+            zoo's steps, each LM's ``generate`` and training step, DLRM's
+            steps, serving and retrieval; DLRM's SpMM call beside
+            ``spmm_csr``'s times; the
             zoo's seg kernels and the flash backward with their times), the
             card line, and the last line ``{"ok": true,
             "device": {...}}``.
@@ -187,6 +189,51 @@ zoo       — PNA 4x75 on ``reddit_like@paper``, MeshGraphNet 15x128 (MLPs of
             (``ZOO_PARITY_ATOL``), and a TF32 control that must fail that
             gate (``zoo_parity``). ``python3 tools/torch_zoo_phase.py`` runs
             this phase alone (``parity``: only ``zoo_parity``).
+
+Then DLRM at the MLPerf widths (``dlrm_phase``; the counts zeroed before
+each path and read after it, exactly ``DLRM_LAUNCHES``):
+
+dlrm      — dlrm-mlperf (13 dense features, 26 tables of width 128, bottom
+            MLP 13-512-256-128, dot interaction, top MLP
+            1024-1024-512-256-1), every table capped at ``DLRM_ROWS`` = 2^22
+            rows (25,035,512 rows, 12.82 GB; the published 187,767,399 rows
+            would take 96 GB), float32 from seeded generators: (a) a batch's
+            id plan (the transposed id CSR) on the host, its ms; (b) step
+            1's gradient at batch 65,536 (1 ``spmm_csr``), an SGD step along
+            it lowering the loss by half the first-order prediction
+            (``DLRM_DESCENT``), and its SpMM call (the table's gradient over
+            ~6,500 touched rows, row 0 of each table read by ~64.6% of the
+            batch) recorded, bit-equal to the plain version and to itself,
+            timed beside its bytes bound, ``torch.sparse.mm`` and
+            ``index_add_``; (c) ``DLRM_STEPS`` Adam 1e-3 steps through
+            ``launch.train.train_dlrm`` (``criteo_stream``, the
+            ``Prefetcher`` building each id plan): the curve, finite losses,
+            exact launches every step, step ms (host clock ending in
+            ``float(loss)``, median of steps 6..20), samples/s, peak GB;
+            (d) one profiled step split into cuBLAS, the table's gather,
+            its gradient (the SpMM and the rest), the table's dense Adam
+            and the rest, with the device's busy share; (e)
+            ``make_serve_step`` at batch 512 and 262,144 (median of 5, CTR
+            in [0, 1]); (f) ``make_retrieval_step``, one query against
+            1,000,000 distinct field-0 candidates, top 64, equal to a full
+            sort of the same scores; (g) the reduced config and the
+            published widths with 26 tables of 64 rows on card and CPU:
+            logits and two Adam steps' losses within ``ZOO_PARITY_ATOL``, a
+            TF32 control outside it (``dlrm_parity``).
+
+After [sharded-serve], [dlrm-sharded] (``dlrm_sharded_phase``): four
+``gloo`` ranks on ``cuda:0`` (spawned as [sharded] spawns them), tables
+capped at ``DLRM_SHARDED_ROWS`` = 2^20 rows, each rank's slice drawn from
+its own seeded generator, a global batch of 16,384, 3 Adam steps at 32,
+16 and 1 bits of the embedding exchange. At 32 bits against one process on
+the concatenated slices: losses rtol 1e-5, step 1's table gradient on each
+rank's rows within 1e-5 of the largest, the touched rows after the steps
+within 2 x lr a step (the elements within rtol 1e-5 counted). Launches
+exact on every rank (1 quantize and 1 dequantize a 1-bit step); at 1 bit
+the last step's quantize and dequantize calls bit-equal to their plain
+versions on the card; each collective's bytes and ms and each rank's step
+ms. ``python3 tools/torch_dlrm_phase.py [single] [sharded]`` runs the two
+alone.
 
 Then the serving front runs (``serve_front_phase``), last, so that its host
 work (checkpoints written and restored, the store's host tables) cannot
@@ -491,6 +538,22 @@ ZOO_LAUNCHES = {
 SERVE_LAUNCHES = {"gcn": (2, 2, 2, 0, 0, 0, 0),
                   "graphsage": (2, 2, 2, 0, 0, 0, 0),
                   "gat": (2, 2, 0, 2, 2, 0, 0)}
+# [dlrm] and [dlrm-sharded]: kernel launches per step, in DLRM_KERNELS
+# order, by (path, bits of the embedding exchange). One SpMM a training
+# step: the table's gradient over the batch's transposed id CSR (the
+# MLPerf bags are one-hot; multi-hot bags are summed in plain order). At 1
+# bit each rank quantizes its cotangent once and dequantizes the gathered
+# one once; one process, 16 and 32 bits quantize nothing, and serving and
+# retrieval take no gradient (tests/test_torch_dlrm.py and
+# tests/test_torch_sharded_dlrm.py hold the plain versions to the same
+# counts)
+DLRM_KERNELS = ("quantize_pack", "unpack_dequantize", "spmm_csr")
+DLRM_LAUNCHES = {("train", None): (0, 0, 1),
+                 ("train_sharded", 32): (0, 0, 1),
+                 ("train_sharded", 16): (0, 0, 1),
+                 ("train_sharded", 1): (1, 1, 1),
+                 ("serve", None): (0, 0, 0),
+                 ("retrieval", None): (0, 0, 0)}
 
 def log(msg: str) -> None:
     print(msg, flush=True)
@@ -4253,6 +4316,715 @@ def sharded_serve_phase(card_line: str, graph: str = "reddit_like@paper",
     return out
 
 
+# ---------------------------------------------------------------------------
+# [dlrm] and [dlrm-sharded]: DLRM at the MLPerf widths (arXiv:1906.00091)
+# ---------------------------------------------------------------------------
+
+# cut 1, one process: every table capped at 2^22 rows (25,035,512 rows,
+# 12.82 GB a copy; with the gradient and Adam's moments 51.3 GB, where 2^23
+# would need 94 GB); every width as published
+DLRM_ROWS = 2 ** 22
+DLRM_BATCH = 65_536                    # RECSYS_SHAPES' train_batch
+DLRM_STEPS = 20
+DLRM_TIMED = 5                         # step ms: median of steps 6..20
+DLRM_LR = 1e-3
+# the descent gate of LM_TRAIN_DESCENT: an SGD step of DLRM_DESCENT x loss /
+# |g|^2 along step 1's gradient lowers the loss by half the prediction
+DLRM_DESCENT = 1e-3
+DLRM_SERVE_BATCHES = (512, 262_144)    # serve_p99, serve_bulk
+DLRM_CANDIDATES = 1_000_000            # retrieval_cand
+DLRM_TOP_K = 64
+DLRM_PARITY_BATCH = 256
+# cut 2, [dlrm-sharded]: four gloo ranks share one card, so the tables are
+# capped at 2^20 rows (7,401,902 rows, 3.79 GB a copy, 15.2 GB for all four
+# ranks); a global batch of 16,384 (4,096 a rank, 106,496 ids)
+DLRM_SHARDED_ROWS = 2 ** 20
+DLRM_SHARDED_BATCH = 16_384
+DLRM_SHARDED_STEPS = 3
+DLRM_SHARDED_BITS = (32, 16, 1)
+# 32 bits against the single process: losses rtol 1e-5, and step 1's table
+# gradient, each rank's rows, within 1e-5 x the largest. The rows after the
+# Adam steps are held only to DLRM_LR x 2 a step: each rank's MLPs see a
+# quarter of the batch and the dense gradients are all-reduced, so products
+# round otherwise, and Adam moves an element whose gradient is cancellation
+# noise by about lr either way (on the CPU, at 256-row tables and batch 64:
+# 1 element of 27,520 apart at rtol 1e-5 / atol 1e-6 after one step, 15-20%
+# after three, by at most 1.6e-3); the elements within rtol 1e-5 / atol
+# 1e-6 are counted
+DLRM_SHARDED_RTOL = 1e-5
+DLRM_SHARDED_ATOL = 1e-6
+DLRM_SLICE_SEED = 100                  # slice r from seed DLRM_SLICE_SEED + r
+
+
+def _dlrm_sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _dlrm_launches(all_kernels: dict, path, bits=None) -> dict:
+    """The launches ``DLRM_LAUNCHES`` expects of ``path``, every kernel."""
+    want = {name: 0 for name in all_kernels}
+    want.update(zip(DLRM_KERNELS, DLRM_LAUNCHES[(path, bits)]))
+    return want
+
+
+def dlrm_parity(dev: torch.device) -> dict:
+    """The reduced config and the published widths with 26 tables of 64
+    rows, the same weights on the card and on the CPU: logits (batch
+    ``DLRM_PARITY_BATCH``) within rtol 1e-5 and atol ``ZOO_PARITY_ATOL``,
+    and the losses of two Adam steps on one batch (the second after one
+    update) within the same. A control runs the card's products in TF32 and
+    must fall outside the logits' gate."""
+    from repro_torch import configs
+    from repro_torch.data.pipeline import criteo_stream
+    from repro_torch.models.convert import (dlrm_params_from_numpy,
+                                            dlrm_params_to_numpy)
+    from repro_torch.models.recsys import dlrm as D
+    from repro_torch.train import optimizer as optlib
+
+    spec = configs.get("dlrm-mlperf")
+    out = {}
+    for tag, cfg in (("reduced", spec.reduced()),
+                     ("widths", dataclasses.replace(
+                         spec.config(), table_sizes=(64,) * 26))):
+        tree, table = dlrm_params_to_numpy(*D.init_params(cfg, SEED))
+        batch = next(criteo_stream(cfg, DLRM_PARITY_BATCH, SEED))
+        res = {}
+        for where, tf32 in ((dev.type, False), ("cpu", False),
+                            (dev.type, True)):
+            if tf32 and dev.type != "cuda":
+                continue
+            dp, tb = dlrm_params_from_numpy(tree, table, where)
+            dx, ids, lb = (torch.from_numpy(x).to(where) for x in batch)
+            was = torch.backends.cuda.matmul.allow_tf32
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+            try:
+                with torch.no_grad():
+                    logits = D.dlrm_forward(dp, tb, dx, ids, cfg).cpu()
+                opt = optlib.adam(DLRM_LR)
+                state = (dp, tb, opt.init(dp), opt.init(tb),
+                         torch.zeros((), dtype=torch.int32, device=where))
+                step = D.make_train_step(cfg, opt)
+                losses = []
+                for _ in range(2):
+                    state, loss = step(state, dx, ids, lb)
+                    losses.append(float(loss))
+            finally:
+                torch.backends.cuda.matmul.allow_tf32 = was
+            res[where + "_tf32" * tf32] = (logits, losses)
+        want, want_l = res["cpu"]
+        got, got_l = res[dev.type]
+        err = float((got - want).abs().max())
+        loss_err = max(abs(a - b) for a, b in zip(got_l, want_l))
+        check(torch.allclose(got, want, rtol=1e-5, atol=ZOO_PARITY_ATOL),
+              f"[dlrm] {tag}: logits card vs CPU (max abs err {err})")
+        check(all(abs(a - b) <= ZOO_PARITY_ATOL + 1e-5 * abs(b)
+                  for a, b in zip(got_l, want_l)),
+              f"[dlrm] {tag}: Adam steps' losses card {got_l} vs CPU "
+              f"{want_l}")
+        out[tag] = dict(logits_max_abs_err=err, losses=got_l,
+                        cpu_losses=want_l, loss_max_abs_err=loss_err,
+                        largest_logit=float(want.abs().max()))
+        if "cuda_tf32" in res:
+            tf = res["cuda_tf32"][0]
+            out[tag]["tf32_logits_max_abs_err"] = float(
+                (tf - want).abs().max())
+            check(not torch.allclose(tf, want, rtol=1e-5,
+                                     atol=ZOO_PARITY_ATOL),
+                  f"[dlrm] {tag}: the TF32 control passes the gate (max abs "
+                  f"err {out[tag]['tf32_logits_max_abs_err']})")
+        log(f"[dlrm] parity {tag} (batch {DLRM_PARITY_BATCH}): "
+            f"{json.dumps(out[tag])} (rtol 1e-5, atol {ZOO_PARITY_ATOL:g})")
+    return out
+
+
+def dlrm_phase(all_kernels: dict, device: str = "cuda", rows: int = DLRM_ROWS,
+               batch: int = DLRM_BATCH,
+               serve_batches: tuple = DLRM_SERVE_BATCHES,
+               candidates: int = DLRM_CANDIDATES) -> dict:
+    """[dlrm]: DLRM at the MLPerf widths, tables capped at ``rows``, in one
+    process. (a) a batch's id plan (the table gradient's CSR), host ms;
+    (b) step 1's gradient: launches exact, the descent gate
+    (``DLRM_DESCENT``), and its SpMM call, recorded, bit-equal to the plain
+    version and to itself on a second call, timed beside its bound,
+    ``torch.sparse.mm`` and ``index_add_``; (c) ``DLRM_STEPS`` Adam steps
+    through ``launch.train.train_dlrm`` on ``criteo_stream`` and the
+    ``Prefetcher`` (finite losses, exact launches every step, step ms,
+    samples/s, peak GB) and (d) one profiled step; (e) ``make_serve_step``
+    at ``serve_batches`` and (f) ``make_retrieval_step`` over
+    ``candidates`` distinct field-0 candidates, its top ``DLRM_TOP_K``
+    against a full sort of the same scores; (g) ``dlrm_parity``. On the
+    CPU (a dry run at small sizes) no kernel launches and nothing is timed
+    on the device."""
+    import argparse
+    import io
+
+    from repro_torch import configs
+    from repro_torch.data.pipeline import criteo_stream
+    from repro_torch.dist.runtime import resolve_device
+    from repro_torch.kernels.spmm import ops as sops
+    from repro_torch.kernels.spmm import ref as sref
+    from repro_torch.launch.train import train_dlrm
+    from repro_torch.models.recsys import dlrm as D
+    from repro_torch.train import optimizer as optlib
+
+    dev = resolve_device(device)
+    on_card = dev.type == "cuda"
+    t_phase = time.perf_counter()
+    cfg = D.capped(configs.get("dlrm-mlperf").config(), rows)
+
+    def counts():
+        return {name: meta["k"].launches for name, meta in all_kernels.items()}
+
+    def zero():
+        for meta in all_kernels.values():
+            meta["k"].launches = 0
+
+    def want(path, bits=None):
+        w = _dlrm_launches(all_kernels, path, bits)
+        return w if on_card else {k: 0 for k in w}
+
+    def to_dev(*xs):
+        return tuple(torch.from_numpy(x).to(dev) for x in xs)
+
+    out = dict(rows=cfg.total_rows, table_gb=cfg.total_rows * 512 / 1e9,
+               batch=batch, launches={},
+               allocated_before_gb=torch.cuda.memory_allocated() / 1e9
+               if on_card else None)
+    log(f"[dlrm] ({out['allocated_before_gb']} GB allocated before the "
+        f"phase) dlrm-mlperf, tables capped at {rows} rows: "
+        f"{cfg.total_rows} rows x {cfg.embed_dim} ({out['table_gb']:.2f} GB "
+        f"float32, x4 with the gradient and Adam's moments), bottom MLP "
+        f"{[cfg.n_dense, *cfg.bot_mlp]}, top {[cfg.interaction_dim, *cfg.top_mlp]}"
+        f", batch {batch} ({batch * cfg.total_ids_per_sample} ids)")
+
+    # (a) the id plan of one batch, built on the host
+    host = next(criteo_stream(cfg, batch, SEED))
+    ms = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        plan = D.id_plan(host[1])
+        ms.append((time.perf_counter() - t0) * 1e3)
+    deg = np.diff(plan.csr.row_ptr.numpy())
+    out["id_plan"] = dict(host_ms=float(np.median(ms)),
+                          unique_rows=int(plan.rows.numel()),
+                          ids=int(host[1].size), largest_row=int(deg.max()),
+                          id0_share=float(deg.max() / batch),
+                          split_rows=int(plan.csr.long_rows.numel()),
+                          partials=plan.csr.n_partials)
+    log(f"[dlrm] (a) id plan of one batch (host, median of 5): "
+        f"{json.dumps(out['id_plan'])}")
+
+    # (b) step 1's gradient with the kernels; descent; its SpMM call
+    dp, tb = D.init_params(cfg, SEED, dev)
+    dense, ids, label = to_dev(*host)
+    dplan = plan.to(dev)
+    calls = []
+    zero()
+    with recording(D, "spmm", calls):
+        loss_k, gd, gt = D.loss_and_grads(dp, tb, dense, ids, label, cfg,
+                                          plan=dplan)
+    _dlrm_sync(dev)
+    check(counts() == want("train"), f"[dlrm] step 1's gradient launched "
+          f"{counts()}, expected {want('train')}")
+    touched = dplan.rows
+    check(int(torch.count_nonzero(gt)) <= touched.numel() * cfg.embed_dim,
+          "[dlrm] the table's gradient is zero outside the touched rows")
+    gsq = sum(float(g.double().square().sum())
+              for g in optlib.tree_leaves(gd))
+    gsq += float(gt[touched].double().square().sum())
+    eta = DLRM_DESCENT * float(loss_k) / gsq
+    saved = tb[touched].clone()
+    tb[touched] -= eta * gt[touched]
+    stepped = optlib.tree_map(lambda p_, g_: p_ - eta * g_, dp, gd)
+    with torch.no_grad():
+        loss_s = float(D.bce_loss(D.dlrm_forward(stepped, tb, dense, ids,
+                                                 cfg), label))
+    tb[touched] = saved
+    descent = dict(loss=float(loss_k), sgd_lr=eta, predicted_drop=eta * gsq,
+                   drop=float(loss_k) - loss_s)
+    check(descent["drop"] >= 0.5 * descent["predicted_drop"],
+          f"[dlrm] a step of {eta:.3g} along step 1's gradient lowers the "
+          f"loss by at least half the first-order prediction ({descent})")
+    out["descent"] = descent
+    log(f"[dlrm] (b) step 1's gradient: {json.dumps(descent)}")
+    del gd, gt, stepped, saved, dp, tb
+    g, csr = calls[0][:2]
+    del calls
+    d = g.shape[1]
+    n_rows, nnz = csr.n_rows, csr.nnz
+    sb, so = bound(g.numel() * 4 + (n_rows + 1) * 4 + nnz * 8
+                   + n_rows * d * 4, 2 * nnz * d)
+    spmm = dict(shape=[n_rows, csr.n_cols, d, nnz],
+                split_rows=int(csr.long_rows.numel()),
+                partials=csr.n_partials, bound_ms=sb, bound_by=so)
+    if on_card:
+        out_k = sops.spmm(g, csr)
+        err = float((out_k - sref.spmm_ref(g, csr)).abs().max())
+        check(same_bits(out_k, sref.spmm_ref(g, csr)),
+              f"[dlrm] the step's spmm_csr call: bit-equal to the plain "
+              f"version (max abs err {err})")
+        check(same_bits(out_k, sops.spmm(g, csr)),
+              "[dlrm] the step's spmm_csr call: same bits on a second call")
+        with warnings.catch_warnings():   # sparse CSR is "beta" in PyTorch
+            warnings.simplefilter("ignore")
+            sparse = torch.sparse_csr_tensor(csr.row_ptr, csr.col, csr.w,
+                                             size=(n_rows, csr.n_cols))
+        inv = torch.empty(csr.n_cols, dtype=torch.int64, device=dev)
+        inv[csr.col.long()] = torch.repeat_interleave(
+            torch.arange(n_rows, device=dev),
+            torch.diff(csr.row_ptr).long())
+        spmm.update(
+            max_abs_err=err, bit_equal=True,
+            ms=cuda_ms(lambda: sops.spmm(g, csr)),
+            plain_ms=cuda_ms(lambda: sref.spmm_ref(g, csr), iters=2,
+                             warmup=1),
+            library_ms=cuda_ms(lambda: torch.sparse.mm(sparse, g)),
+            library="torch.sparse.mm",
+            index_add_ms=cuda_ms(lambda: torch.zeros(
+                (n_rows, d), device=dev).index_add_(0, inv, g)))
+        del out_k, sparse, inv
+    out["spmm"] = spmm
+    log(f"[dlrm] (b) the step's spmm_csr call (the table's gradient over "
+        f"the transposed id CSR): {json.dumps(spmm)}")
+    del g, csr, dense, ids, label
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # (c) training through the launcher's loop
+    args = argparse.Namespace(arch="dlrm-mlperf", reduced=False,
+                              max_ind_range=rows, batch=batch,
+                              steps=DLRM_STEPS, lr=DLRM_LR, seed=SEED,
+                              log_every=1, device=str(dev))
+    step_ms, step_launches = [], []
+    zero()
+    prev = [counts(), time.perf_counter()]
+
+    def on_step(i, loss):
+        float(loss)
+        now, c = time.perf_counter(), counts()
+        step_ms.append((now - prev[1]) * 1e3)
+        step_launches.append({k: c[k] - prev[0][k] for k in c})
+        prev[:] = [c, now]
+
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        losses = train_dlrm(args, on_step)
+    train_s = time.perf_counter() - t0
+    for line in printed.getvalue().splitlines():
+        log(f"[dlrm] (c) {line}")
+    peak = torch.cuda.max_memory_allocated() / 1e9 if on_card else None
+    check(len(losses) == DLRM_STEPS and all(np.isfinite(losses)),
+          f"[dlrm] {DLRM_STEPS} finite losses ({losses})")
+    for i, got in enumerate(step_launches):
+        check(got == want("train"), f"[dlrm] step {i + 1} launched {got}, "
+              f"expected {want('train')}")
+    med = float(np.median(step_ms[DLRM_TIMED:]))
+    out["train"] = dict(
+        losses=losses, step_ms=step_ms, median_step_ms=med,
+        samples_per_s=batch / med * 1e3, peak_gb=peak, seconds=train_s,
+        step1_equals_gradient_run=losses[0] == descent["loss"])
+    out["launches"]["dlrm_train_step"] = step_launches[-1]
+    log(f"[dlrm] (c) {DLRM_STEPS} Adam {DLRM_LR} steps through train_dlrm: "
+        f"{json.dumps(out['train'])} (step ms: host clock ending in "
+        f"float(loss), median of steps {DLRM_TIMED + 1}..{DLRM_STEPS})")
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # (d) one profiled step, split by group
+    dp, tb = D.init_params(cfg, SEED, dev)
+    opt = optlib.adam(DLRM_LR)
+    state = (dp, tb, opt.init(dp), opt.init(tb),
+             torch.zeros((), dtype=torch.int32, device=dev))
+    step = D.make_train_step(cfg, opt)
+    dense, ids, label = to_dev(*host)
+    state, _ = step(state, dense, ids, label, None, dplan)
+    if on_card:
+        marks = {"dlrm_gather": None, "dlrm_table_adam": None}
+        with marked(D, "embedding_bag", "dlrm_gather"), \
+                marked(D, "_update_table", "dlrm_table_adam"):
+            (state, _), wall, busy, groups, _ = profile_device(
+                lambda: step(state, dense, ids, label, None, dplan),
+                f"dlrm: one training step (batch {batch})", marks)
+        split = dict(host_ms=wall, device_busy_ms=busy, busy_share=busy / wall,
+                     cublas_ms=groups["gemm"], spmm_ms=groups["spmm"],
+                     table_adam_ms=marks["dlrm_table_adam"]["fwd_ms"],
+                     gather_ms=marks["dlrm_gather"]["fwd_ms"],
+                     table_grad_ms=marks["dlrm_gather"]["bwd_ms"])
+        split["table_grad_rest_ms"] = split["table_grad_ms"] - split["spmm_ms"]
+        split["rest_ms"] = busy - split["cublas_ms"] - split["table_adam_ms"] \
+            - split["gather_ms"] - split["table_grad_ms"]
+        out["profile"] = split
+        log(f"[dlrm] (d) one profiled step: {json.dumps(split)} (gather: the "
+            f"table's index_select; table_grad: its backward, the SpMM, the "
+            f"zero gradient and the rows' index_copy_)")
+    dp, tb = state[0], state[1]
+    del state, opt, step, dense, ids, label, dplan
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # (e) serving
+    serve = D.make_serve_step(cfg)
+    out["serve"] = {}
+    for b in serve_batches:
+        dx, fid, _ = to_dev(*next(criteo_stream(cfg, b, SEED + 1)))
+        zero()
+        ctr = serve(dp, tb, dx, fid)
+        _dlrm_sync(dev)
+        check(counts() == want("serve"), f"[dlrm] serve {b} launched "
+              f"{counts()}")
+        ms = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            ctr = serve(dp, tb, dx, fid)
+            _dlrm_sync(dev)
+            ms.append((time.perf_counter() - t0) * 1e3)
+        check(ctr.shape == (b,) and bool(torch.isfinite(ctr).all())
+              and bool(((ctr >= 0) & (ctr <= 1)).all()),
+              f"[dlrm] serve {b}: CTR of shape ({b},) in [0, 1]")
+        out["serve"][b] = dict(median_ms=float(np.median(ms)),
+                               mean_ctr=float(ctr.mean()))
+    out["launches"]["dlrm_serve"] = counts()
+    log(f"[dlrm] (e) make_serve_step, median ms of 5 (host clock ending in "
+        f"a sync): {json.dumps(out['serve'])}")
+
+    # (f) retrieval over distinct field-0 candidates
+    offs = cfg.row_offsets
+    n0 = int(offs[1] - offs[0])
+    cand = torch.from_numpy(np.random.default_rng(SEED).permutation(n0)[
+        :candidates].astype(np.int32) + int(offs[0])).to(dev)
+    qx, qid, _ = to_dev(*next(criteo_stream(cfg, 1, SEED + 2)))
+    ret = D.make_retrieval_step(cfg, None, top_k=DLRM_TOP_K)
+    zero()
+    v, got = ret(dp, tb, qx, qid, cand)
+    _dlrm_sync(dev)
+    check(counts() == want("retrieval"), f"[dlrm] retrieval launched "
+          f"{counts()}")
+    out["launches"]["dlrm_retrieval"] = counts()
+    ms = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        v, got = ret(dp, tb, qx, qid, cand)
+        _dlrm_sync(dev)
+        ms.append((time.perf_counter() - t0) * 1e3)
+    with torch.no_grad():
+        scores = D.retrieval_scores(dp, tb, qx, qid, cand, cfg)
+    full, order = torch.sort(scores, descending=True, stable=True)
+    k = DLRM_TOP_K
+    check(bool((v[1:] <= v[:-1]).all()), "[dlrm] retrieval values sorted")
+    check(same_bits(v, full[:k]), "[dlrm] retrieval values == the top "
+          f"{k} of a full sort of the same scores")
+    strict = full[:k] > full[k]                # ties at the cut may swap
+    check(set(got[strict].tolist()) == set(cand[order[:k]][strict].tolist())
+          and bool(((got >= offs[0]) & (got < offs[1])).all()),
+          "[dlrm] retrieval ids == the full sort's, in field 0's range")
+    out["retrieval"] = dict(candidates=candidates, top_k=k,
+                            median_ms=float(np.median(ms)),
+                            ties_at_cut=int(k - int(strict.sum())))
+    log(f"[dlrm] (f) make_retrieval_step, 1 query x {candidates} distinct "
+        f"field-0 candidates, top {k} (median ms of 5, host clock ending in "
+        f"a sync; values and ids == a full sort's): "
+        f"{json.dumps(out['retrieval'])}")
+    del dp, tb, scores, full, order, cand, v, got
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # (g) card against the CPU
+    out["parity"] = dlrm_parity(dev)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[dlrm] phase done in {out['seconds']:.1f} s")
+    return out
+
+
+@contextlib.contextmanager
+def timed_collectives(events: list, dev: torch.device):
+    """Every ``torch.distributed`` collective DLRM's step calls (all-gather,
+    all-to-all, all-reduce) appended to ``events``: the op, the sent
+    tensor's dtype, shape and bytes, and its ms on the host clock between
+    two syncs. Restored on exit."""
+    import torch.distributed as dist
+    sent = {"all_gather": 1, "all_to_all_single": 1, "all_reduce": 0}
+    real = {name: getattr(dist, name) for name in sent}
+
+    def wrap(name):
+        def fn(*a, **k):
+            t = a[sent[name]]
+            _dlrm_sync(dev)
+            t0 = time.perf_counter()
+            res = real[name](*a, **k)
+            _dlrm_sync(dev)
+            events.append(dict(op=name,
+                               dtype=str(t.dtype).removeprefix("torch."),
+                               shape=list(t.shape),
+                               bytes=t.numel() * t.element_size(),
+                               ms=(time.perf_counter() - t0) * 1e3))
+            return res
+        return fn
+    for name in sent:
+        setattr(dist, name, wrap(name))
+    try:
+        yield
+    finally:
+        for name, fn in real.items():
+            setattr(dist, name, fn)
+
+
+def _dlrm_sharded_cfg(rows: int, bits=None):
+    from repro_torch import configs
+    from repro_torch.models.recsys import dlrm as D
+    return dataclasses.replace(
+        D.capped(configs.get("dlrm-mlperf").config(), rows),
+        quantize_collective_bits=None if bits == 32 else bits)
+
+
+def _dlrm_slice(cfg, r: int, dev: torch.device) -> torch.Tensor:
+    """Rank ``r``'s rows of the table, from its own seeded generator."""
+    from repro_torch.models.recsys import dlrm as D
+    return D.init_table(cfg, SHARDED_PARTS, torch.Generator(dev).manual_seed(
+        DLRM_SLICE_SEED + r), shard=True)
+
+
+def dlrm_sharded_single(dev: torch.device, rows: int, batch: int) -> dict:
+    """The single-process run [dlrm-sharded] is held to: the concatenation
+    of the four slices, ``DLRM_SHARDED_STEPS`` Adam steps at 32 bits.
+    Returns its losses, step 1's table gradient over the rows that step
+    touched, the rows any step touched and their final values."""
+    from repro_torch.data.pipeline import criteo_stream
+    from repro_torch.models.recsys import dlrm as D
+    from repro_torch.train import optimizer as optlib
+
+    cfg = _dlrm_sharded_cfg(rows)
+    dp = D.init_dense_params(cfg, torch.Generator().manual_seed(SEED), dev)
+    tb = torch.cat([_dlrm_slice(cfg, r, dev) for r in range(SHARDED_PARTS)])
+    opt = optlib.adam(DLRM_LR)
+    state = (dp, tb, opt.init(dp), opt.init(tb),
+             torch.zeros((), dtype=torch.int32, device=dev))
+    step = D.make_train_step(cfg, opt)
+    losses, ids_seen, grad = [], [], None
+    for dx, ids, lb in criteo_stream(cfg, batch, SEED,
+                                     n_batches=DLRM_SHARDED_STEPS):
+        args = tuple(torch.from_numpy(x).to(dev) for x in (dx, ids, lb))
+        plan = D.id_plan(ids).to(dev)
+        if grad is None:
+            gt = D.loss_and_grads(dp, tb, *args, cfg, plan=plan)[2]
+            grad = dict(rows=plan.rows.cpu().numpy(),
+                        values=gt[plan.rows].cpu().numpy())
+            del gt
+        state, loss = step(state, *args, None, plan)
+        losses.append(float(loss))
+        ids_seen.append(ids)
+    touched = np.unique(np.concatenate(ids_seen)).astype(np.int64)
+    return dict(losses=losses, touched=touched, total_rows=cfg.total_rows,
+                grad=grad, rows=state[1][torch.from_numpy(touched).to(dev)]
+                .cpu().numpy())
+
+
+def dlrm_sharded_rank(device: str, single: dict, rows: int,
+                      batch: int) -> list:
+    """One rank of [dlrm-sharded], inside ``dist.spawn``: its slice of the
+    table, its quarter of each global batch, ``DLRM_SHARDED_STEPS`` Adam
+    steps at each of ``DLRM_SHARDED_BITS``. Raises on a failed check of its
+    own; returns every rank's results."""
+    import torch.distributed as dist
+
+    from repro_torch.data.pipeline import criteo_stream
+    from repro_torch.dist.runtime import Runtime
+    from repro_torch.kernels.quant import ops as qops
+    from repro_torch.kernels.quant import ref as qref
+    from repro_torch.models.recsys import dlrm as D
+    from repro_torch.train import optimizer as optlib
+
+    all_kernels = kernel_table()
+    rt = Runtime.sharded(SHARDED_PARTS, device=device)
+    r, dev, be = rt.rank, rt.device, rt.backend
+    on_card = dev.type == "cuda"
+    b_local = batch // SHARDED_PARTS
+    out = dict(rank=r, device=str(dev))
+
+    def counts():
+        return {name: meta["k"].launches for name, meta in all_kernels.items()}
+
+    for bits in DLRM_SHARDED_BITS:
+        cfg = _dlrm_sharded_cfg(rows, bits)
+        dp = D.init_dense_params(cfg, torch.Generator().manual_seed(SEED),
+                                 dev)
+        tb = _dlrm_slice(cfg, r, dev)
+        rpd = tb.shape[0]
+        opt = optlib.adam(DLRM_LR)
+        state = (dp, tb, opt.init(dp), opt.init(tb),
+                 torch.zeros((), dtype=torch.int32, device=dev))
+        step = D.make_train_step(cfg, opt, be)
+        want = _dlrm_launches(all_kernels, "train_sharded", bits)
+        if not on_card:
+            want = {k: 0 for k in want}
+        run = dict(losses=[], step_ms=[], launches=[])
+        qcalls, dcalls = [], []
+        for i, (dx, ids, lb) in enumerate(criteo_stream(
+                cfg, batch, SEED, n_batches=DLRM_SHARDED_STEPS)):
+            sl = slice(r * b_local, (r + 1) * b_local)
+            dx, ids, lb = (torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+                           for x in (dx[sl], ids.reshape(batch, -1)[sl]
+                                     .reshape(-1), lb[sl]))
+            if bits == 32 and i == 0:
+                # step 1's table gradient, this rank's rows
+                gt = D.loss_and_grads(dp, tb, dx, ids, lb, cfg, be)[2]
+                g = single["grad"]
+                mine = (g["rows"] >= r * rpd) & (g["rows"] < (r + 1) * rpd)
+                got_g = gt[torch.from_numpy(g["rows"][mine] - r * rpd)
+                           .to(dev)].cpu().numpy()
+                err = float(np.abs(got_g - g["values"][mine]).max())
+                top = float(np.abs(g["values"]).max())
+                run["grad_rows"] = int(mine.sum())
+                run["grad_max_abs_err_over_largest"] = err / top
+                check(err <= DLRM_SHARDED_RTOL * top,
+                      f"[dlrm-sharded] rank {r}: step 1's table gradient on "
+                      f"its {int(mine.sum())} rows within "
+                      f"{DLRM_SHARDED_RTOL} x the largest of the single "
+                      f"process's (max abs err {err}, largest {top})")
+                del gt
+            events = []
+            last = i == DLRM_SHARDED_STEPS - 1
+            with contextlib.ExitStack() as stack:
+                if last:
+                    stack.enter_context(timed_collectives(events, dev))
+                    stack.enter_context(recording(
+                        qops, "quantize_pack_rows", qcalls))
+                    stack.enter_context(recording(
+                        qops, "dequantize_rows", dcalls))
+                for meta in all_kernels.values():
+                    meta["k"].launches = 0
+                _dlrm_sync(dev)
+                t0 = time.perf_counter()
+                state, loss = step(state, dx, ids, lb,
+                                   D.step_generator(SEED, i, dev))
+                run["losses"].append(float(loss))
+                run["step_ms"].append((time.perf_counter() - t0) * 1e3)
+            got = counts()
+            check(got == want, f"[dlrm-sharded] rank {r} {bits} bits step "
+                  f"{i + 1} launched {got}, expected {want}")
+            run["launches"].append(got)
+        run["collectives"] = events
+        check(all(np.isfinite(run["losses"])), f"[dlrm-sharded] rank {r} "
+              f"{bits} bits: finite losses {run['losses']}")
+        if on_card:
+            for h, u, b, sd in qcalls:
+                kern = qops.quantize_pack_rows(h, u, b, sd)
+                plain = qref.quantize_pack_ref(h, u, b)
+                plain = (plain[0], plain[1].to(sd), plain[2].to(sd))
+                check(all(same_bits(a, c) for a, c in zip(kern, plain)),
+                      f"[dlrm-sharded] rank {r} {bits} bits: the step's "
+                      f"quantize call {tuple(h.shape)} bit-equal to the "
+                      f"plain version")
+            for pk, s_, z_, b, d in dcalls:
+                check(same_bits(qops.dequantize_rows(pk, s_, z_, b, d),
+                                qref.unpack_dequantize_ref(
+                                    pk, s_.float(), z_.float(), b, d)),
+                      f"[dlrm-sharded] rank {r} {bits} bits: the step's "
+                      f"dequantize call {tuple(pk.shape)} bit-equal to the "
+                      f"plain version")
+        run["quantize_calls_checked"] = len(qcalls) if on_card else 0
+        run["dequantize_calls_checked"] = len(dcalls) if on_card else 0
+        del qcalls, dcalls
+        if bits == 32:
+            lo = r * rpd
+            mine = (single["touched"] >= lo) & (single["touched"] < lo + rpd)
+            local = torch.from_numpy(single["touched"][mine] - lo).to(dev)
+            got_rows = state[1][local].cpu().numpy()
+            want_rows = single["rows"][mine]
+            diff = np.abs(got_rows - want_rows)
+            run["touched_rows"] = int(mine.sum())
+            run["rows_max_abs_diff"] = float(diff.max()) if diff.size else 0.0
+            run["elements_apart"] = int((~np.isclose(
+                got_rows, want_rows, rtol=DLRM_SHARDED_RTOL,
+                atol=DLRM_SHARDED_ATOL)).sum())
+            run["elements"] = int(diff.size)
+            check(run["rows_max_abs_diff"]
+                  <= 2 * DLRM_LR * DLRM_SHARDED_STEPS,
+                  f"[dlrm-sharded] rank {r}: its {int(mine.sum())} touched "
+                  f"rows within {2 * DLRM_LR} a step of the single process's "
+                  f"(largest difference {run['rows_max_abs_diff']})")
+            check(np.allclose(run["losses"], single["losses"],
+                              rtol=DLRM_SHARDED_RTOL, atol=0),
+                  f"[dlrm-sharded] rank {r}: 32-bit losses {run['losses']} "
+                  f"vs the single process's {single['losses']}")
+        out[bits] = run
+        del state, dp, tb, opt, step
+        if on_card:
+            torch.cuda.empty_cache()
+    every = [None] * SHARDED_PARTS
+    dist.all_gather_object(every, out)
+    return every
+
+
+def dlrm_sharded_phase(card_line: str, device: str = "cuda:0",
+                       rows: int = DLRM_SHARDED_ROWS,
+                       batch: int = DLRM_SHARDED_BATCH) -> dict:
+    """[dlrm-sharded]: DLRM under ``Runtime.sharded``, four ranks on
+    ``device`` over ``gloo``, tables capped at ``rows`` and a global batch of
+    ``batch``, spawned as [sharded] spawns them. The single process on the
+    concatenated table runs first, here; the ranks hold their 32-bit run to
+    it (losses, touched rows) and check their launches and, at 1 bit, the
+    step's quantize and dequantize calls against the plain versions."""
+    from repro_torch.dist.runtime import resolve_device
+    from repro_torch.dist.spawn import spawn
+
+    t0 = time.perf_counter()
+    dev = resolve_device(device)
+    single = dlrm_sharded_single(dev, rows, batch)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    log(f"[dlrm-sharded] single process on the four slices concatenated "
+        f"({single['total_rows']} rows, global batch {batch}): losses "
+        f"{single['losses']}, {single['touched'].size} rows touched")
+    ranks = spawn(dlrm_sharded_rank, SHARDED_PARTS, device=device,
+                  dist_backend="gloo", args=(device, single, rows, batch),
+                  timeout=600)
+    label = f"{SHARDED_LABEL}; {card_line}"
+    out: dict = dict(launches={}, label=label, single_losses=single["losses"])
+    for bits in DLRM_SHARDED_BITS:
+        runs = [x[bits] for x in ranks]
+        check(all(x["losses"] == runs[0]["losses"] for x in runs),
+              f"[dlrm-sharded] {bits} bits: every rank's losses are the same")
+        res = dict(losses=runs[0]["losses"],
+                   step_ms={x["rank"]: x[bits]["step_ms"] for x in ranks},
+                   quantize_calls_checked=sum(
+                       x["quantize_calls_checked"] for x in runs),
+                   dequantize_calls_checked=sum(
+                       x["dequantize_calls_checked"] for x in runs),
+                   collectives=[dict(e, ms=[x["collectives"][j]["ms"]
+                                            for x in runs])
+                                for j, e in enumerate(runs[0]["collectives"])])
+        if bits == 32:
+            res.update(
+                loss_max_rel_err=max(abs(a - b) / abs(b) for a, b in zip(
+                    runs[0]["losses"], single["losses"])),
+                grad_rows=[x["grad_rows"] for x in runs],
+                grad_max_abs_err_over_largest=max(
+                    x["grad_max_abs_err_over_largest"] for x in runs),
+                touched_rows=[x["touched_rows"] for x in runs],
+                rows_max_abs_diff=max(x["rows_max_abs_diff"] for x in runs),
+                elements_apart=sum(x["elements_apart"] for x in runs),
+                elements=sum(x["elements"] for x in runs))
+        out[bits] = res
+        out["launches"][f"dlrm_train_sharded_{bits}_step"] = \
+            runs[0]["launches"][-1]
+        log(f"[dlrm-sharded] {bits} bits, {DLRM_SHARDED_STEPS} Adam "
+            f"{DLRM_LR} steps on every rank: {json.dumps(res)} (launches "
+            f"exact on every rank; collectives of the last step in call "
+            f"order: the bytes of the tensor a rank sends, ms on the host "
+            f"clock between syncs per rank, {label})")
+    wire = {bits: sum(e["bytes"] for e in out[bits]["collectives"])
+            for bits in DLRM_SHARDED_BITS}
+    out["wire_bytes_per_step"] = wire
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[dlrm-sharded] bytes a rank sends a step, by bits: "
+        f"{json.dumps(wire)}; phase done in {out['seconds']:.1f} s")
+    return out
+
+
 def kernel_groups() -> tuple:
     """Every kernel of the port by name, in four groups (the serving path's,
     GAT's, the LM's, the zoo's): its ``Kernel`` (``k``, which counts
@@ -4620,6 +5392,10 @@ def main() -> int:
         errs[name] = max(errs[name], zoo["wide"]["kernels"][name])
     torch.cuda.empty_cache()
 
+    # -- 11a'. DLRM at the MLPerf widths, tables capped at 2^22 rows ----------
+    dl = dlrm_phase(all_kernels)
+    torch.cuda.empty_cache()
+
     # -- 11b. the serving front: serve_once, store, degraded mode, tracing -----
     # last: its host work (checkpoints written and restored, the store's
     # host tables) must not shift the host-clock times of the phases above
@@ -4636,6 +5412,10 @@ def main() -> int:
 
     # -- 11e. sharded-serve: serving under it, the front on rank 0 -------------
     ss = sharded_serve_phase(card_line)
+
+    # -- 11f. DLRM under the sharded runtime, its 1-bit embedding exchange ----
+    torch.cuda.empty_cache()
+    dls = dlrm_sharded_phase(card_line)
 
     sa = sh["analysis"]
     log(f"[analysis] {an['contracts'] + sa['contracts']} contracts run "
@@ -4671,6 +5451,8 @@ def main() -> int:
         **{path: n.get(name, 0) for path, n in sh["launches"].items()},
         **{path: n.get(name, 0) for path, n in ss["launches"].items()},
         **{path: n[name] for path, n in zoo["launches"].items()},
+        **{path: n[name] for path, n in dl["launches"].items()},
+        **{path: n[name] for path, n in dls["launches"].items()},
         lm_generate=lm["launches"][name],
         **{f"{arch}_generate": run["launches"][name]
            for arch, run in moe.items()},
@@ -4690,7 +5472,9 @@ def main() -> int:
             launches_per_path=per_path[name],
             **{k: s0[f"{key}_{k}"] for k in extra[name]},
             **({k: v for k, v in trk.items() if k.startswith(
-                ("transposed", "scatter"))} if key == "spmm" else {})))
+                ("transposed", "scatter"))} if key == "spmm" else {}),
+            **({f"dlrm_table_grad_{k}": v for k, v in dl["spmm"].items()}
+               if key == "spmm" else {})))
     # GAT's kernels: their launches in one GAT Sylvie-S step (their main
     # path), times on that step's tensors; the backward's variants beside
     gat_step = tr["launches"]["gat_train_sylvie_s_sync_step"]

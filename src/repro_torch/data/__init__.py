@@ -1,7 +1,6 @@
-"""Host-side data pipeline of the port: synthetic LM token batches and a
-background prefetcher that keeps batches ready on the device
-(``repro/data/pipeline.py``). ``criteo_stream`` waits for DLRM (ROADMAP
-queue A, item 15)."""
-from .pipeline import Prefetcher, token_stream
+"""Host-side data pipeline of the port: synthetic LM token batches, the
+synthetic Criteo stream of DLRM, and a background prefetcher that keeps
+batches ready on the device (``repro/data/pipeline.py``)."""
+from .pipeline import Prefetcher, criteo_stream, token_stream
 
-__all__ = ["Prefetcher", "token_stream"]
+__all__ = ["Prefetcher", "criteo_stream", "token_stream"]

@@ -1,5 +1,5 @@
-"""Host-side data pipeline: background prefetch and the synthetic token
-stream, as ``repro/data/pipeline.py``.
+"""Host-side data pipeline: background prefetch, the synthetic token stream
+and the synthetic Criteo stream, as ``repro/data/pipeline.py``.
 
 ``Prefetcher`` overlaps host batch construction with device compute: a
 background thread pulls host batches (numpy arrays, or tuples, lists and
@@ -14,6 +14,7 @@ finished is delivered in order, then its error is raised once, then
 """
 from __future__ import annotations
 
+import dataclasses
 import queue
 import threading
 from typing import Iterator, Optional
@@ -25,13 +26,19 @@ from ..dist.runtime import resolve_device
 
 
 def to_device(batch, device: torch.device):
-    """``batch`` with every numpy array a tensor on ``device`` (pinned and
-    copied without blocking on CUDA); other leaves pass through."""
+    """``batch`` with every numpy array a tensor on ``device`` and every
+    tensor moved there (pinned and copied without blocking on CUDA), also
+    inside dataclasses (DLRM's ``IdPlan``); other leaves pass through."""
     if isinstance(batch, np.ndarray):
-        t = torch.from_numpy(np.ascontiguousarray(batch))
-        if device.type == "cuda":
-            t = t.pin_memory().to(device, non_blocking=True)
-        return t
+        batch = torch.from_numpy(np.ascontiguousarray(batch))
+    if torch.is_tensor(batch):
+        if device.type == "cuda" and batch.device.type == "cpu":
+            batch = batch.pin_memory().to(device, non_blocking=True)
+        return batch.to(device)
+    if dataclasses.is_dataclass(batch) and not isinstance(batch, type):
+        return dataclasses.replace(batch, **{
+            f.name: to_device(getattr(batch, f.name), device)
+            for f in dataclasses.fields(batch)})
     if isinstance(batch, (tuple, list)):
         return type(batch)(to_device(b, device) for b in batch)
     if isinstance(batch, dict):
@@ -98,4 +105,30 @@ def token_stream(vocab: int, batch: int, seq: int, seed: int = 0,
         base = rng.integers(0, vocab, (batch, seq + 1), dtype=np.int32)
         base[:, 2::2] = base[:, 1:-1:2]
         yield base[:, :-1], base[:, 1:]
+        i += 1
+
+
+def criteo_stream(cfg, batch: int, seed: int = 0,
+                  n_batches: Optional[int] = None):
+    """Synthetic Criteo-like batches for DLRM: ``(dense, flat_ids, label)``
+    with dense (batch, n_dense) float32 normals, flat ids (batch *
+    total_ids,) int32 drawn per field as ``pareto(1.5) % size`` (numpy's
+    Lomax: id 0 of every table takes ~64.6% of the draws) plus the field's
+    row offset, and labels from a hidden linear model of the dense
+    features, so that training converges. The reference's arrays for the
+    same arguments."""
+    rng = np.random.default_rng(seed)
+    offs = cfg.row_offsets
+    w = rng.normal(0, 1, cfg.n_dense)
+    i = 0
+    while n_batches is None or i < n_batches:
+        dense = rng.normal(0, 1, (batch, cfg.n_dense)).astype(np.float32)
+        ids = []
+        for f, h in enumerate(cfg.hots):
+            size = int(offs[f + 1] - offs[f])
+            r = rng.pareto(1.5, (batch, h)).astype(np.int64) % size
+            ids.append(offs[f] + r)
+        flat = np.concatenate(ids, axis=1).reshape(-1).astype(np.int32)
+        label = (dense @ w + rng.normal(0, 0.5, batch) > 0).astype(np.float32)
+        yield dense, flat, label
         i += 1

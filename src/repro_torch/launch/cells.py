@@ -1,11 +1,10 @@
-"""The analytic FLOPs of the port's GNN models, as
-``repro.launch.cells._gnn_model_flops``: GCN, GraphSAGE, GAT, PNA,
-MeshGraphNet, SchNet and NequIP. The fan-out sampler's cells and the rest
-of the reference's module wait for their models (ROADMAP item 15); its
-dry-run cells (meshes, lowering) have no counterpart here."""
+"""The analytic FLOPs of the port's models, as ``repro.launch.cells``:
+``_gnn_model_flops`` (GCN, GraphSAGE, GAT, PNA, MeshGraphNet, SchNet,
+NequIP, and the reference's generic estimate for any other name) and
+``_dlrm_model_flops``. The fan-out sampler's cells wait for the sampler
+(ROADMAP queue A, item 15.3); the dry-run cells (meshes, lowering) have no
+counterpart here."""
 from __future__ import annotations
-
-NOT_PORTED = "not ported yet (ROADMAP queue A, item 15: DLRM)"
 
 
 def _gnn_model_flops(arch_name: str, model, n: int, e: int, d_in: int,
@@ -52,5 +51,21 @@ def _gnn_model_flops(arch_name: str, model, n: int, e: int, d_in: int,
             f += e * tp + 2 * e * (model.n_rbf * mul + mul * n_paths * mul)
             f += 2 * n * 2 * mul * mul * (model.l_max + 1) ** 2
     else:
-        raise NotImplementedError(f"FLOPs of arch {arch_name!r}: {NOT_PORTED}")
+        f = 2 * e * 64 + 2 * n * d_in * 64
     return 3.0 * f if train else f
+
+
+def _dlrm_model_flops(cfg, cell) -> float:
+    """Analytic FLOPs of a DLRM cell (``cfg`` a ``DLRMConfig``, ``cell`` a
+    ``ShapeCell``): the MLPs and the dot interaction per sample, times the
+    batch (or the candidates), x3 for a training step."""
+    b = cell.params.get("n_candidates", cell.params["batch"])
+    dims = [cfg.n_dense, *cfg.bot_mlp]
+    f = sum(2 * dims[i] * dims[i + 1] for i in range(len(dims) - 1))
+    fpf = cfg.n_sparse + 1
+    f += 2 * fpf * fpf * cfg.embed_dim       # dot interaction
+    dims = [cfg.interaction_dim, *cfg.top_mlp]
+    f += sum(2 * dims[i] * dims[i + 1] for i in range(len(dims) - 1))
+    per_sample = f
+    mult = 3.0 if cell.step == "train" else 1.0
+    return mult * per_sample * b

@@ -1,7 +1,8 @@
 """End-to-end launcher of the port, as ``python -m repro.launch.train``:
 full-graph training of GCN / GraphSAGE / GAT and of PNA / MeshGraphNet /
 SchNet / NequIP with Sylvie's quantized halo exchange, LM training on the
-synthetic token stream, and batched LM serving (prefill + greedy decode).
+synthetic token stream, batched LM serving (prefill + greedy decode), and
+DLRM training on the synthetic Criteo stream.
 
     python -m repro_torch.launch.train --arch gcn --graph reddit_like@paper \\
         --parts 4 --mode async --bits 1 --eps-s 4 --epochs 20
@@ -25,6 +26,10 @@ synthetic token stream, and batched LM serving (prefill + greedy decode).
         --reduced --device cpu
     python -m repro_torch.launch.train --arch gemma2-27b --serve --reduced \\
         --device cpu
+    python -m repro_torch.launch.train --arch dlrm-mlperf \\
+        --max-ind-range 4194304 --batch 65536 --steps 100
+    python -m repro_torch.launch.train --arch dlrm-mlperf --reduced \\
+        --steps 3 --log-every 1 --device cpu
     python -m repro_torch.launch.train --scenario smoke [--obs]
 
 Without ``--device cpu`` they run on the CUDA card (and raise where there is
@@ -43,8 +48,14 @@ and serves; at their full configs deepseek-v2-236b, gemma2-27b and yi-34b
 do not fit one 80 GB card in float32 (to serve; with gradients and Adam's
 moments, neither does olmoe-1b-7b). MeshGraphNet, SchNet and NequIP read
 edge geometry, computed on the host after the self-loops are added (random
-positions from seed 0 where the graph has none). DLRM is not ported yet
-(ROADMAP queue A).
+positions from seed 0 where the graph has none). DLRM trains
+(``train_dlrm``, the reference's, whatever ``--serve`` says): Adam at
+``--lr`` for ``--steps`` batches of ``criteo_stream`` through the
+``Prefetcher``, whose worker also builds each batch's id CSR (the table
+gradient's plan). Its published tables (96 GB in float32) fit no card;
+``--max-ind-range N`` caps every table at N rows, as the upstream DLRM's
+flag of that name does (2^22 leaves 12.8 GB a copy, 51.3 GB with the
+gradient and Adam's moments).
 """
 from __future__ import annotations
 
@@ -59,8 +70,6 @@ from .. import configs as configlib
 from ..dist.runtime import resolve_device
 from ..models.lm import model as LM
 from ..models.lm.config import LMConfig
-
-NOT_PORTED = "not ported yet (ROADMAP queue A, item 15: DLRM)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -155,6 +164,43 @@ def train_lm(args) -> list:
     return losses
 
 
+def train_dlrm(args, on_step=None) -> list:
+    """The reference's ``train_dlrm``: dense parameters and the table from
+    ``args.seed``, Adam at ``args.lr``, ``args.steps`` batches of
+    ``criteo_stream`` through a ``Prefetcher`` (its worker builds each
+    batch's id plan), one noise generator a step from the seed and the
+    step index. Prints the step lines and the final loss as the reference
+    does; ``on_step(i, loss)`` is called after each step. Returns the
+    losses."""
+    from ..data.pipeline import Prefetcher, criteo_stream
+    from ..models.recsys import dlrm as D
+    from ..train import optimizer as optlib
+
+    dev = resolve_device(args.device)
+    spec = configlib.get(args.arch)
+    cfg = D.capped(spec.reduced() if args.reduced else spec.config(),
+                   args.max_ind_range)
+    opt = optlib.adam(args.lr)
+    dp, tb = D.init_params(cfg, args.seed, dev)
+    state = (dp, tb, opt.init(dp), opt.init(tb),
+             torch.zeros((), dtype=torch.int32, device=dev))
+    step = D.make_train_step(cfg, opt)
+    stream = Prefetcher(D.with_plans(criteo_stream(
+        cfg, args.batch, args.seed, n_batches=args.steps)), device=dev)
+    losses = []
+    for i, (dense, ids, label, plan) in enumerate(stream):
+        state, loss = step(state, dense, ids, label,
+                           D.step_generator(args.seed, i, dev), plan)
+        losses.append(loss)
+        if on_step is not None:
+            on_step(i, loss)
+        if (i + 1) % args.log_every == 0:
+            print(f"step {i + 1:5d} loss {float(loss):.4f}")
+    losses = [float(x) for x in losses]
+    print(f"final loss {losses[-1]:.4f}" if losses else "no steps")
+    return losses
+
+
 def build_policy(args):
     """CLI -> CommPolicy. ``--eps-s`` maps onto the BoundedStaleness policy;
     ``None`` leaves the ``Uniform`` policy of the config."""
@@ -233,8 +279,8 @@ def train_gnn(args):
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default=None,
-                    help=f"architecture id (required unless --scenario); "
-                         f"the port runs {sorted(configlib.REGISTRY)}")
+                    help=f"architecture id (required unless --scenario): "
+                         f"{sorted(configlib.REGISTRY)}")
     ap.add_argument("--reduced", action="store_true",
                     help="use the smoke-scale config (CPU-sized)")
     ap.add_argument("--serve", action="store_true",
@@ -284,13 +330,17 @@ def main(argv=None) -> None:
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--log-every", type=int, default=10)
-    # LM
+    # LM / DLRM
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--lr", type=float, default=1e-3)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--decode-tokens", type=int, default=32)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--max-ind-range", type=int, default=None,
+                    help="DLRM: cap every table at this many rows (ids are "
+                         "taken modulo the capped size); default: the "
+                         "published sizes")
     ap.add_argument("--device", default=None,
                     help="'cpu' for the plain PyTorch versions; default: the "
                          "CUDA card")
@@ -305,15 +355,13 @@ def main(argv=None) -> None:
         return
     if args.arch is None:
         ap.error("--arch is required (or pass --scenario)")
-    if args.arch not in configlib.REGISTRY:
-        raise SystemExit(f"--arch {args.arch}: {NOT_PORTED}; the port runs "
-                         f"{sorted(configlib.REGISTRY)}")
-    if configlib.get(args.arch).kind == "gnn":
+    kind = configlib.get(args.arch).kind
+    if kind == "gnn":
         train_gnn(args)
-    elif args.serve:
-        serve_lm(args)
+    elif kind == "lm":
+        serve_lm(args) if args.serve else train_lm(args)
     else:
-        train_lm(args)
+        train_dlrm(args)
 
 
 if __name__ == "__main__":

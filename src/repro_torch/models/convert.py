@@ -6,8 +6,10 @@ the GNN's in ``nn.Module``s whose parameter names follow the same path
 (``layer0.w``; GraphSAGE's ``layer0.self.w`` / ``layer0.nb.w``, GAT's
 ``layer0.w.w`` / ``layer0.a_src`` / ``out.b``; NequIP's ``layer0.w_self.0``
 for the JAX tree's integer key ``0``), and the LM's in a nested
-dict of tensors with the JAX tree's keys. These functions carry weights across, so both packages can run on the
-same numbers.
+dict of tensors with the JAX tree's keys, DLRM's as a dense dict
+(``{"bot": {"l0": {"w", "b"}, ...}, "top": ...}``) and its table. These
+functions carry weights across, so both packages can run on the same
+numbers.
 """
 from __future__ import annotations
 
@@ -92,3 +94,73 @@ def lm_params_to_numpy(params: dict) -> dict:
         return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
     return {k: lm_params_to_numpy(v) if isinstance(v, dict) else conv(v)
             for k, v in params.items()}
+
+
+def _check_keys(node, want, where: str) -> None:
+    """Raise ``KeyError`` unless ``node`` is a dict with exactly the keys
+    ``want`` (``where`` is its path, ending in ``/``)."""
+    have = node if isinstance(node, dict) else {}
+    for key in sorted(set(want) | set(have)):
+        if key not in have:
+            raise KeyError(f"parameter tree has no leaf {where + key!r}")
+        if key not in want:
+            raise KeyError(f"parameter tree has a leaf {where + key!r} that "
+                           f"DLRM does not have")
+
+
+def _mlp_widths(tree, name: str) -> list:
+    """The widths ``[d_in, d_1, ..., d_out]`` of the MLP tree ``tree``
+    (``{"l0": {"w", "b"}, ...}``); raises ``KeyError`` on a missing or
+    unexpected key and ``ValueError`` on a shape that breaks the chain."""
+    n = len(tree) if isinstance(tree, dict) else 0
+    _check_keys(tree, [f"l{i}" for i in range(max(n, 1))], f"{name}/")
+    widths: list = []
+    for i in range(n):
+        where = f"{name}/l{i}/"
+        _check_keys(tree[f"l{i}"], ("w", "b"), where)
+        w, b = (np.shape(tree[f"l{i}"][k]) for k in ("w", "b"))
+        if len(w) != 2 or (widths and w[0] != widths[-1]):
+            raise ValueError(f"parameter {where}w has shape {w}, expected "
+                             f"({widths[-1] if widths else 'd_in'}, d_out)")
+        if b != (w[1],):
+            raise ValueError(f"parameter {where}b has shape {b}, expected "
+                             f"{(w[1],)}")
+        widths = (widths or [w[0]]) + [w[1]]
+    return widths
+
+
+def dlrm_params_from_numpy(dense_tree: dict, table, device=None):
+    """The JAX DLRM's dense tree and table as numpy arrays -> the port's
+    ``(dense_params, table)`` on ``device``. Every key and shape is
+    checked: the tree holds exactly ``bot`` and ``top``, MLPs whose widths
+    chain; ``top`` ends in one logit and reads ``d + F (F - 1) / 2``
+    features for the table's width ``d`` (the bottom MLP's output) and
+    some ``F >= 2``. Raises ``KeyError`` on a missing or unexpected key and
+    ``ValueError`` on a shape mismatch."""
+    _check_keys(dense_tree, ("bot", "top"), "")
+    bot = _mlp_widths(dense_tree["bot"], "bot")
+    top = _mlp_widths(dense_tree["top"], "top")
+    d = bot[-1]
+    if np.ndim(table) != 2 or np.shape(table)[1] != d:
+        raise ValueError(f"table has shape {np.shape(table)}, expected "
+                         f"(rows, {d}) (the bottom MLP's width)")
+    pairs = top[0] - d
+    f = int(round((1 + (1 + 8 * max(pairs, 0)) ** 0.5) / 2))
+    if top[-1] != 1 or f < 2 or f * (f - 1) // 2 != pairs:
+        raise ValueError(f"the top MLP reads {top[0]} features and writes "
+                         f"{top[-1]}: expected {d} + F (F - 1) / 2 in and "
+                         f"1 out")
+
+    def conv(a):
+        return torch.from_numpy(np.array(a, dtype=np.float32)).to(device)
+    dense = {k: {lk: {leaf: conv(v) for leaf, v in layer.items()}
+                 for lk, layer in dense_tree[k].items()}
+             for k in ("bot", "top")}
+    return dense, conv(table)
+
+
+def dlrm_params_to_numpy(dense_params: dict, table: torch.Tensor):
+    """The port's DLRM parameters -> ``(dense tree, table)`` of numpy
+    arrays, as the JAX package keeps them."""
+    return lm_params_to_numpy(dense_params), \
+        table.detach().cpu().numpy()

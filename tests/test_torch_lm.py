@@ -302,7 +302,10 @@ def test_mla_without_a_query_lora_matches_jax():
 def test_registry_holds_only_ported_archs():
     gnns = ("gcn", "graphsage", "gat", "pna", "meshgraphnet", "schnet",
             "nequip")
-    assert sorted(configs.REGISTRY) == sorted(ARCHS + gnns)
+    # every architecture of the reference's registry is ported
+    assert sorted(configs.REGISTRY) == sorted(ARCHS + gnns
+                                              + ("dlrm-mlperf",))
+    assert sorted(configs.REGISTRY) == sorted(jconfigs.REGISTRY)
     assert len(ARCHS) == 5            # every LM of the JAX package
     for arch in ARCHS:
         for which in ("config", "reduced"):
@@ -319,8 +322,12 @@ def test_registry_holds_only_ported_archs():
             want = dataclasses.asdict(r)        # every field of the model
             assert {k: getattr(m, k) for k in want} == want
             assert m.comm_dims() == r.comm_dims()
-    with pytest.raises(KeyError, match="not ported yet"):
-        configs.get("dlrm-mlperf")
+    for which in ("config", "reduced"):
+        mine = getattr(configs.get("dlrm-mlperf"), which)()
+        ref = getattr(jconfigs.get("dlrm-mlperf"), which)()
+        assert dataclasses.asdict(mine) == dataclasses.asdict(ref)
+    with pytest.raises(KeyError, match="unknown arch"):
+        configs.get("nosuch")
 
 
 def test_lm_params_conversion_checks_every_key():
@@ -411,8 +418,12 @@ def test_entry_point_needs_a_card_unless_asked_for_the_cpu(monkeypatch,
     launch.main(argv + ["--device", "cpu"])
     out = capsys.readouterr().out
     assert "decoded 2x3 tokens" in out and "sample:" in out
-    with pytest.raises(SystemExit, match="not ported yet"):
+    # DLRM trains (it was refused before it was ported): on the card, so
+    # without one it raises; an unknown arch fails as the reference's does
+    with pytest.raises(RuntimeError, match="device='cpu'"):
         launch.main(["--arch", "dlrm-mlperf"])
+    with pytest.raises(KeyError, match="unknown arch"):
+        launch.main(["--arch", "nosuch"])
     # an LM without --serve trains (it was refused before it was ported):
     # on the card, so without one it raises
     with pytest.raises(RuntimeError, match="device='cpu'"):

@@ -368,5 +368,8 @@ def test_model_flops_equal_the_reference():
             want = jcells._gnn_model_flops("nequip", jmodel, 400, 3556, 16,
                                            train)
             assert got == want
-    with pytest.raises(NotImplementedError, match="DLRM"):
-        cells._gnn_model_flops("dlrm-mlperf", model, 1, 1, 1, False)
+    # a name it does not know: the reference's generic estimate
+    for train in (False, True):
+        assert cells._gnn_model_flops("nosuch", model, 400, 3556, 16,
+                                      train) == \
+            jcells._gnn_model_flops("nosuch", jmodel, 400, 3556, 16, train)

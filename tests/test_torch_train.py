@@ -377,8 +377,12 @@ def test_entry_points_need_a_card_unless_asked_for_the_cpu(
     assert sum(ln.startswith("epoch ") for ln in lines) == 3
     assert "[async]" in out and "test acc" in out
     assert ckpt.latest_step(tmp_path) == 3
-    with pytest.raises(SystemExit, match="not ported yet"):
+    # DLRM trains on the card, so without one it raises; an unknown arch
+    # fails as the reference's launcher does
+    with pytest.raises(RuntimeError, match="device='cpu'"):
         launch.main(["--arch", "dlrm-mlperf"])
+    with pytest.raises(KeyError, match="unknown arch"):
+        launch.main(["--arch", "nosuch"])
     # the overlap schedule trains (it was refused before it was ported)
     launch.main(["--arch", "gcn", "--reduced", "--graph", "yelp_like@smoke",
                  "--schedule", "overlap", "--epochs", "2", "--log-every",
