@@ -235,6 +235,38 @@ versions on the card; each collective's bytes and ms and each rank's step
 ms. ``python3 tools/torch_dlrm_phase.py [single] [sharded]`` runs the two
 alone.
 
+After [dlrm], [sampled] (``sampled_phase``): the ``minibatch_lg`` cell. A
+Reddit-sized stand-in (``SAMPLED_GRAPH``: ``powerlaw_community`` at
+reddit_like's 232,965 nodes, average degree 492, 602 features, 41 classes,
+seed 0; host seconds and peak RSS printed) and its ``NeighborSampler``;
+GraphSAGE 256x2 (``SAGE_SPEC``) on ``Runtime.simulated(4)``, Adam 1e-2,
+``SAMPLED_BATCHES`` batches of 1,024 seeds at fan-outs (15, 10) each of
+vanilla and Sylvie-S (1 bit, stochastic), through ``sampled_train``: the
+reference's Table-1 loop, the ``Prefetcher``'s worker doing the host half
+(sample, self-loops, partition, block). Every count zeroed before each run
+and read after it; gates: each subgraph within ``SamplerShapes``' bounds,
+every step's launches ``TRAIN_LAUNCHES[("graphsage", run, "sync")]``, one
+recorded Sylvie-S step's SpMM and Low-bit Module calls bit-equal to the
+plain versions (``recorded_kernels``), the first vanilla loss within
+``SAMPLED_PARITY_RTOL`` of the CPU's plain versions, finite losses,
+vanilla's last five below ``SAMPLED_DESCENT`` x its first. It reports the
+host ms a batch (sample, partition, block), the main thread's wait on the
+queue, the step's host and device ms, one profiled step's busy share, peak
+GB, the sampled sizes and the step's useful FLOPs over its device time.
+Then [cells] (``cells_phase``): the 40 cells of ``launch.cells`` built at
+4 devices, one line each; the card's allocated memory unchanged. Inside
+[sharded]'s spawn, (g) (``sharded_zoo_rank``, gated by
+``sharded_zoo_check``): PNA, MeshGraphNet, SchNet and NequIP at their full
+configs on ``ZOO_ARCHS``' graphs, ``ZOO_SHARDED_EPOCHS`` epochs of vanilla
+and Sylvie-A (1 bit, deterministic) with SGD at ``ZOO_ARCHS``' rate
+(MeshGraphNet with Adam: ``ZOO_SHARDED_ADAM``, gated on losses and bytes),
+trained by rank 0 on ``Runtime.simulated(4)`` first: losses rtol 1e-5 and
+parameters within 1e-5 at 32 bits, ``SHARDED_ONE_BIT_RTOL`` and at most
+``SHARDED_ROWS_APART`` halo rows apart at 1 bit, bytes equal, launches per
+epoch ``zoo_step_launches`` on every rank, epoch ms per rank.
+``python3 tools/torch_sampled_phase.py [sampled] [cells] [zoo]`` runs the
+three alone.
+
 Then the serving front runs (``serve_front_phase``), last, so that its host
 work (checkpoints written and restored, the store's host tables) cannot
 shift the host-clock times of the phases before it; every count is zeroed
@@ -417,7 +449,7 @@ analysis  — ``repro_torch.analysis`` on the card (``analysis_phase``): the
             contracts run, the findings (0: any finding fails the script)
             and the seconds.
 
-Run time on an H100: about ten minutes of command, the
+Run time on an H100: about twelve to fifteen minutes of command, the
 kernels' build included.
 """
 from __future__ import annotations
@@ -523,11 +555,20 @@ ZOO_KERNELS = ("quantize_pack", "unpack_dequantize", "spmm_csr",
 # layer, forward and backward.
 _ZOO_STEP = {"pna": (4, (2, 6, 1)), "meshgraphnet": (15, (2, 4, 0)),
              "schnet": (3, (2, 3, 0)), "nequip": (5, (2, 3, 0))}
+
+
+def zoo_step_launches(arch: str, run: str, n_layers: int) -> tuple:
+    """Launches of one training step of ``arch`` at ``n_layers`` layers (any
+    mode), in ``ZOO_KERNELS`` order."""
+    q, s, m = _ZOO_STEP[arch][1]
+    n = n_layers
+    return (0 if run == "vanilla" else q * n,
+            0 if run == "vanilla" else q * n, s * n, m * n, m * n)
+
+
 ZOO_LAUNCHES = {
-    (arch, run, mode): (0 if run == "vanilla" else q * n,
-                        0 if run == "vanilla" else q * n, s * n, m * n,
-                        m * n)
-    for arch, (n, (q, s, m)) in _ZOO_STEP.items()
+    (arch, run, mode): zoo_step_launches(arch, run, n)
+    for arch, (n, _) in _ZOO_STEP.items()
     for run, mode in (("vanilla", "sync"), ("sylvie_s", "sync"),
                       ("sylvie_a", "sync"), ("sylvie_a", "async"))}
 # kernel launches per serving sweep (full or delta), in TRAIN_KERNELS order:
@@ -2469,6 +2510,43 @@ def seg_max_shapes(device) -> int:
     return len(SEG_WIDTHS)
 
 
+def seg_recorded(rec: list, rec_bwd: list, tag: str) -> dict:
+    """``seg_max_min`` (``rec``: ``(msgs, csr)``) and ``seg_max_min_bwd``
+    (``rec_bwd``: its arguments) on the tensors a recorded step gave them:
+    bit-equal to their plain versions, ties included, and the same bits on
+    a second call. Returns the largest errors by kernel, the tied outputs
+    and the calls checked."""
+    from repro_torch.kernels.seg import ops as segops
+    from repro_torch.kernels.seg import ref as segref
+
+    err, ties = 0.0, 0
+    for i, (msgs, csr) in enumerate(rec):
+        msgs = msgs.detach()
+        got, want = segops.seg_max_min(msgs, csr), \
+            segref.seg_max_min_ref(msgs, csr)
+        err = max(err, float((got[0] - want[0]).abs().max()),
+                  float((got[2] - want[2]).abs().max()))
+        check(all(same_bits(a, b) for a, b in zip(got, want)),
+              f"{tag} seg_max_min call {i}: bit-equal to the plain version")
+        check(all(same_bits(a, b) for a, b in zip(
+            got, segops.seg_max_min(msgs, csr))),
+              f"{tag} seg_max_min call {i}: the same bits twice")
+        ties += int((got[1] > 1).sum()) + int((got[3] > 1).sum())
+    bwd_err = 0.0
+    for i, args in enumerate(rec_bwd):
+        got = segops.seg_max_min_bwd(*args)
+        want = segref.seg_max_min_vjp_ref(*args)
+        bwd_err = max(bwd_err, float((got - want).abs().max()))
+        check(same_bits(got, want),
+              f"{tag} seg_max_min_bwd call {i}: bit-equal to the plain "
+              f"version")
+        check(same_bits(got, segops.seg_max_min_bwd(*args)),
+              f"{tag} seg_max_min_bwd call {i}: the same bits twice")
+    return dict(seg_max_min_csr=err, seg_max_min_bwd_csr=bwd_err,
+                tied_outputs=ties, seg_calls=len(rec),
+                seg_bwd_calls=len(rec_bwd))
+
+
 def seg_check(rec: list, rec_bwd: list) -> dict:
     """``seg_max_min`` and ``seg_max_min_bwd`` on the tensors one PNA
     Sylvie-S step gave them (max and min at each layer, forward and
@@ -2485,30 +2563,10 @@ def seg_check(rec: list, rec_bwd: list) -> dict:
     check(len(rec) == n_layers and len(rec_bwd) == n_layers,
           f"[zoo] a PNA step called seg_max_min {len(rec)} and "
           f"seg_max_min_bwd {len(rec_bwd)} times")
-    rec = [(msgs.detach(), csr) for msgs, csr in rec]
-    err, ties = 0.0, 0
-    for i, (msgs, csr) in enumerate(rec):
-        got, want = segops.seg_max_min(msgs, csr), \
-            segref.seg_max_min_ref(msgs, csr)
-        err = max(err, float((got[0] - want[0]).abs().max()),
-                  float((got[2] - want[2]).abs().max()))
-        check(all(same_bits(a, b) for a, b in zip(got, want)),
-              f"[zoo] seg_max_min call {i}: bit-equal to the plain version")
-        check(all(same_bits(a, b) for a, b in zip(
-            got, segops.seg_max_min(msgs, csr))),
-              f"[zoo] seg_max_min call {i}: the same bits twice")
-        ties += int((got[1] > 1).sum()) + int((got[3] > 1).sum())
-    bwd_err = 0.0
-    for i, args in enumerate(rec_bwd):
-        got = segops.seg_max_min_bwd(*args)
-        want = segref.seg_max_min_vjp_ref(*args)
-        bwd_err = max(bwd_err, float((got - want).abs().max()))
-        check(same_bits(got, want),
-              f"[zoo] seg_max_min_bwd call {i}: bit-equal to the plain "
-              f"version")
-        check(same_bits(got, segops.seg_max_min_bwd(*args)),
-              f"[zoo] seg_max_min_bwd call {i}: the same bits twice")
-    msgs, csr = rec[0]
+    seg = seg_recorded(rec, rec_bwd, "[zoo]")
+    err, bwd_err, ties = (seg["seg_max_min_csr"], seg["seg_max_min_bwd_csr"],
+                          seg["tied_outputs"])
+    msgs, csr = rec[0][0].detach(), rec[0][1]
     n_rows, d = csr.n_rows, msgs.shape[1]
     n_msgs, nnz = msgs.shape[0], csr.nnz
     # padded edges go to a row of their own, which the output leaves out
@@ -2664,21 +2722,53 @@ def zoo_profile(fn, arch: str, label: str):
         return (*profile_device(fn, label, marks)[:4], marks)
 
 
-def zoo_wide_kernels(rec: dict, block, width: int, want: tuple) -> dict:
-    """Every SpMM (over ``ecsr``, ``ecsr_t`` and the scatter CSR) and every
-    quantize call that one NequIP Sylvie-A sync step on ``ZOO_WIDE``'s graph
-    made, on the tensors the step gave them (``width`` columns): the SpMM
-    bit-equal to its plain version run on the card and the same bits on a
-    second call; quantize (the step's bits and noise) and dequantize of its
-    result bit-equal to the plain versions, scale/zero in float32 and
-    bfloat16 (:func:`check_quant`), the quantize the same bits twice.
-    ``want`` is the step's ``ZOO_LAUNCHES``. Returns the largest errors and
-    the calls checked by CSR."""
+def recorded_kernels(rec: dict, tag: str) -> dict:
+    """Every SpMM (``rec["aggregate"]`` and ``rec["scatter"]``: ``(table,
+    csr)``) and every quantize call (``rec["quantize"]``: ``(h, u, bits,
+    scale dtype)``) a recorded step made, on the tensors the step gave them:
+    the SpMM bit-equal to its plain version run on the card and the same
+    bits on a second call; quantize (the step's bits and noise) and
+    dequantize of its result bit-equal to the plain versions, scale/zero in
+    float32 and bfloat16 (:func:`check_quant`), the quantize the same bits
+    twice. Returns the largest errors and the calls checked."""
     from repro_torch.kernels.quant import ops as qops
     from repro_torch.kernels.quant import ref as qref
     from repro_torch.kernels.spmm import ops as sops
     from repro_torch.kernels.spmm import ref as sref
 
+    res = dict(spmm_csr=0.0, quantize_pack=0.0, unpack_dequantize=0.0,
+               spmm_calls=0, quantize_calls=len(rec["quantize"]))
+    for g, csr in rec["aggregate"] + rec["scatter"]:
+        g = g.detach()
+        got, again = sops.spmm(g, csr), sops.spmm(g, csr)
+        ref = sref.spmm_ref(g, csr)
+        err = float((got - ref).abs().max()) if got.numel() else 0.0
+        check(same_bits(got, ref) and same_bits(got, again),
+              f"{tag}: spmm {tuple(g.shape)} over {csr.n_rows} rows, nnz "
+              f"{csr.nnz}: bit-equal to the plain version and twice (max "
+              f"abs err {err})")
+        res["spmm_csr"] = max(res["spmm_csr"], err)
+        res["spmm_calls"] += 1
+        del got, again, ref
+    for h, u, bits, _ in rec["quantize"]:
+        q_err, d_err = check_quant(qops, qref, h, u, bits,
+                                   f"{tag} rows {tuple(h.shape)}")
+        first, second = (qops.quantize_pack_rows(h, u, bits) for _ in "ab")
+        check(all(same_bits(x, y) for x, y in zip(first, second)),
+              f"{tag}: quantize {tuple(h.shape)} the same bits twice")
+        res["quantize_pack"] = max(res["quantize_pack"], q_err)
+        res["unpack_dequantize"] = max(res["unpack_dequantize"], d_err)
+    check(res["spmm_calls"] > 0 and res["quantize_calls"] > 0,
+          f"{tag}: no call recorded")
+    return res
+
+
+def zoo_wide_kernels(rec: dict, block, width: int, want: tuple) -> dict:
+    """:func:`recorded_kernels` of one NequIP Sylvie-A sync step on
+    ``ZOO_WIDE``'s graph: its SpMM over ``ecsr``, ``ecsr_t`` and the
+    scatter CSR and its quantize calls, all ``width`` columns wide, as many
+    as ``want`` (the step's ``ZOO_LAUNCHES``) says. Returns the largest
+    errors and the calls checked by CSR."""
     tag = f"[zoo] {ZOO_WIDE[0]} on {ZOO_WIDE[1]}"
     csrs = {"ecsr": block.ecsr, "ecsr_t": block.ecsr_t,
             "scatter": block.plan.scatter}
@@ -2687,32 +2777,17 @@ def zoo_wide_kernels(rec: dict, block, width: int, want: tuple) -> dict:
     check(len(calls) == want[2] and len(rec["quantize"]) == want[0],
           f"{tag}: {len(calls)} SpMM and {len(rec['quantize'])} quantize "
           f"calls recorded in a sync step, expected {want[2]} and {want[0]}")
-    res = dict(spmm_csr=0.0, quantize_pack=0.0, unpack_dequantize=0.0,
-               spmm_calls={}, quantize_calls=len(rec["quantize"]))
+    by_csr: dict = {}
     for g, csr in calls:
         what = name.get(id(csr))
         check(what is not None and g.shape[1] == width,
               f"{tag}: SpMM over {what} at d = {g.shape[1]}, expected one "
               f"of the step's CSRs at d = {width}")
-        got, again = sops.spmm(g, csr), sops.spmm(g, csr)
-        ref = sref.spmm_ref(g, csr)
-        err = float((got - ref).abs().max())
-        check(same_bits(got, ref) and same_bits(got, again),
-              f"{tag}: spmm over {what} {tuple(g.shape)}, nnz {csr.nnz}: "
-              f"bit-equal to the plain version and twice (max abs err {err})")
-        res["spmm_csr"] = max(res["spmm_csr"], err)
-        res["spmm_calls"][what] = res["spmm_calls"].get(what, 0) + 1
-        del got, again, ref
-    for h, u, bits, _ in rec["quantize"]:
+        by_csr[what] = by_csr.get(what, 0) + 1
+    for h, *_ in rec["quantize"]:
         check(h.shape[1] == width, f"{tag}: quantize at d = {h.shape[1]}, "
               f"expected {width}")
-        q_err, d_err = check_quant(qops, qref, h, u, bits,
-                                   f"{tag} site rows {tuple(h.shape)}")
-        first, second = (qops.quantize_pack_rows(h, u, bits) for _ in "ab")
-        check(all(same_bits(x, y) for x, y in zip(first, second)),
-              f"{tag}: quantize {tuple(h.shape)} the same bits twice")
-        res["quantize_pack"] = max(res["quantize_pack"], q_err)
-        res["unpack_dequantize"] = max(res["unpack_dequantize"], d_err)
+    res = dict(recorded_kernels(rec, tag), spmm_calls=by_csr)
     log(f"{tag}: the sync step's SpMM and Low-bit Module calls at d = "
         f"{width}, bit-equal to the plain versions and twice: "
         f"{json.dumps(res)}")
@@ -3872,6 +3947,8 @@ def sharded_rank(graph: str, device: str) -> dict:
         if dev.type == "cuda":
             torch.cuda.empty_cache()
 
+    out["zoo"] = sharded_zoo_rank(rt, graph_of=ZOO_ARCHS)
+
     # (d) faults under the chaos_smoke schedule; overlap against blocking
     plan = scenarios.parse_fault(CHAOS_FAULT)
     torch.manual_seed(SEED)
@@ -3937,6 +4014,334 @@ def sharded_rank(graph: str, device: str) -> dict:
     return every
 
 
+# [sharded], the zoo: PNA, MeshGraphNet, SchNet and NequIP at their full
+# configs on ZOO_ARCHS' graphs, ZOO_SHARDED_EPOCHS epochs of vanilla and of
+# Sylvie-A (BoundedStaleness(eps_s=4), 1 bit, deterministic), SGD at
+# ZOO_ARCHS' rate, over four gloo ranks against Runtime.simulated(4)
+ZOO_SHARDED_EPOCHS = 3
+# MeshGraphNet's first loss is ~1e7: under SGD at its rate (1e-5) the first
+# step overshoots to NaN (on the CPU too: 1.1e7, nan, nan); it trains with
+# Adam at that rate, and is then gated on losses and bytes, its parameter
+# gap and halo rows apart recorded (as [sharded]'s vanilla_adam)
+ZOO_SHARDED_ADAM = ("meshgraphnet",)
+
+
+def zoo_sharded_runs() -> dict:
+    """The zoo's runs under the sharded runtime: name -> (config,
+    policy)."""
+    from repro_torch.core.sylvie import SylvieConfig
+    from repro_torch.policy import BoundedStaleness
+    det = dict(bits=1, stochastic=False)
+    return {"vanilla": (SylvieConfig(mode="vanilla"), None),
+            "sylvie_a": (SylvieConfig(mode="async", **det),
+                         BoundedStaleness(eps_s=4, **det))}
+
+
+def zoo_train_runs(rt, graphs: dict, epochs: int, which: str = "config",
+                   counts=None, around=None) -> dict:
+    """Each zoo arch of ``graphs`` (arch -> graph) at its ``which`` config
+    ("config" or "reduced") on its graph (``launch.train.gnn_graph``, P =
+    4, seed ``SEED``), each run of :func:`zoo_sharded_runs` for ``epochs``
+    epochs with SGD (Adam for ``ZOO_SHARDED_ADAM``) at ``ZOO_ARCHS``'
+    rate, on runtime ``rt`` (simulated
+    or sharded; the same calls). ``counts`` (``None``, or a function that
+    zeroes nothing and returns counts in ``ZOO_KERNELS`` order) is read
+    around each epoch; ``around(arch, run, epoch)`` (``None``, or a context
+    manager) is entered before that read and left after it. Returns per (arch, run): losses, bytes per epoch,
+    epoch ms, the layers, the final parameters (CPU), the gathered halo
+    caches (CPU, a collective under a sharded runtime) and each epoch's
+    (mode, launches)."""
+    from repro_torch import configs
+    from repro_torch.launch.train import gnn_graph
+    from repro_torch.train import optimizer as optlib
+    from repro_torch.train.trainer import GNNTrainer
+
+    out = {}
+    for arch, graph in graphs.items():
+        spec = getattr(configs.get(arch), which)()
+        pg = gnn_graph(spec, graph, SHARDED_PARTS, SEED)
+        for run, (cfg, pol) in zoo_sharded_runs().items():
+            torch.manual_seed(SEED)
+            model = spec.make(pg.x.shape[-1], pg.n_classes)
+            opt = optlib.adam if arch in ZOO_SHARDED_ADAM else optlib.sgd
+            tr = GNNTrainer(model, pg, cfg, policy=pol, runtime=rt,
+                            seed=SEED, opt=opt(ZOO_ARCHS[arch][1]))
+            launches = []
+            for e in range(epochs):
+                with (around(arch, run, e) if around
+                      else contextlib.nullcontext()):
+                    before = counts() if counts else None
+                    m = tr.train_epoch()
+                    if counts:
+                        launches.append((m.mode, tuple(
+                            a - b for a, b in zip(counts(), before))))
+            halo = rt.gather_state(tr.state).halo
+            out[arch, run] = dict(
+                losses=[m.loss for m in tr.history],
+                mb=[(m.comm_payload_mb, m.comm_ec_mb) for m in tr.history],
+                epoch_ms=[m.seconds * 1e3 for m in tr.history],
+                layers=len(model.comm_dims()),
+                params=[p.detach().cpu() for p in
+                        optlib.tree_leaves(tr.state.params)],
+                halo=[[t.detach().cpu() for t in getattr(halo, k)]
+                      for k in ("feats", "grads")],
+                launches=launches)
+            del tr, model, halo
+    return out
+
+
+def plain_counter():
+    """Count the calls of each ``ZOO_KERNELS`` kernel's plain version in
+    this process from now on (on the CPU the wrappers run them in the
+    kernels' place); returns the function that reads the counts."""
+    from repro_torch.kernels.quant import ref as qref
+    from repro_torch.kernels.seg import ref as segref
+    from repro_torch.kernels.spmm import ref as sref
+
+    refs = ((qref, "quantize_pack_ref"), (qref, "unpack_dequantize_ref"),
+            (sref, "spmm_ref"), (segref, "seg_max_min_ref"),
+            (segref, "seg_max_min_vjp_ref"))
+    counts = [0] * len(refs)
+    for i, (mod, fn) in enumerate(refs):
+        real = getattr(mod, fn)
+
+        def counted(*a, _real=real, _i=i, **k):
+            counts[_i] += 1
+            return _real(*a, **k)
+        setattr(mod, fn, counted)
+    return lambda: tuple(counts)
+
+
+def sharded_zoo_kernels(rec: dict, tag: str) -> dict:
+    """The kernels of one recorded step on a rank's own block: its SpMM
+    (over the block's ``ecsr``, ``ecsr_t`` and scatter CSR) and quantize
+    calls by :func:`recorded_kernels`, its dequantize calls bit-equal to
+    the plain version (scale and zero as the step gave them), and PNA's
+    ``seg_max_min`` and its backward by :func:`seg_recorded`. Returns the
+    largest errors by kernel and the calls checked, in ``ZOO_KERNELS``
+    order (``calls``)."""
+    from repro_torch.kernels.quant import ops as qops
+    from repro_torch.kernels.quant import ref as qref
+
+    res = recorded_kernels(rec, tag)
+    for i, (pk, s_, z_, b, d) in enumerate(rec["dequantize"]):
+        got = qops.dequantize_rows(pk, s_, z_, b, d)
+        want = qref.unpack_dequantize_ref(pk, s_.float(), z_.float(), b, d)
+        check(same_bits(got, want), f"{tag}: dequantize call {i} "
+              f"{tuple(pk.shape)} bit-equal to the plain version")
+        res["unpack_dequantize"] = max(res["unpack_dequantize"],
+                                       float((got - want).abs().max()))
+    seg = seg_recorded(rec["seg"], rec["seg_bwd"], tag)
+    res.update(seg_max_min_csr=seg["seg_max_min_csr"],
+               seg_max_min_bwd_csr=seg["seg_max_min_bwd_csr"],
+               calls=(len(rec["quantize"]), len(rec["dequantize"]),
+                      res.pop("spmm_calls"), seg["seg_calls"],
+                      seg["seg_bwd_calls"]))
+    del res["quantize_calls"]
+    return res
+
+
+def sharded_zoo_rank(rt, graph_of: dict, which: str = "config",
+                     epochs: int = ZOO_SHARDED_EPOCHS,
+                     counts=None) -> dict:
+    """[sharded] (g), in one rank: the zoo (:func:`zoo_train_runs`, each
+    arch on ``graph_of[arch][0]``) trained by rank 0 on
+    ``Runtime.simulated(4)`` on its device first (the others wait), then by
+    every rank on its partition, the launches of each epoch read by
+    ``counts`` (default: the kernels' launches; on the CPU pass
+    :func:`plain_counter`'s) and held to :func:`zoo_step_launches`. Each
+    arch's first Sylvie-A epoch (a sync step) is recorded on every rank,
+    and its kernels held to their plain versions at the rank's own shapes
+    (:func:`sharded_zoo_kernels`), as many calls as its launches. Rank 0
+    holds each run against the simulated one: the largest relative loss
+    gap, the parameters' largest gap, the bytes, and the gathered halo
+    caches' rows apart (:func:`halo_rows_apart`). Returns, per run, those
+    numbers and the epoch ms, and for Sylvie-A the kernels checked."""
+    import torch.distributed as dist
+
+    from repro_torch.core import exchange as X
+    from repro_torch.dist.runtime import Runtime
+    from repro_torch.kernels.quant import ops as qops
+    from repro_torch.models.gnn import blocks as B
+
+    r, dev = rt.rank, rt.device
+    graphs = {arch: g[0] for arch, g in graph_of.items()}
+    if counts is None:
+        kernels = {n: m["k"] for n, m in kernel_table().items()}
+
+        def counts():
+            return tuple(kernels[k].launches for k in ZOO_KERNELS)
+    checked = {}
+
+    @contextlib.contextmanager
+    def around(arch, run, epoch):
+        if run != "sylvie_a" or epoch:
+            yield
+            return
+        rec = {k: [] for k in ("aggregate", "scatter", "quantize",
+                               "dequantize", "seg", "seg_bwd")}
+        with recording(B, "spmm", rec["aggregate"]), \
+                recording(X, "spmm", rec["scatter"]), \
+                recording(qops, "quantize_pack_rows", rec["quantize"]), \
+                recording(qops, "dequantize_rows", rec["dequantize"]), \
+                recording(B, "seg_max_min", rec["seg"]), \
+                recording(B, "seg_max_min_bwd", rec["seg_bwd"]):
+            yield
+        checked[arch] = sharded_zoo_kernels(
+            rec, f"[sharded] rank {r} zoo {arch} {run} epoch 0")
+        del rec
+
+    sim = None
+    if r == 0:
+        sim = zoo_train_runs(Runtime.simulated(SHARDED_PARTS, device=dev),
+                             graphs, epochs, which)
+    dist.barrier()
+    mine = zoo_train_runs(rt, graphs, epochs, which, counts=counts,
+                          around=around)
+    out = {}
+    for (arch, run), res in mine.items():
+        tag = f"[sharded] rank {r} zoo {arch} {run}"
+        want = zoo_step_launches(arch, run, res["layers"])
+        for e, (mode, got) in enumerate(res["launches"]):
+            check(got == want, f"{tag} epoch {e} ({mode}): launches "
+                  f"{dict(zip(ZOO_KERNELS, got))}, expected "
+                  f"{dict(zip(ZOO_KERNELS, want))}")
+        check(all(np.isfinite(res["losses"])), f"{tag}: losses "
+              f"{res['losses']} finite")
+        z = dict(losses=res["losses"], mb=res["mb"],
+                 epoch_ms=res["epoch_ms"],
+                 median_epoch_ms=_median(res["epoch_ms"][1:]),
+                 launches=res["launches"], layers=res["layers"],
+                 rows=SHARDED_PARTS * res["halo"][0][0].shape[1])
+        if run == "sylvie_a":
+            k = z["kernels"] = checked.pop(arch)
+            check(res["launches"][0][0] == "sync" and k["calls"] == want,
+                  f"{tag}: the recorded epoch 0 ({res['launches'][0][0]}) "
+                  f"called {dict(zip(ZOO_KERNELS, k['calls']))}, expected "
+                  f"a sync step's {dict(zip(ZOO_KERNELS, want))}")
+        if sim is not None:
+            ref = sim[arch, run]
+            z["simulated"] = {k: ref[k] for k in ("losses", "mb",
+                                                  "epoch_ms")}
+            z["loss_max_rel"] = max(abs(a - b) / abs(b) for a, b in zip(
+                res["losses"], ref["losses"]))
+            z["param_max_abs"] = max(float((a - b).abs().max())
+                                     for a, b in zip(res["params"],
+                                                     ref["params"]))
+            z["rows_apart"] = dict(
+                feats=[halo_rows_apart(a, b, 1e-6) for a, b in zip(
+                    res["halo"][0], ref["halo"][0])],
+                grads=[halo_rows_apart(a, b, 1e-3) for a, b in zip(
+                    res["halo"][1], ref["halo"][1])])
+        out[f"{arch}_{run}"] = z
+    del sim, mine
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def sharded_zoo_check(ranks: list, label: str) -> dict:
+    """[sharded] (g)'s gates over every rank's :func:`sharded_zoo_rank`:
+    each run's losses the same on every rank; against the simulated runtime
+    vanilla's losses within rtol 1e-5 and parameters within 1e-5, Sylvie-A's
+    losses within ``SHARDED_ONE_BIT_RTOL`` and its halo rows apart at most
+    ``SHARDED_ROWS_APART`` of the stack's; bytes per epoch equal. An arch
+    of ``ZOO_SHARDED_ADAM`` is gated on its losses and bytes alone (Adam
+    turns ulps of a gradient into moves of its rate), the rest recorded.
+    Returns the launches per step by path, each run's figures and the
+    largest errors of the kernels every rank checked (``kernels``)."""
+    out = dict(launches={}, kernels=dict.fromkeys(ZOO_KERNELS, 0.0))
+    calls = {}
+    for x in ranks:
+        for key, z in x["zoo"].items():
+            if "kernels" in z:
+                for name in ZOO_KERNELS:
+                    out["kernels"][name] = max(out["kernels"][name],
+                                               z["kernels"][name])
+                calls.setdefault(key.split("_", 1)[0], {})[x["rank"]] = \
+                    dict(zip(ZOO_KERNELS, z["kernels"]["calls"]))
+    out["kernels"]["calls"] = calls
+    log(f"[sharded] (g) zoo: one Sylvie-A sync step of each arch on every "
+        f"rank, its kernels at the rank's own shapes bit-equal to their "
+        f"plain versions and twice: {json.dumps(out['kernels'])}")
+    for key, z in ranks[0]["zoo"].items():
+        arch, run = key.split("_", 1)
+        got = [x["zoo"][key] for x in ranks]
+        tag = f"[sharded] (g) zoo {key}"
+        check(all(g["losses"] == z["losses"] for g in got),
+              f"{tag}: every rank's losses are the same")
+        rtol = 1e-5 if run == "vanilla" else SHARDED_ONE_BIT_RTOL
+        check(z["loss_max_rel"] <= rtol, f"{tag}: sharded losses "
+              f"{z['losses']} vs simulated {z['simulated']['losses']} (rtol "
+              f"{rtol})")
+        check(all(g["mb"] == z["simulated"]["mb"] for g in got),
+              f"{tag}: bytes per epoch {z['mb']} vs {z['simulated']['mb']}")
+        apart = z["rows_apart"]
+        if arch in ZOO_SHARDED_ADAM:
+            pass                        # recorded below, not gated
+        elif run == "vanilla":
+            check(z["param_max_abs"] <= 1e-5, f"{tag}: parameters "
+                  f"{z['param_max_abs']} apart (atol 1e-5)")
+        else:
+            bound = SHARDED_ROWS_APART * z["rows"]
+            check(max(apart["feats"] + apart["grads"]) <= bound,
+                  f"{tag}: halo rows apart {apart} of {z['rows']} (bound "
+                  f"{bound})")
+        for mode, counts in z["launches"]:
+            out["launches"][f"{arch}_train_sharded_{run}_{mode}_step"] = \
+                dict(zip(ZOO_KERNELS, counts))
+        res = out[key] = dict(
+            loss_max_rel=z["loss_max_rel"], rtol=rtol,
+            param_max_abs=z["param_max_abs"], rows_apart=apart,
+            rows=z["rows"], losses=z["losses"], mb=z["mb"][-1],
+            median_epoch_ms={x["rank"]: x["zoo"][key]["median_epoch_ms"]
+                             for x in ranks},
+            simulated_epoch_ms=z["simulated"]["epoch_ms"])
+        opt = "Adam" if arch in ZOO_SHARDED_ADAM else "SGD"
+        log(f"[sharded] (g) zoo {key}, {len(z['losses'])} epochs, {opt} "
+            f"{ZOO_ARCHS[arch][1]:g}, against Runtime.simulated(4): "
+            f"{json.dumps(res)}; launches exact on every rank; epoch ms "
+            f"({label}, host clock)")
+    return out
+
+
+def sharded_zoo_only_rank(device: str, graph_of: dict, which: str,
+                          epochs: int) -> list:
+    """One rank of :func:`sharded_zoo_phase`: [sharded] (g) alone."""
+    import torch.distributed as dist
+
+    from repro_torch.dist.runtime import Runtime
+
+    rt = Runtime.sharded(SHARDED_PARTS, device=device)
+    counts = None if rt.device.type == "cuda" else plain_counter()
+    out = dict(rank=rt.rank, zoo=sharded_zoo_rank(rt, graph_of, which,
+                                                  epochs, counts))
+    every = [None] * SHARDED_PARTS
+    dist.all_gather_object(every, out)
+    return every
+
+
+def sharded_zoo_phase(card_line: str, device: str = "cuda:0",
+                      graph_of: dict = ZOO_ARCHS, which: str = "config",
+                      epochs: int = ZOO_SHARDED_EPOCHS) -> dict:
+    """[sharded] (g) alone: the zoo over four ``gloo`` ranks on ``device``
+    against ``Runtime.simulated(4)``, gated by :func:`sharded_zoo_check`
+    (``[sharded]`` runs the same inside its own spawn). A CPU dry run:
+    ``device="cpu"``, ``graph_of={a: (g, None) for a, g in
+    ZOO_SMOKE.items()}``, ``which="reduced"`` (each rank counts the plain
+    versions, :func:`plain_counter`)."""
+    from repro_torch.dist.spawn import spawn
+
+    t0 = time.perf_counter()
+    ranks = spawn(sharded_zoo_only_rank, SHARDED_PARTS, device=device,
+                  dist_backend="gloo", args=(device, graph_of, which,
+                                              epochs), timeout=900)
+    out = sharded_zoo_check(ranks, f"{SHARDED_LABEL}; {card_line}")
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[sharded] (g) alone done in {out['seconds']:.1f} s")
+    return out
+
+
 def sharded_phase(card_line: str, graph: str = "reddit_like@paper",
                   device: str = "cuda:0") -> dict:
     """[sharded]: the multi-process runtime (``Runtime.sharded``), four
@@ -4000,6 +4405,9 @@ def sharded_phase(card_line: str, graph: str = "reddit_like@paper",
             f"{epochs} epochs against Runtime.simulated(4) on the card: "
             f"{json.dumps(res)}; launches exact on every rank; epoch ms "
             f"({label}, host clock)")
+    zoo = sharded_zoo_check(ranks, label)
+    out["launches"].update(zoo.pop("launches"))
+    out["zoo"] = zoo
     check(all(x["faults"]["accounting"] == ranks[0]["faults"]["accounting"]
               for x in ranks), "[sharded] the fault accounting is the same "
           "on every rank")
@@ -5025,6 +5433,350 @@ def dlrm_sharded_phase(card_line: str, device: str = "cuda:0",
     return out
 
 
+# [sampled]: the minibatch_lg cell (configs/base.py GNN_SHAPES): 1,024 seeds
+# a batch, fan-outs (15, 10), on a Reddit-sized stand-in of reddit_like's
+# TargetStats (232,965 nodes, average degree 492, 602 features, 41
+# classes; its paper tier's p_in 0.85 and gamma 0.8), GraphSAGE 256x2 (the
+# paper's SAGE_SPEC), P = 4 on Runtime.simulated, Adam 1e-2
+SAMPLED_BATCH = 1024
+SAMPLED_FANOUTS = (15, 10)
+SAMPLED_PARTS = 4
+SAMPLED_BATCHES = 20
+SAMPLED_LR = 1e-2
+SAMPLED_GRAPH = dict(n_nodes=232_965, avg_degree=492, d_feat=602,
+                     n_classes=41, p_in=0.85, gamma=0.8)
+SAMPLED_PROFILED = 10           # the batch whose step is profiled
+SAMPLED_PARITY_RTOL = 1e-5      # the first vanilla loss, card against CPU
+SAMPLED_DESCENT = 0.9           # mean loss of batches 16-20 < 0.9 x batch 1's
+
+
+def sampled_batches(sampler, n_batches: int, batch_nodes: int, parts: int):
+    """The host half of a sampled step, one batch at a time: sample
+    ``batch_nodes`` seeds' neighbourhood, add self-loops, partition it into
+    ``parts`` (``graph.partition.partition_graph``, the Table-1 loop's
+    ``formats.add_self_loops`` + ``partition_graph``) and build its block
+    on the host (``blocks.build_block``: the CSRs and the SpMM's work
+    plans). Yields ``(block, x, y, train_mask, info)``; ``info`` holds the
+    host ms of each part and the batch's sizes."""
+    from repro_torch.graph import formats
+    from repro_torch.graph.partition import partition_graph
+    from repro_torch.models.gnn import blocks as B
+
+    for _ in range(n_batches):
+        t0 = time.perf_counter()
+        sub = sampler.sample(batch_nodes=batch_nodes)
+        t1 = time.perf_counter()
+        g = formats.Graph(sub.n_nodes,
+                          formats.add_self_loops(sub.edge_index, sub.n_nodes),
+                          sub.x, sub.y, sub.train_mask, sub.val_mask,
+                          sub.test_mask, n_classes=sub.n_classes)
+        pg = partition_graph(g, parts)
+        t2 = time.perf_counter()
+        block = B.build_block(pg, "cpu")
+        t3 = time.perf_counter()
+        info = dict(nodes=sub.n_nodes, edges=sub.n_edges,
+                    block_edges=block.csr.nnz,
+                    halo_rows=parts * int(pg.plan.halo_rows),
+                    real_halo_rows=int(pg.plan.real_rows()),
+                    sample_ms=(t1 - t0) * 1e3, partition_ms=(t2 - t1) * 1e3,
+                    block_ms=(t3 - t2) * 1e3)
+        yield block, pg.x, pg.y, pg.train_mask, info
+
+
+def sampled_train(sampler, model, cfg, opt, n_batches: int, *,
+                  batch_nodes: int = SAMPLED_BATCH,
+                  parts: int = SAMPLED_PARTS, seed: int = SEED,
+                  device=None, launches=None, hook=None) -> dict:
+    """Sampled training, the reference's Table-1 loop
+    (``benchmarks/table1_sampling.py``) at any shape, on
+    ``Runtime.simulated(parts, device)``: for each of ``n_batches``
+    batches the ``Prefetcher``'s worker does the host half
+    (:func:`sampled_batches`: sample, self-loops, partition, block) and
+    copies the batch to the device; the main thread takes one step of
+    ``make_gnn_steps(model, cfg, opt)``'s synchronous step, the parameters
+    and the optimizer's state carried across batches and the halo caches
+    ``HaloState.zeros`` of the new plan (the noise key ``(seed, batch)``).
+    Only ``vanilla`` and Sylvie-S run: Sylvie-A's stale halos belong to one
+    plan, and every batch has its own.
+
+    ``launches`` (``None``, or a function returning counts) is read before
+    and after each step, whose difference is recorded; ``hook(b, run)``
+    runs batch ``b``'s step ``run()`` (default: ``run()``), so a caller can
+    profile one. Returns the losses, the last parameters (on the CPU), each
+    batch's ``info``, its main-thread wait on the queue, its step's host ms
+    (ending in ``float(loss)``) and, on CUDA, device ms (CUDA events around
+    the step), and the launches."""
+    from repro_torch.core.staleness import HaloState
+    from repro_torch.data.pipeline import Prefetcher
+    from repro_torch.dist.runtime import Runtime
+    from repro_torch.train import optimizer as optlib
+    from repro_torch.train.gnn_step import GNNTrainState, make_gnn_steps
+
+    if cfg.mode not in ("vanilla", "sync"):
+        raise ValueError(
+            f"sampled training runs vanilla or Sylvie-S, not {cfg.mode!r}: "
+            "stale halos belong to one plan, and every batch has its own")
+    rt = Runtime.simulated(parts, device=device)
+    dev = rt.device
+    cuda = dev.type == "cuda"
+    dims = model.comm_dims()
+    step, _, _ = make_gnn_steps(model, cfg, opt, backend=rt.backend)
+    batches = Prefetcher(sampled_batches(sampler, n_batches, batch_nodes,
+                                         parts), depth=2, device=dev)
+    state = None
+    out = dict(losses=[], info=[], wait_ms=[], step_ms=[], device_ms=[],
+               launches=[])
+    for b in range(n_batches):
+        t0 = time.perf_counter()
+        block, x, y, mask, info = next(batches)
+        t1 = time.perf_counter()
+        if state is None:
+            state = GNNTrainState.create(model.param_tree(), opt, block.plan,
+                                         dims, device=dev)
+        else:
+            state = dataclasses.replace(state, halo=HaloState.zeros(
+                block.plan, dims, device=dev))
+        before = launches() if launches else None
+        ev = [torch.cuda.Event(enable_timing=True) for _ in "ab"] \
+            if cuda else None
+
+        def run(state=state, block=block, x=x, y=y, mask=mask, b=b):
+            if ev:
+                ev[0].record()
+            new, loss = step(state, block, x, y, mask, (seed, b))
+            if ev:
+                ev[1].record()
+            return new, float(loss)
+
+        state, loss = hook(b, run) if hook else run()
+        t2 = time.perf_counter()
+        out["losses"].append(loss)
+        out["info"].append(info)
+        out["wait_ms"].append((t1 - t0) * 1e3)
+        out["step_ms"].append((t2 - t1) * 1e3)
+        if ev:
+            out["device_ms"].append(ev[0].elapsed_time(ev[1]))
+        if launches:
+            out["launches"].append(tuple(a - c for a, c in
+                                         zip(launches(), before)))
+    check(next(batches, None) is None, "the sampler yielded more batches")
+    out["params"] = [p.detach().cpu() for p in
+                     optlib.tree_leaves(state.params)]
+    return out
+
+
+def fresh_sampler(sampler, seed: int = SEED):
+    """``sampler`` (its graph and CSR shared) with a new generator from
+    ``seed``: the same batches again, without rebuilding the CSR."""
+    import copy
+    s = copy.copy(sampler)
+    s.rng = np.random.default_rng(seed)
+    return s
+
+
+def sampled_phase(all_kernels: dict, device: str = "cuda",
+                  graph: dict | None = None,
+                  n_batches: int = SAMPLED_BATCHES,
+                  batch_nodes: int = SAMPLED_BATCH,
+                  fanouts: tuple = SAMPLED_FANOUTS) -> dict:
+    """[sampled]: the ``minibatch_lg`` cell. One Reddit-sized stand-in
+    (``SAMPLED_GRAPH``, ``synthetic.powerlaw_community``, seed 0; its host
+    seconds and peak RSS logged) and its ``NeighborSampler``; GraphSAGE
+    256x2 trained by :func:`sampled_train`, ``n_batches`` batches of
+    ``batch_nodes`` seeds at ``fanouts`` each of vanilla and Sylvie-S
+    (``SylvieConfig(mode="sync", bits=1)``, Uniform(1)'s decision,
+    stochastic), the same batches and initial weights, Adam
+    ``SAMPLED_LR``. Gates: each subgraph within ``SamplerShapes``' bounds,
+    every step's launches ``TRAIN_LAUNCHES[("graphsage", run, "sync")]``,
+    one recorded Sylvie-S step's SpMM and Low-bit Module calls bit-equal to
+    the plain versions (:func:`recorded_kernels`), the first vanilla loss
+    against the CPU's plain versions within ``SAMPLED_PARITY_RTOL``, every
+    loss finite, vanilla's mean of the last five losses below
+    ``SAMPLED_DESCENT`` x the first. Reports each batch's host ms
+    (sample, partition, block: the ``Prefetcher``'s worker), the main
+    thread's wait on the queue, the step's host and device ms, one
+    profiled step's busy share, peak GB, the sampled sizes and the step's
+    useful FLOPs (``_gnn_model_flops`` at the batch's own nodes and
+    aggregated edges) over its device time. ``device="cpu"`` (with a small
+    ``graph``) dry-runs it on the plain versions: no launches, events or
+    profile."""
+    import resource
+
+    from repro_torch import configs
+    from repro_torch.core import exchange as X
+    from repro_torch.core.sylvie import SylvieConfig
+    from repro_torch.graph import synthetic
+    from repro_torch.graph.sampling import NeighborSampler, SamplerShapes
+    from repro_torch.kernels.quant import ops as qops
+    from repro_torch.launch.cells import _gnn_model_flops
+    from repro_torch.models.gnn import blocks as B
+    from repro_torch.train import optimizer as optlib
+
+    cuda = torch.device(device).type == "cuda"
+    graph = dict(SAMPLED_GRAPH if graph is None else graph)
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    g = synthetic.powerlaw_community(seed=SEED, **graph)
+    gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sampler = NeighborSampler(g, fanouts, seed=SEED)
+    csr_s = time.perf_counter() - t0
+    rss_gb = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6
+    log(f"[sampled] powerlaw_community({graph}, seed {SEED}): "
+        f"{g.n_nodes} nodes, {g.n_edges} edges, generated in {gen_s:.1f} s "
+        f"(host), its CSR in {csr_s:.1f} s; peak RSS {rss_gb:.2f} GB")
+    shapes = SamplerShapes(batch_nodes, tuple(fanouts))
+    torch.manual_seed(SEED)
+    model = configs.get("graphsage").config().make(g.x.shape[1],
+                                                   g.n_classes)
+    names = tuple(all_kernels)
+
+    def counts():
+        return tuple(all_kernels[k]["k"].launches for k in names)
+
+    runs = {"vanilla": SylvieConfig(mode="vanilla"),
+            "sylvie_s": SylvieConfig(mode="sync", bits=1)}
+    out = dict(launches={}, graph=dict(graph, nodes=g.n_nodes,
+                                       edges=g.n_edges, gen_s=gen_s,
+                                       csr_s=csr_s, peak_rss_gb=rss_gb))
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    for run, cfg in runs.items():
+        prof, rec = {}, dict(aggregate=[], scatter=[], quantize=[])
+
+        def hook(b, step, run=run, prof=prof, rec=rec):
+            if cuda and b == SAMPLED_PROFILED:
+                got, wall, busy, groups, _ = profile_device(
+                    step, f"one sampled GraphSAGE {run} step (batch {b})")
+                prof.update(host_ms=wall, busy_ms=busy, by_group=groups)
+                return got
+            if cuda and run == "sylvie_s" and b == 1:
+                with recording(B, "spmm", rec["aggregate"]), \
+                        recording(X, "spmm", rec["scatter"]), \
+                        recording(qops, "quantize_pack_rows",
+                                  rec["quantize"]):
+                    return step()
+            return step()
+
+        for meta in all_kernels.values():
+            meta["k"].launches = 0
+        res = sampled_train(fresh_sampler(sampler), model, cfg,
+                            optlib.adam(SAMPLED_LR), n_batches,
+                            batch_nodes=batch_nodes, device=device,
+                            launches=counts, hook=hook)
+        totals = counts()
+        tag = f"[sampled] graphsage {run}"
+        # on the CPU the wrappers run the plain versions: nothing launches
+        step = dict(zip(TRAIN_KERNELS, TRAIN_LAUNCHES[
+            ("graphsage", run, "sync")])) if cuda else {}
+        want = tuple(step.get(k, 0) for k in names)
+        for b, (info, got) in enumerate(zip(res["info"], res["launches"])):
+            check(info["nodes"] <= shapes.max_nodes
+                  and info["edges"] <= shapes.max_edges,
+                  f"{tag} batch {b}: {info['nodes']} nodes, {info['edges']} "
+                  f"edges, beyond SamplerShapes' {shapes.max_nodes} / "
+                  f"{shapes.max_edges}")
+            check(got == want, f"{tag} batch {b}: launches "
+                  f"{dict(zip(names, got))}, expected "
+                  f"{dict(zip(names, want))}")
+        check(totals == tuple(n * n_batches for n in want),
+              f"{tag}: the path's launches "
+              f"{dict(zip(names, totals))}, {n_batches} x a step's")
+        losses = res["losses"]
+        check(all(np.isfinite(losses)), f"{tag}: losses {losses} finite")
+        if run == "vanilla":
+            last = float(np.mean(losses[-5:]))
+            check(last < SAMPLED_DESCENT * losses[0],
+                  f"{tag}: mean of the last five losses {last} not below "
+                  f"{SAMPLED_DESCENT} x the first {losses[0]}")
+        if rec["quantize"]:
+            out["kernels"] = recorded_kernels(rec, tag)
+            del rec
+        info = res["info"]
+        flops = [_gnn_model_flops("graphsage", model, i["nodes"],
+                                  i["block_edges"], g.x.shape[1], True)
+                 for i in info]
+
+        def mean(xs):
+            return float(np.mean(xs)) if len(xs) else None
+
+        def mid(xs):
+            return float(np.median(xs)) if len(xs) else None
+        dev_ms = res["device_ms"]
+        r = out[run] = dict(
+            losses=losses, n_batches=n_batches,
+            nodes=[i["nodes"] for i in info],
+            edges=[i["edges"] for i in info],
+            halo_rows=[i["halo_rows"] for i in info],
+            real_halo_rows=[i["real_halo_rows"] for i in info],
+            host_ms=dict(sample=mean([i["sample_ms"] for i in info]),
+                         partition=mean([i["partition_ms"] for i in info]),
+                         block=mean([i["block_ms"] for i in info])),
+            wait_ms=dict(first=res["wait_ms"][0],
+                         median_after_first=mid(res["wait_ms"][1:]),
+                         mean_after_first=mean(res["wait_ms"][1:])),
+            step_host_ms=mid(res["step_ms"][1:]),
+            step_device_ms=mid(dev_ms[1:]),
+            profiled=prof,
+            busy_share=(prof["busy_ms"] / prof["host_ms"]) if prof else None,
+            gflop_per_step=mean(flops) / 1e9,
+            tflop_per_s=(float(np.median([f / d / 1e9 for f, d in
+                                          zip(flops[1:], dev_ms[1:])]))
+                         if dev_ms else None))
+        out["launches"][f"graphsage_sampled_{run}_sync_step"] = dict(
+            zip(names, res["launches"][-1]))
+        log(f"{tag}: {json.dumps(r)}")
+        out[f"{run}_params"] = res["params"]
+    if cuda:
+        out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        # the first vanilla batch again on the CPU's plain versions, from
+        # the same weights and the same sampled batch
+        t0 = time.perf_counter()
+        cpu = sampled_train(fresh_sampler(sampler), model, runs["vanilla"],
+                            optlib.adam(SAMPLED_LR), 1,
+                            batch_nodes=batch_nodes, device="cpu")
+        a, b = out["vanilla"]["losses"][0], cpu["losses"][0]
+        check(abs(a - b) <= SAMPLED_PARITY_RTOL * abs(b),
+              f"[sampled] the first vanilla loss: card {a}, CPU {b} (rtol "
+              f"{SAMPLED_PARITY_RTOL})")
+        out["parity"] = dict(card=a, cpu=b, rel=abs(a - b) / abs(b),
+                             cpu_s=time.perf_counter() - t0)
+        log(f"[sampled] the first vanilla batch on the CPU's plain versions"
+            f": {json.dumps(out['parity'])}; kernels of one Sylvie-S step "
+            f"bit-equal: {json.dumps(out['kernels'])}; peak "
+            f"{out['peak_gb']:.2f} GB")
+    del g, sampler
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[sampled] phase done in {out['seconds']:.1f} s")
+    return out
+
+
+def cells_phase(device: str = "cuda") -> dict:
+    """[cells]: every (arch, shape) cell of ``launch.cells.all_cells()``
+    built with ``build_cell(..., n_devices=4)``, one line each (arch, shape,
+    step, model FLOPs, meta). Building them must allocate no device memory
+    (``torch.cuda.memory_allocated`` unchanged)."""
+    from repro_torch.launch.cells import all_cells, build_cell
+
+    cuda = torch.device(device).type == "cuda"
+    before = torch.cuda.memory_allocated() if cuda else 0
+    t0 = time.perf_counter()
+    built = []
+    for arch, shape in all_cells():
+        cell = build_cell(arch, shape, n_devices=4)
+        built.append(cell)
+        log(f"[cells] {json.dumps(dict(arch=arch, shape=shape, step=cell.step, model_flops=cell.model_flops, meta=cell.meta))}")
+    secs = time.perf_counter() - t0
+    after = torch.cuda.memory_allocated() if cuda else 0
+    check(len(built) == 40, f"[cells] {len(built)} cells, expected 40")
+    check(after == before, f"[cells] building the cells allocated "
+          f"{after - before} bytes on the card")
+    log(f"[cells] {len(built)} cells built in {secs:.3f} s (host), "
+        f"device memory unchanged ({before} bytes allocated)")
+    return dict(n=len(built), seconds=secs)
+
+
 def kernel_groups() -> tuple:
     """Every kernel of the port by name, in four groups (the serving path's,
     GAT's, the LM's, the zoo's): its ``Kernel`` (``k``, which counts
@@ -5396,6 +6148,13 @@ def main() -> int:
     dl = dlrm_phase(all_kernels)
     torch.cuda.empty_cache()
 
+    # -- 11a''. sampled training: the minibatch_lg cell, GraphSAGE 256x2 -----
+    sp = sampled_phase(all_kernels)
+    torch.cuda.empty_cache()
+
+    # -- 11a'''. the cell inventory: 40 cells, nothing allocated -------------
+    cells_phase()
+
     # -- 11b. the serving front: serve_once, store, degraded mode, tracing -----
     # last: its host work (checkpoints written and restored, the store's
     # host tables) must not shift the host-clock times of the phases above
@@ -5409,6 +6168,8 @@ def main() -> int:
     # -- 11d. sharded: the multi-process runtime, four ranks on this card ----
     torch.cuda.empty_cache()
     sh = sharded_phase(card_line)
+    for name in errs:
+        errs[name] = max(errs[name], sh["zoo"]["kernels"][name])
 
     # -- 11e. sharded-serve: serving under it, the front on rank 0 -------------
     ss = sharded_serve_phase(card_line)
@@ -5453,6 +6214,7 @@ def main() -> int:
         **{path: n[name] for path, n in zoo["launches"].items()},
         **{path: n[name] for path, n in dl["launches"].items()},
         **{path: n[name] for path, n in dls["launches"].items()},
+        **{path: n[name] for path, n in sp["launches"].items()},
         lm_generate=lm["launches"][name],
         **{f"{arch}_generate": run["launches"][name]
            for arch, run in moe.items()},
@@ -5551,7 +6313,9 @@ def main() -> int:
             name=name, route="cuda", source=zoo_kernels[name]["source"],
             replaces=zoo_kernels[name]["replaces"],
             launches=zoo["launches"]["pna_train_sylvie_s_sync_step"][name],
-            max_abs_err=sm[f"{pre}max_abs_err"], ms=sm[f"{pre}ms"],
+            max_abs_err=max(sm[f"{pre}max_abs_err"],
+                            sh["zoo"]["kernels"][name]),
+            ms=sm[f"{pre}ms"],
             plain_ms=sm[f"{pre}plain_ms"], bound_ms=sm[f"{pre}bound_ms"],
             bound_by=sm[f"{pre}bound_by"],
             library_ms=None if pre else sm["library_ms"],

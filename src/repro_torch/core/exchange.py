@@ -59,6 +59,28 @@ class PlanArrays:
         return int(self.send_idx.shape[1])
 
     @staticmethod
+    def from_spec(spec) -> "PlanArrays":
+        """The plan of an analytic ``PartitionShapeSpec`` (no graph): its
+        index and mask tensors on the ``meta`` device, so nothing is
+        allocated. Analytic specs size the dense layout; wire and real rows
+        are the off-diagonal dense count ``P*(P-1)*h_pad`` (no masks exist
+        to count real rows)."""
+        s = spec
+        rows = s.n_parts * s.h_pad
+        wire = s.n_parts * (s.n_parts - 1) * s.h_pad
+        meta = torch.device("meta")
+        return PlanArrays(
+            send_idx=torch.empty((s.n_parts, rows), dtype=torch.int64,
+                                 device=meta),
+            send_mask=torch.empty((s.n_parts, rows), dtype=torch.bool,
+                                  device=meta),
+            recv_mask=torch.empty((s.n_parts, rows), dtype=torch.bool,
+                                  device=meta),
+            n_local=int(s.n_local), h_pad=int(s.h_pad),
+            n_parts=int(s.n_parts), bucket_sizes=None, wire_rows=wire,
+            real_rows=wire)
+
+    @staticmethod
     def from_plan(plan, device=None, part: Optional[int] = None
                   ) -> "PlanArrays":
         """The host plan on ``device``: the whole stack, or partition
@@ -113,6 +135,19 @@ def scatter_boundary_grad(g: torch.Tensor, plan: PlanArrays) -> torch.Tensor:
     p, rows, d = g.shape
     out = spmm(g.reshape(p * rows, d).contiguous(), plan.scatter)
     return out.reshape(p, plan.n_local, d)
+
+
+def exchange(x: torch.Tensor, backend=None) -> torch.Tensor:
+    """The dense halo all-to-all of a pairwise-blocked buffer ``x`` (P_local,
+    P*h_pad, ...), through ``backend`` (``None``: the simulated stacked
+    transpose)."""
+    return as_backend(backend).exchange(x)
+
+
+def exchange_quantized(qt: QuantizedTensor, backend=None) -> QuantizedTensor:
+    """Exchange a dense quantized payload: data + error compensation (scale,
+    zero) move together (paper §3.2 Communicator)."""
+    return as_backend(backend).exchange_quantized(qt)
 
 
 def exchange_halo(x: torch.Tensor, plan: PlanArrays, backend=None,

@@ -55,6 +55,10 @@ class QuantizedTensor:
     bits: int
     feat_dim: int
 
+    @property
+    def payload_bits_per_value(self) -> float:
+        return float(self.bits)
+
 
 def _lanes_per_byte(bits: int) -> int:
     return 8 // bits if bits in PACKABLE_BITS else 1
@@ -92,6 +96,13 @@ def unpack_bits(packed: torch.Tensor, bits: int, feat_dim: int) -> torch.Tensor:
     if bits not in PACKABLE_BITS:
         return packed[..., :feat_dim]
     return unpack_lanes(packed, bits, feat_dim)
+
+
+def theoretical_variance(h: torch.Tensor, bits: int) -> torch.Tensor:
+    """Theorem 1 variance of the dequantized vector: D (max-min)^2 / (6 B^2)."""
+    b = 2.0 ** bits - 1.0
+    rng = h.amax(dim=-1) - h.amin(dim=-1)
+    return h.shape[-1] * rng ** 2 / (6.0 * b ** 2)
 
 
 def _empty_ec(h: torch.Tensor) -> torch.Tensor:
@@ -178,3 +189,34 @@ def dequantize(qt: QuantizedTensor,
     out = vals * qt.scale[..., None].to(torch.float32) \
         + qt.zero[..., None].to(torch.float32)
     return out.to(out_dtype)
+
+
+def fake_quantize(h: torch.Tensor, bits: int,
+                  generator: Optional[torch.Generator] = None,
+                  stochastic: bool = True,
+                  u: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """dequantize(quantize(h)) in one call — the simulated-communication
+    value, in ``h``'s dtype."""
+    return dequantize(quantize(h, bits, generator, stochastic, u=u), h.dtype)
+
+
+class _StraightThrough(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, h, bits, generator, stochastic, u):
+        return fake_quantize(h, bits, generator, stochastic, u)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None, None, None
+
+
+def straight_through_quantize(h: torch.Tensor, bits: int,
+                              generator: Optional[torch.Generator] = None,
+                              stochastic: bool = True,
+                              u: Optional[torch.Tensor] = None
+                              ) -> torch.Tensor:
+    """:func:`fake_quantize` forward, the identity backward: the computation
+    treats quantize/dequantize as the identity in the backward pass (Sylvie
+    quantizes the backward *communication* separately, Alg. 2 lines
+    10-12)."""
+    return _StraightThrough.apply(h, bits, generator, stochastic, u)

@@ -1,4 +1,5 @@
-"""Graph container and the GCN pre-partition normalization (numpy).
+"""Graph container, its CSR, the GCN pre-partition normalization and the
+padding helpers (numpy).
 
 Messages flow src -> dst; undirected graphs store both directions. The
 partitioner (``partition.py``) turns a :class:`Graph` into static, padded
@@ -26,6 +27,25 @@ class Graph:
     pos: Optional[np.ndarray] = None       # (N, 3) positions
     edge_attr: Optional[np.ndarray] = None  # (E, d_e)
     n_classes: int = 0
+
+    @property
+    def n_edges(self) -> int:
+        return int(self.edge_index.shape[1])
+
+    def degrees(self, kind: str = "in") -> np.ndarray:
+        idx = self.edge_index[1] if kind == "in" else self.edge_index[0]
+        return np.bincount(idx, minlength=self.n_nodes).astype(np.int64)
+
+    def to_csr(self) -> tuple[np.ndarray, np.ndarray]:
+        """(indptr int64, indices int32) over the *outgoing* edges of each
+        node (src -> its dsts), in edge-list order within a node."""
+        order = np.argsort(self.edge_index[0], kind="stable")
+        src = self.edge_index[0][order]
+        dst = self.edge_index[1][order]
+        counts = np.bincount(src, minlength=self.n_nodes)
+        indptr = np.zeros(self.n_nodes + 1, dtype=np.int64)
+        np.cumsum(counts, out=indptr[1:])
+        return indptr, dst.astype(np.int32)
 
 
 def add_self_loops(edge_index: np.ndarray, n_nodes: int) -> np.ndarray:
@@ -55,3 +75,41 @@ def gcn_normalize(g: Graph, *, self_loops: bool = True,
             ea = np.concatenate([ea, pad], axis=0)
     ew = gcn_edge_weights(ei, g.n_nodes) if gcn_weights else None
     return dataclasses.replace(g, edge_index=ei, edge_attr=ea), ew
+
+
+def mean_edge_weights(edge_index: np.ndarray, n_nodes: int) -> np.ndarray:
+    """1/deg_in(dst) weights — mean aggregation as edge weights (GraphSAGE-mean)."""
+    deg = np.bincount(edge_index[1], minlength=n_nodes).astype(np.float64)
+    w = 1.0 / np.maximum(deg, 1.0)
+    return w[edge_index[1]].astype(np.float32)
+
+
+def pad_edges(edge_index: np.ndarray, e_pad: int, fill_node: int = 0,
+              extra: Optional[np.ndarray] = None):
+    """Pad a (2, E) edge list to (2, e_pad) + mask. Padded edges point at
+    ``fill_node`` with mask 0; ``extra`` (per-edge rows) is padded with
+    zeros and returned third."""
+    e = edge_index.shape[1]
+    if e > e_pad:
+        raise ValueError(f"{e} edges do not fit e_pad {e_pad}")
+    mask = np.zeros(e_pad, dtype=bool)
+    mask[:e] = True
+    out = np.full((2, e_pad), fill_node, dtype=np.int32)
+    out[:, :e] = edge_index
+    if extra is not None:
+        ex = np.zeros((e_pad,) + extra.shape[1:], dtype=extra.dtype)
+        ex[:e] = extra
+        return out, mask, ex
+    return out, mask
+
+
+def pad_to(arr: np.ndarray, n: int, axis: int = 0) -> np.ndarray:
+    """``arr`` zero-padded along ``axis`` to length ``n``."""
+    pad = n - arr.shape[axis]
+    if pad < 0:
+        raise ValueError(f"length {arr.shape[axis]} exceeds {n}")
+    if pad == 0:
+        return arr
+    widths = [(0, 0)] * arr.ndim
+    widths[axis] = (0, pad)
+    return np.pad(arr, widths)

@@ -29,10 +29,15 @@ from ``q`` at slot ``s`` lives at extended index ``n_local + q*h_pad + s``
 All arrays carry a leading partition axis ``P`` (the simulated runtime keeps
 the whole stack on one device). The plan is independent of the *model*; it is
 computed once per (graph, P) and reused every layer/epoch (as in the paper).
+
+:func:`analytic_partition_spec` sizes the same buffers without a graph
+(``PartitionShapeSpec``, the dense layout), for the cell inventory of
+``launch/cells.py``.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional
 
 import numpy as np
@@ -71,6 +76,15 @@ class HaloPlan:
     def real_rows(self) -> int:
         """True (unpadded, off-diagonal) halo rows per exchange, all partitions."""
         return int(self.send_mask.sum())
+
+    def real_send_counts(self) -> np.ndarray:
+        """(P,) true halo rows sent by each partition."""
+        return self.send_mask.reshape(self.n_parts, -1).sum(axis=1)
+
+    def pad_efficiency(self) -> float:
+        """Fraction of buffered rows that are real (1.0 = no padding waste)."""
+        total = self.send_mask.size
+        return float(self.send_mask.sum()) / max(total, 1)
 
 
 @dataclasses.dataclass
@@ -363,3 +377,37 @@ def khop_frontier(pg: PartitionedGraph, seed_nodes, k: int,
         nxt[dst_g[out[h][src_g]]] = True
         out[h + 1] = nxt
     return out
+
+
+# ---------------------------------------------------------------------------
+# Analytic plan *shapes* (no graph is materialized): the sizes of a cell's
+# static buffers for launch/cells.py. They size the dense layout (the
+# conservative upper bound).
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class PartitionShapeSpec:
+    n_parts: int
+    n_local: int
+    e_pad: int
+    h_pad: int
+
+    @property
+    def halo_rows(self) -> int:
+        return self.n_parts * self.h_pad
+
+
+def analytic_partition_spec(n_nodes: int, n_edges: int, n_parts: int,
+                            halo_frac: float = 0.5, pair_imbalance: float = 4.0,
+                            edge_imbalance: float = 1.15) -> PartitionShapeSpec:
+    """Size the static buffers for a hypothetical good (METIS-quality)
+    partition.
+
+    ``halo_frac``: halo nodes per partition as a fraction of local nodes
+    (0.3-1.0 for locality-aware cuts of power-law graphs at this
+    parallelism). ``pair_imbalance``: max/mean ratio of per-pair halo counts
+    (the padding factor)."""
+    n_local = math.ceil(n_nodes / n_parts)
+    e_pad = max(1, math.ceil(n_edges / n_parts * edge_imbalance))
+    halo_total = halo_frac * n_local
+    h_pad = max(1, math.ceil(halo_total * pair_imbalance / max(1, n_parts - 1)))
+    return PartitionShapeSpec(n_parts, n_local, e_pad, h_pad)

@@ -2,6 +2,8 @@
 
 * ``planted_partition`` — community graph with class-correlated features
   (Yelp-like: moderate degree, homophilous).
+* ``powerlaw`` — heavy-tailed in-degrees, random features and labels (the
+  sampler's test graph).
 * ``powerlaw_community`` — heavy-tailed degrees *and* planted classes
   (Reddit / products / Amazon-like: hubs that skew the per-pair halo counts).
 * ``grid_mesh`` — a 2D simulation mesh with world positions (MeshGraphNet).
@@ -59,6 +61,28 @@ def planted_partition(n_nodes=2708, n_classes=7, d_feat=64, avg_degree=8,
     tr, va, te = _split_masks(rng, n_nodes)
     ei = np.stack([src, dst]).astype(np.int32)
     return Graph(n_nodes, ei, x, y, tr, va, te, n_classes=n_classes)
+
+
+def powerlaw(n_nodes=10000, avg_degree=16, d_feat=128, n_classes=16,
+             seed=0) -> Graph:
+    """Preferential-attachment-ish power-law graph (vectorized
+    approximation): each node attaches ``avg_degree/2`` edges to targets
+    drawn with probability proportional to a Zipf popularity (exponent 0.8)
+    over a random node permutation — heavy-tailed in-degree."""
+    rng = np.random.default_rng(seed)
+    m = max(1, avg_degree // 2)
+    pop = (1.0 / (np.arange(1, n_nodes + 1) ** 0.8))
+    pop = pop[rng.permutation(n_nodes)]
+    pop /= pop.sum()
+    src = np.repeat(np.arange(n_nodes), m)
+    dst = rng.choice(n_nodes, size=src.size, p=pop)
+    keep = src != dst
+    src, dst = _undirect(src[keep], dst[keep])
+    x = rng.normal(0, 1, (n_nodes, d_feat)).astype(np.float32)
+    y = rng.integers(0, n_classes, n_nodes).astype(np.int32)
+    tr, va, te = _split_masks(rng, n_nodes)
+    return Graph(n_nodes, np.stack([src, dst]).astype(np.int32), x, y, tr, va,
+                 te, n_classes=n_classes)
 
 
 def powerlaw_community(n_nodes=4000, n_classes=16, d_feat=96, avg_degree=16,
@@ -133,7 +157,7 @@ def molecules(n_nodes=30, d_feat=16, cutoff=2.0, box=4.0, seed=0) -> Graph:
                  va, te, pos=pos, n_classes=4)
 
 
-GENERATORS = {"planted": planted_partition,
+GENERATORS = {"planted": planted_partition, "powerlaw": powerlaw,
               "powerlaw_community": powerlaw_community,
               "grid": grid_mesh, "molecule": molecules}
 

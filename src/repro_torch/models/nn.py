@@ -83,6 +83,22 @@ class MLP(nn.Module):
             self.add_module(name, layer)
 
 
+def layer_norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """Normalize the last axis to zero mean and unit variance (no affine)."""
+    mu = x.mean(-1, keepdim=True)
+    var = ((x - mu) ** 2).mean(-1, keepdim=True)
+    return (x - mu) * torch.rsqrt(var + eps)
+
+
+def rms_norm(x: torch.Tensor, gamma: Optional[torch.Tensor] = None,
+             eps: float = 1e-6) -> torch.Tensor:
+    """``x / rms(x)`` over the last axis (the mean square in float32), times
+    ``gamma`` when given."""
+    var = (x.to(torch.float32) ** 2).mean(-1, keepdim=True)
+    y = x * torch.rsqrt(var + eps).to(x.dtype)
+    return y if gamma is None else y * gamma
+
+
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                   mask: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Masked cross entropy as ``(sum_loss, count)``, so callers can sum both

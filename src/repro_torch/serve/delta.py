@@ -95,6 +95,14 @@ class FrontierIndex:
                            changed=int(changed.size), full=False)
 
 
+def plan_refresh(pg: PartitionedGraph, changed_global_ids,
+                 n_sites: int) -> RefreshPlan:
+    """One-shot :meth:`FrontierIndex.plan_refresh` (builds the O(E) index
+    each call: hold a :class:`FrontierIndex` when planning repeatedly, as
+    the engine does)."""
+    return FrontierIndex.build(pg).plan_refresh(changed_global_ids, n_sites)
+
+
 def plan_full(pg: PartitionedGraph, n_sites: int) -> RefreshPlan:
     """The full-sweep plan: every real row ships."""
     mask = pg.plan.send_mask.reshape(pg.plan.n_parts, -1)

@@ -221,3 +221,138 @@ def test_launchers_spawn_and_name_only_port_modules():
     assert cmd[cmd.index("--device") + 1] == "cpu"
     # the worker runs from this checkout's src/, whatever the caller's path
     assert chaos.SRC == ROOT / "src"
+
+
+# Public names of the JAX package with no counterpart in the port, each with
+# its reason. A whole module: its path relative to src/repro; a name:
+# "path::name" or "path::Class.method".
+NO_COUNTERPART = {
+    # whole modules
+    "analysis/jaxpr_checks.py": "lints JAX programs (jaxprs); the port's "
+                                "censuses count launches and collectives",
+    "dist/compat.py": "shims over JAX versions' mesh and shard_map APIs",
+    "kernels/flash/flash.py": "the Pallas body; its counterpart is "
+                              "kernels/csrc/flash.cu",
+    "kernels/quant/quant.py": "the Pallas bodies; their counterparts are "
+                              "kernels/csrc/quant.cu",
+    "kernels/spmm/spmm.py": "the Pallas body; its counterpart is "
+                            "kernels/csrc/spmm.cu",
+    "launch/dryrun.py": "lowers the cells for the TPU compiler (no "
+                        "counterpart: the port runs them)",
+    "launch/hlo.py": "reads XLA's HLO cost analysis of a lowered cell",
+    "launch/mesh.py": "builds TPU device meshes; a cell's mesh is its "
+                      "device count here",
+    "models/lm/sharding.py": "GSPMD partition specs of the LM over a mesh",
+    # the JAX lint rules (the port's own are RA104 / RA107 / RA108)
+    "analysis/lint/rules.py::Module.is_traced": "a JAX lint rule's helper",
+    "analysis/lint/rules.py::custom_vjp_arity": "a JAX lint rule",
+    "analysis/lint/rules.py::host_sync": "a JAX lint rule",
+    "analysis/lint/rules.py::nondeterminism": "a JAX lint rule",
+    "analysis/lint/rules.py::traced_branch": "a JAX lint rule",
+    "analysis/lint/rules.py::unhashable_static_args": "a JAX lint rule",
+    # the Pallas / jnp dispatch
+    "core/quantization.py::resolve_impl": "picks Pallas or jnp; the port's "
+                                          "wrappers pick by the tensor's "
+                                          "device",
+    # shape specs for lowering without data
+    "core/staleness.py::HaloState.zeros_spec": "ShapeDtypeStructs for "
+                                               "lowering",
+    "models/gnn/blocks.py::block_spec": "ShapeDtypeStructs for lowering",
+    "launch/cells.py::Cell.lower": "jax.jit(step).lower for the TPU "
+                                   "compiler",
+    # meshes and shard_map
+    "dist/api.py::device_put_gnn": "places a state on a mesh "
+                                   "(Runtime.device_put_gnn slices it)",
+    "dist/api.py::flat_axes": "mesh axes",
+    "dist/api.py::gnn_block_spec": "shard_map partition specs",
+    "dist/api.py::gnn_data_spec": "shard_map partition specs",
+    "dist/api.py::gnn_state_specs": "shard_map partition specs",
+    "dist/api.py::make_gnn_mesh": "builds a mesh",
+    "dist/api.py::mesh_size": "a mesh's device count",
+    "dist/api.py::shard_gnn_steps": "wraps the steps in shard_map",
+    "dist/api.py::shard_serve_fn": "wraps the sweep in shard_map",
+    "dist/backend.py::ShardMapBackend": "collectives inside shard_map "
+                                        "(ProcessGroupBackend is the "
+                                        "port's multi-process backend)",
+    **{f"dist/backend.py::ShardMapBackend.{m}": "ShardMapBackend's"
+       for m in ("axis_index", "axis_names", "device_put", "exchange",
+                 "exchange_compact", "exchange_quantized",
+                 "exchange_quantized_compact", "fence", "psum", "shard")},
+    **{f"{mod}::{cls}.{m}": "places or shards arrays on a mesh"
+       for mod, cls in (("dist/backend.py", "HaloBackend"),
+                        ("dist/backend.py", "SimulatedBackend"),
+                        ("faults/backend.py", "FaultyBackend"))
+       for m in ("device_put", "shard")},
+    "faults/backend.py::FaultyBackend.mesh": "the wrapped backend's mesh",
+    "dist/runtime.py::Runtime.device_put_replicated": "places on a mesh",
+    "dist/runtime.py::Runtime.device_put_stacked": "places on a mesh",
+    "dist/runtime.py::Runtime.from_mesh": "a runtime over a mesh "
+                                          "(Runtime.sharded over a process "
+                                          "group here)",
+    "dist/runtime.py::Runtime.mesh": "the runtime's mesh",
+    "dist/runtime.py::Runtime.shard_gnn_steps": "wraps the steps in "
+                                                "shard_map",
+    # the LM's sharding context and scan
+    "models/lm/model.py::ShardCtx": "GSPMD activation annotations",
+    "models/lm/model.py::ShardCtx.head": "GSPMD activation annotations",
+    "models/lm/model.py::set_shard_ctx": "GSPMD activation annotations",
+    "models/lm/model.py::shard_ctx_from_mesh": "GSPMD activation "
+                                               "annotations",
+    "models/lm/model.py::set_attn_scan_remat": "remat of a lax.scan body; "
+                                               "the port's layers loop in "
+                                               "Python under "
+                                               "torch.utils.checkpoint",
+    # parameters drawn at construction
+    **{f"{mod}::{cls}.init": "the port's modules draw their parameters at "
+                             "construction from a torch.Generator "
+                             "(param_tree() gives the tree)"
+       for mod, cls in (("models/gnn/models.py", "GCN"),
+                        ("models/gnn/models.py", "GraphSAGE"),
+                        ("models/gnn/models.py", "GAT"),
+                        ("models/gnn/models.py", "PNA"),
+                        ("models/gnn/models.py", "MeshGraphNet"),
+                        ("models/gnn/models.py", "SchNet"),
+                        ("models/gnn/nequip.py", "NequIP"))},
+    "models/gnn/blocks.py::edge_softmax": "GAT's edge softmax is fused "
+                                          "with its scores in kernels/gat "
+                                          "(gat.softmax over the CSR)",
+}
+
+
+def _public_names(path: Path) -> set:
+    """Public top-level defs and classes of ``path`` and each class's public
+    methods (``Class.method``)."""
+    out = set()
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef,
+                             ast.ClassDef)) and not node.name.startswith("_"):
+            out.add(node.name)
+            if isinstance(node, ast.ClassDef):
+                out |= {f"{node.name}.{m.name}" for m in node.body
+                        if isinstance(m, (ast.FunctionDef,
+                                          ast.AsyncFunctionDef))
+                        and not m.name.startswith("_")}
+    return out
+
+
+def test_port_has_every_public_name_of_the_jax_package():
+    """Every public name of every module of ``src/repro`` is in the port's
+    module of the same path, or in ``NO_COUNTERPART`` with its reason; and
+    every entry of ``NO_COUNTERPART`` is still a name the port lacks."""
+    ref, port = ROOT / "src" / "repro", ROOT / "src" / "repro_torch"
+    missing, lacking = [], set()
+    for f in sorted(ref.rglob("*.py")):
+        rel = f.relative_to(ref).as_posix()
+        mine = port / rel
+        if not mine.exists():
+            lacking.add(rel)
+            if rel not in NO_COUNTERPART:
+                missing.append(rel)
+            continue
+        for name in sorted(_public_names(f) - _public_names(mine)):
+            lacking.add(f"{rel}::{name}")
+            if f"{rel}::{name}" not in NO_COUNTERPART:
+                missing.append(f"{rel}::{name}")
+    assert not missing, missing
+    assert set(NO_COUNTERPART) <= lacking, set(NO_COUNTERPART) - lacking
+    assert all(reason for reason in NO_COUNTERPART.values())
