@@ -474,9 +474,9 @@ def contract_obs_transparency(device) -> list[Finding]:
     """RC210: observability must not change what runs. The span tracer and
     the metrics live at the host seams; enabling tracing must not add, drop
     or reorder a single exchange, collective or launch. Checked on the
-    sync and async train steps under ``schedule="overlap"`` (the one path
-    whose bodies emit ``obs.event``) and the serve sweep, with the tracer
-    off and on (a ``FakeClock``)."""
+    sync and async train steps under ``schedule="overlap"`` (the path with
+    the most spans: every issue and land is a ``halo`` span) and the serve
+    sweep, with the tracer off and on (a ``FakeClock``)."""
     where = "contract:obs_transparency"
     rt = Runtime.simulated(N_PARTS, device=device)
 

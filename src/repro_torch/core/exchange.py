@@ -15,6 +15,11 @@ The backward's scatter of received boundary gradients onto their owner rows
 (:func:`scatter_boundary_grad`) is a fixed 0/1 matrix from send slots to
 owners, built once on the host with the plan (``PlanArrays.scatter``) and
 applied by the SpMM kernel: no atomics, the adds in slot order.
+
+Tracing (``repro_torch.obs``): every exchange site's work in each direction
+runs inside a :func:`halo_span`, and the entry points below that hand
+buffers to the backend add their bytes (``nbytes`` of the payload and of
+the scale/zero, host metadata) to the innermost open one.
 """
 from __future__ import annotations
 
@@ -24,6 +29,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import obs
 from ..dist.backend import Inflight, as_backend
 from ..kernels.spmm.ops import spmm
 from ..kernels.spmm.ref import CSR, csr_from_edges
@@ -137,6 +143,31 @@ def scatter_boundary_grad(g: torch.Tensor, plan: PlanArrays) -> torch.Tensor:
     return out.reshape(p, plan.n_local, d)
 
 
+def halo_span(site: Optional[int], direction: str, kind: str, device):
+    """The ``halo`` span of exchange site ``site``'s work in ``direction``
+    (``"fwd"`` | ``"bwd"``), timed on ``device``. ``kind`` names the
+    exchange's path, not its precision: ``"quantized"`` (a synchronous
+    exchange through the quantize/dequantize round trip at the site's bits,
+    32 included: vanilla's float32 exchange is one), ``"stale"`` (Sylvie-A's
+    backward: the outgoing gradients and the stale ``grad_in`` scattered),
+    ``"fresh"`` (Sylvie-A's forward: the next step's halo) or ``"faulty"``
+    (a fault-armed site).
+    ``bytes`` sums what its exchanges hand to the backend.
+    ``obs.NULL_SPAN``, with no args built, when tracing is off."""
+    if not obs.enabled():
+        return obs.NULL_SPAN
+    return obs.span("halo", {"site": site, "dir": direction, "kind": kind,
+                             "bytes": 0}, device)
+
+
+def _handed(*tensors: torch.Tensor) -> None:
+    """Count the bytes of the buffers handed to the backend in the open
+    ``halo`` span."""
+    if obs.enabled():
+        obs.add_arg("halo", "bytes",
+                    sum(t.numel() * t.element_size() for t in tensors))
+
+
 def exchange(x: torch.Tensor, backend=None) -> torch.Tensor:
     """The dense halo all-to-all of a pairwise-blocked buffer ``x`` (P_local,
     P*h_pad, ...), through ``backend`` (``None``: the simulated stacked
@@ -156,6 +187,7 @@ def exchange_halo(x: torch.Tensor, plan: PlanArrays, backend=None,
     (``reverse`` ignored); compact plans run the ring buckets, reversed for
     the backward communication."""
     be = as_backend(backend)
+    _handed(x)
     if plan.bucket_sizes is None:
         return be.exchange(x)
     return be.exchange_compact(x, plan.bucket_sizes, reverse=reverse)
@@ -166,6 +198,7 @@ def exchange_quantized_halo(qt: QuantizedTensor, plan: PlanArrays,
                             reverse: bool = False) -> QuantizedTensor:
     """Layout-dispatching quantized exchange (payload + scale/zero together)."""
     be = as_backend(backend)
+    _handed(qt.data, qt.scale, qt.zero)
     if plan.bucket_sizes is None:
         return be.exchange_quantized(qt)
     return be.exchange_quantized_compact(qt, plan.bucket_sizes,
@@ -175,6 +208,7 @@ def exchange_quantized_halo(qt: QuantizedTensor, plan: PlanArrays,
 def issue_quantized_halo(qt: QuantizedTensor, plan: PlanArrays, backend=None,
                          reverse: bool = False) -> Inflight:
     """Start the layout's quantized exchange; ``backend.fence`` lands it."""
+    _handed(qt.data, qt.scale, qt.zero)
     return as_backend(backend).issue_quantized(qt, plan.bucket_sizes,
                                                reverse=reverse)
 

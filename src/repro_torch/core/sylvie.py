@@ -43,6 +43,14 @@ primitives of ``faults/comm.py`` whatever the schedule (the recovery blend
 needs the landed exchange at once, DESIGN §14); otherwise the ``"overlap"``
 schedule runs the issue/land twins of ``dist/overlap.py`` (a side CUDA
 stream on the card), and ``"blocking"`` the Functions below.
+
+**Tracing.** Each site's forward (``SylvieComm.halo``: the statistics, the
+gather, quantize, exchange, dequantize, the masks and BNS) and each
+backward that exchanges or scatters is a ``halo`` span
+(``core.exchange.halo_span``) with the site, the direction, the kind (the
+path: vanilla's float32 exchange is ``quantized`` at 32 bits) and the
+bytes handed to the backend; the Functions take the site as their last
+argument (``site``) for their backward's span.
 """
 from __future__ import annotations
 
@@ -58,7 +66,7 @@ from ..faults import comm as fcomm
 from ..policy.base import SiteDecision
 from . import quantization as qlib
 from .exchange import (PlanArrays, exchange_quantized_halo, gather_boundary,
-                       scatter_boundary_grad)
+                       halo_span, scatter_boundary_grad)
 
 Mode = str  # "vanilla" | "sync" | "async"
 
@@ -120,9 +128,9 @@ class QuantizedHalo(torch.autograd.Function):
     @staticmethod
     def forward(ctx, h, plan: PlanArrays, fwd_bits: int, bwd_bits: int,
                 stochastic: bool, scale_dtype, backend, gen_fwd=None,
-                gen_bwd=None, u_fwd=None, u_bwd=None):
-        ctx.plan, ctx.bwd = plan, (bwd_bits, stochastic, scale_dtype, backend,
-                                   gen_bwd, u_bwd)
+                gen_bwd=None, u_fwd=None, u_bwd=None, site=None):
+        ctx.plan, ctx.site = plan, site
+        ctx.bwd = (bwd_bits, stochastic, scale_dtype, backend, gen_bwd, u_bwd)
         out = _q_roundtrip(gather_boundary(h, plan), fwd_bits, stochastic,
                            scale_dtype, backend, plan, gen_fwd, u_fwd)
         return _live(out, plan.recv_mask)
@@ -130,20 +138,23 @@ class QuantizedHalo(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         if not ctx.needs_input_grad[0]:
-            return (None,) * 11
+            return (None,) * 12
         plan = ctx.plan
         bits, stochastic, scale_dtype, backend, gen, u = ctx.bwd
-        back = _q_roundtrip(_live(g, plan.recv_mask), bits, stochastic,
-                            scale_dtype, backend, plan, gen, u, reverse=True)
-        return (scatter_boundary_grad(back, plan),) + (None,) * 10
+        with halo_span(ctx.site, "bwd", "quantized", g.device):
+            back = _q_roundtrip(_live(g, plan.recv_mask), bits, stochastic,
+                                scale_dtype, backend, plan, gen, u,
+                                reverse=True)
+            grad_h = scatter_boundary_grad(back, plan)
+        return (grad_h,) + (None,) * 11
 
 
 def quantized_halo(h, plan, fwd_bits, bwd_bits, stochastic, scale_dtype,
                    backend, gen_fwd=None, gen_bwd=None, u_fwd=None,
-                   u_bwd=None) -> torch.Tensor:
+                   u_bwd=None, site=None) -> torch.Tensor:
     return QuantizedHalo.apply(h, plan, fwd_bits, bwd_bits, stochastic,
                                scale_dtype, backend, gen_fwd, gen_bwd, u_fwd,
-                               u_bwd)
+                               u_bwd, site)
 
 
 # ---------------------------------------------------------------------------
@@ -174,8 +185,8 @@ class StaleHalo(torch.autograd.Function):
     @staticmethod
     def forward(ctx, h, feat_cache, grad_in, gslot, plan: PlanArrays,
                 bwd_bits: int, stochastic: bool, scale_dtype, backend,
-                gen_bwd=None, u_bwd=None):
-        ctx.plan, ctx.grad_in = plan, grad_in
+                gen_bwd=None, u_bwd=None, site=None):
+        ctx.plan, ctx.grad_in, ctx.site = plan, grad_in, site
         ctx.bwd = (bwd_bits, stochastic, scale_dtype, backend, gen_bwd, u_bwd)
         return feat_cache.clone()
 
@@ -183,20 +194,24 @@ class StaleHalo(torch.autograd.Function):
     def backward(ctx, g):
         plan = ctx.plan
         grad_h = fresh = None
-        if ctx.needs_input_grad[3]:
-            bits, stochastic, scale_dtype, backend, gen, u = ctx.bwd
-            fresh = _live(_q_roundtrip(_live(g, plan.recv_mask), bits,
-                                       stochastic, scale_dtype, backend, plan,
-                                       gen, u, reverse=True), plan.send_mask)
-        if ctx.needs_input_grad[0]:
-            grad_h = scatter_boundary_grad(ctx.grad_in, plan)
-        return (grad_h, None, None, fresh) + (None,) * 7
+        with halo_span(ctx.site, "bwd", "stale", g.device):
+            if ctx.needs_input_grad[3]:
+                bits, stochastic, scale_dtype, backend, gen, u = ctx.bwd
+                fresh = _live(_q_roundtrip(_live(g, plan.recv_mask), bits,
+                                           stochastic, scale_dtype, backend,
+                                           plan, gen, u, reverse=True),
+                              plan.send_mask)
+            if ctx.needs_input_grad[0]:
+                grad_h = scatter_boundary_grad(ctx.grad_in, plan)
+        return (grad_h, None, None, fresh) + (None,) * 8
 
 
 def stale_halo(h, feat_cache, grad_in, gslot, plan, bwd_bits, stochastic,
-               scale_dtype, backend, gen_bwd=None, u_bwd=None) -> torch.Tensor:
+               scale_dtype, backend, gen_bwd=None, u_bwd=None,
+               site=None) -> torch.Tensor:
     return StaleHalo.apply(h, feat_cache, grad_in, gslot, plan, bwd_bits,
-                           stochastic, scale_dtype, backend, gen_bwd, u_bwd)
+                           stochastic, scale_dtype, backend, gen_bwd, u_bwd,
+                           site)
 
 
 # ---------------------------------------------------------------------------
@@ -307,14 +322,21 @@ class SylvieComm:
 
     def halo(self, h: torch.Tensor) -> torch.Tensor:
         self.issue_pending()
-        cfg = self.cfg
         i = self._site
         self._site += 1
+        sf = self.fault_sites[i] if self.fault_sites is not None else None
+        kind = "faulty" if sf is not None else \
+            "fresh" if self.cfg.mode == "async" else "quantized"
+        with halo_span(i, "fwd", kind, h.device):
+            return self._halo(h, i, sf)
+
+    def _halo(self, h: torch.Tensor, i: int, sf) -> torch.Tensor:
+        """Site ``i``'s forward (``sf``: its fault masks, or ``None``)."""
+        cfg = self.cfg
         sd = self._site_decision(i)
         self._record_stats(h)
         gen_f, gen_b = self._stream(2 * i, h.device), \
             self._stream(2 * i + 1, h.device)
-        sf = self.fault_sites[i] if self.fault_sites is not None else None
         # fault-armed sites always run the blocking faulty primitives: the
         # recovery blend needs the landed exchange immediately (DESIGN §14)
         overlap = self.schedule == "overlap" and sf is None
@@ -323,14 +345,14 @@ class SylvieComm:
             if sf is not None:
                 halo = fcomm.faulty_quantized_halo(
                     h, self.feat_caches[i], sf, self.plan, sd.fwd_bits,
-                    sd.bwd_bits, *args, gen_f, gen_b)
+                    sd.bwd_bits, *args, gen_f, gen_b, site=i)
             elif overlap:
                 halo = olap.overlap_quantized_halo(
                     h, self.plan, sd.fwd_bits, sd.bwd_bits, *args, gen_f,
-                    gen_b)
+                    gen_b, site=i)
             else:
                 halo = quantized_halo(h, self.plan, sd.fwd_bits, sd.bwd_bits,
-                                      *args, gen_f, gen_b)
+                                      *args, gen_f, gen_b, site=i)
             bns = self._bns_mask(i, sd.boundary_sample_p, h.device)
             if bns is not None:
                 halo = halo * bns[..., None]
@@ -341,22 +363,23 @@ class SylvieComm:
         stale = (h, self.feat_caches[i], self.grad_ins[i], self.gslots[i])
         if sf is not None:
             halo = fcomm.faulty_stale_halo(*stale, sf, self.plan, sd.bwd_bits,
-                                           *args, gen_b)
+                                           *args, gen_b, site=i)
             fresh = fcomm.faulty_fresh_halo(h, self.feat_caches[i], sf,
                                             self.plan, sd.fwd_bits, *args,
                                             gen_f)
         elif overlap:
             halo = olap.overlap_stale_halo(*stale, self.plan, sd.bwd_bits,
-                                           *args, gen_b)
+                                           *args, gen_b, site=i)
             # issued once this layer's aggregation is enqueued, so that the
             # side stream runs beside it; h is ready here
             ready = olap.mark(h)
             self._pending.append((len(self.new_feat_caches), lambda: (
                 olap.overlap_fresh_halo(h, self.plan, sd.fwd_bits, *args,
-                                        gen_f, ready=ready))))
+                                        gen_f, ready=ready, site=i))))
             fresh = None
         else:
-            halo = stale_halo(*stale, self.plan, sd.bwd_bits, *args, gen_b)
+            halo = stale_halo(*stale, self.plan, sd.bwd_bits, *args, gen_b,
+                              site=i)
             fresh = fresh_halo(h, self.plan, sd.fwd_bits, *args, gen_f)
         self.new_feat_caches.append(fresh)
         return halo
@@ -374,9 +397,9 @@ class SylvieComm:
         and dequantized here, so the caller lands them once the rest of its
         step is enqueued."""
         self.issue_pending()
-        return tuple(olap.land_fresh(c, self.plan, self.backend)
+        return tuple(olap.land_fresh(c, self.plan, self.backend, site=i)
                      if isinstance(c, Inflight) else c
-                     for c in self.new_feat_caches)
+                     for i, c in enumerate(self.new_feat_caches))
 
     @property
     def n_sites(self) -> int:

@@ -48,6 +48,11 @@ enqueues the independent work first:
   Function's backward runs on its forward's stream, so the backward
   switches to the side stream itself and its land waits.
 
+Tracing: each issue and each land is a ``halo`` span of its site and
+direction (``core.exchange.halo_span``); the issue is timed on the side
+stream it enqueues on, the land on the consuming stream. The backward
+Functions wrap their whole work (scatter, issue, land) in one more.
+
 The module also owns the DESIGN §8/§14 comm-time model: under the overlap
 schedule each site's modeled comm time splits into an *overlapped* share
 (hidden under that site's compute window) and an *exposed* remainder;
@@ -61,10 +66,10 @@ from typing import Callable, Optional
 
 import torch
 
-from .. import obs
 from ..core import quantization as qlib
 from ..core.exchange import (PlanArrays, exchange_bytes, gather_boundary,
-                             issue_quantized_halo, scatter_boundary_grad)
+                             halo_span, issue_quantized_halo,
+                             scatter_boundary_grad)
 from .backend import Inflight
 
 
@@ -92,13 +97,15 @@ def mark(t: torch.Tensor) -> Optional[torch.cuda.Event]:
 def _issue(src: torch.Tensor, prep: Callable, bits, stochastic, scale_dtype,
            backend, plan: PlanArrays, generator=None, u=None,
            reverse: bool = False,
-           ready: Optional[torch.cuda.Event] = None) -> Inflight:
+           ready: Optional[torch.cuda.Event] = None, site=None,
+           kind: str = "quantized") -> Inflight:
     """Issue one direction's quantized exchange: ``prep(src)`` (the boundary
     gather, or the masked gradient), quantize, start the exchange — on the
     side stream on CUDA, on the host's thread on the CPU. The side stream
     waits for ``ready`` (a :func:`mark` of ``src``), or for everything
-    enqueued on the current stream so far."""
-    obs.event("halo.issue", {"bits": int(bits), "reverse": bool(reverse)})
+    enqueued on the current stream so far. ``site`` and ``kind`` label its
+    ``halo`` span."""
+    direction = "bwd" if reverse else "fwd"
 
     def run():
         qt = qlib.quantize(prep(src), bits, generator, stochastic,
@@ -106,14 +113,16 @@ def _issue(src: torch.Tensor, prep: Callable, bits, stochastic, scale_dtype,
         return issue_quantized_halo(qt, plan, backend, reverse=reverse)
 
     if src.device.type != "cuda":
-        return run()
+        with halo_span(site, direction, kind, src.device):
+            return run()
     main = torch.cuda.current_stream(src.device)
     side = backend.side_stream(src.device)
     if ready is None:
         side.wait_stream(main)
     else:
         side.wait_event(ready)
-    with torch.cuda.stream(side):
+    with torch.cuda.stream(side), \
+            halo_span(site, direction, kind, src.device):
         inflight = run()
         inflight.event = torch.cuda.Event()
         inflight.event.record(side)
@@ -125,11 +134,12 @@ def _issue(src: torch.Tensor, prep: Callable, bits, stochastic, scale_dtype,
     return inflight
 
 
-def _land(inflight: Inflight, backend) -> torch.Tensor:
+def _land(inflight: Inflight, backend, site=None, direction: str = "fwd",
+          kind: str = "quantized") -> torch.Tensor:
     """Land an issued exchange: fence, then dequantize on the consuming
-    stream."""
-    obs.event("halo.land")
-    return qlib.dequantize(fence(backend, inflight).qt)
+    stream (a ``halo`` span labelled by ``site``, ``direction``, ``kind``)."""
+    with halo_span(site, direction, kind, inflight.qt.data.device):
+        return qlib.dequantize(fence(backend, inflight).qt)
 
 
 # ---------------------------------------------------------------------------
@@ -142,33 +152,35 @@ class OverlapQuantizedHalo(torch.autograd.Function):
     @staticmethod
     def forward(ctx, h, plan: PlanArrays, fwd_bits: int, bwd_bits: int,
                 stochastic: bool, scale_dtype, backend, gen_fwd=None,
-                gen_bwd=None, u_fwd=None, u_bwd=None):
-        ctx.plan, ctx.bwd = plan, (bwd_bits, stochastic, scale_dtype, backend,
-                                   gen_bwd, u_bwd)
+                gen_bwd=None, u_fwd=None, u_bwd=None, site=None):
+        ctx.plan, ctx.site = plan, site
+        ctx.bwd = (bwd_bits, stochastic, scale_dtype, backend, gen_bwd, u_bwd)
         inflight = _issue(h, lambda t: gather_boundary(t, plan), fwd_bits,
                           stochastic, scale_dtype, backend, plan, gen_fwd,
-                          u_fwd)
-        return _live(_land(inflight, backend), plan.recv_mask)
+                          u_fwd, site=site)
+        return _live(_land(inflight, backend, site), plan.recv_mask)
 
     @staticmethod
     def backward(ctx, g):
         if not ctx.needs_input_grad[0]:
-            return (None,) * 11
-        plan = ctx.plan
+            return (None,) * 12
+        plan, site = ctx.plan, ctx.site
         bits, stochastic, scale_dtype, backend, gen, u = ctx.bwd
-        inflight = _issue(g, lambda t: _live(t, plan.recv_mask), bits,
-                          stochastic, scale_dtype, backend, plan, gen, u,
-                          reverse=True)
-        back = _land(inflight, backend)
-        return (scatter_boundary_grad(back, plan),) + (None,) * 10
+        with halo_span(site, "bwd", "quantized", g.device):
+            inflight = _issue(g, lambda t: _live(t, plan.recv_mask), bits,
+                              stochastic, scale_dtype, backend, plan, gen, u,
+                              reverse=True, site=site)
+            back = _land(inflight, backend, site, "bwd")
+            grad_h = scatter_boundary_grad(back, plan)
+        return (grad_h,) + (None,) * 11
 
 
 def overlap_quantized_halo(h, plan, fwd_bits, bwd_bits, stochastic,
                            scale_dtype, backend, gen_fwd=None, gen_bwd=None,
-                           u_fwd=None, u_bwd=None) -> torch.Tensor:
+                           u_fwd=None, u_bwd=None, site=None) -> torch.Tensor:
     return OverlapQuantizedHalo.apply(h, plan, fwd_bits, bwd_bits, stochastic,
                                       scale_dtype, backend, gen_fwd, gen_bwd,
-                                      u_fwd, u_bwd)
+                                      u_fwd, u_bwd, site)
 
 
 # ---------------------------------------------------------------------------
@@ -176,7 +188,7 @@ def overlap_quantized_halo(h, plan, fwd_bits, bwd_bits, stochastic,
 # ---------------------------------------------------------------------------
 def overlap_fresh_halo(h, plan: PlanArrays, fwd_bits, stochastic,
                        scale_dtype, backend, generator=None, u=None,
-                       ready: Optional[torch.cuda.Event] = None
+                       ready: Optional[torch.cuda.Event] = None, site=None
                        ) -> Inflight:
     """Issue this step's fresh exchange (detached, like ``fresh_halo``); the
     caller lands it with :func:`land_fresh` once the step's other work is
@@ -185,13 +197,15 @@ def overlap_fresh_halo(h, plan: PlanArrays, fwd_bits, stochastic,
     with torch.no_grad():
         return _issue(h.detach(), lambda t: gather_boundary(t, plan),
                       fwd_bits, stochastic, scale_dtype, backend, plan,
-                      generator, u, ready=ready)
+                      generator, u, ready=ready, site=site, kind="fresh")
 
 
-def land_fresh(inflight: Inflight, plan: PlanArrays, backend) -> torch.Tensor:
+def land_fresh(inflight: Inflight, plan: PlanArrays, backend,
+               site=None) -> torch.Tensor:
     """The landed fresh halo: ``fresh_halo``'s value, bit for bit."""
     with torch.no_grad():
-        return _live(_land(inflight, backend), plan.recv_mask)
+        return _live(_land(inflight, backend, site, kind="fresh"),
+                     plan.recv_mask)
 
 
 class OverlapStaleHalo(torch.autograd.Function):
@@ -204,33 +218,36 @@ class OverlapStaleHalo(torch.autograd.Function):
     @staticmethod
     def forward(ctx, h, feat_cache, grad_in, gslot, plan: PlanArrays,
                 bwd_bits: int, stochastic: bool, scale_dtype, backend,
-                gen_bwd=None, u_bwd=None):
-        ctx.plan, ctx.grad_in = plan, grad_in
+                gen_bwd=None, u_bwd=None, site=None):
+        ctx.plan, ctx.grad_in, ctx.site = plan, grad_in, site
         ctx.bwd = (bwd_bits, stochastic, scale_dtype, backend, gen_bwd, u_bwd)
         return feat_cache.clone()
 
     @staticmethod
     def backward(ctx, g):
-        plan = ctx.plan
+        plan, site = ctx.plan, ctx.site
         bits, stochastic, scale_dtype, backend, gen, u = ctx.bwd
-        ready = mark(g)
         grad_h = fresh = None
-        if ctx.needs_input_grad[0]:
-            grad_h = scatter_boundary_grad(ctx.grad_in, plan)
-        if ctx.needs_input_grad[3]:
-            inflight = _issue(g, lambda t: _live(t, plan.recv_mask), bits,
-                              stochastic, scale_dtype, backend, plan, gen, u,
-                              reverse=True, ready=ready)
-            fresh = _live(_land(inflight, backend), plan.send_mask)
-        return (grad_h, None, None, fresh) + (None,) * 7
+        with halo_span(site, "bwd", "stale", g.device):
+            ready = mark(g)
+            if ctx.needs_input_grad[0]:
+                grad_h = scatter_boundary_grad(ctx.grad_in, plan)
+            if ctx.needs_input_grad[3]:
+                inflight = _issue(g, lambda t: _live(t, plan.recv_mask), bits,
+                                  stochastic, scale_dtype, backend, plan, gen,
+                                  u, reverse=True, ready=ready, site=site,
+                                  kind="stale")
+                fresh = _live(_land(inflight, backend, site, "bwd", "stale"),
+                              plan.send_mask)
+        return (grad_h, None, None, fresh) + (None,) * 8
 
 
 def overlap_stale_halo(h, feat_cache, grad_in, gslot, plan, bwd_bits,
                        stochastic, scale_dtype, backend, gen_bwd=None,
-                       u_bwd=None) -> torch.Tensor:
+                       u_bwd=None, site=None) -> torch.Tensor:
     return OverlapStaleHalo.apply(h, feat_cache, grad_in, gslot, plan,
                                   bwd_bits, stochastic, scale_dtype, backend,
-                                  gen_bwd, u_bwd)
+                                  gen_bwd, u_bwd, site)
 
 
 # ---------------------------------------------------------------------------

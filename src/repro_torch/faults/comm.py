@@ -24,14 +24,15 @@ and ``grad_in`` are zero outside the live rows: they start zero and are only
 written by these masked blends), so a clean
 :class:`~repro_torch.faults.plan.FaultCtl` gives the clean primitives' values
 bit for bit. Noise comes as in the clean Functions: generators, or injected
-``u_fwd`` / ``u_bwd``.
+``u_fwd`` / ``u_bwd``. A backward is a ``halo`` span of kind ``"faulty"``
+(the forward's is the site's own, in ``SylvieComm.halo``).
 """
 from __future__ import annotations
 
 import torch
 
 from ..core import quantization as qlib
-from ..core.exchange import (PlanArrays, gather_boundary,
+from ..core.exchange import (PlanArrays, gather_boundary, halo_span,
                              scatter_boundary_grad)
 from .wire import checked_exchange
 
@@ -52,8 +53,9 @@ class FaultyQuantizedHalo(torch.autograd.Function):
     @staticmethod
     def forward(ctx, h, feat_cache, sf, plan: PlanArrays, fwd_bits: int,
                 bwd_bits: int, stochastic: bool, scale_dtype, backend,
-                gen_fwd=None, gen_bwd=None, u_fwd=None, u_bwd=None):
-        ctx.plan, ctx.sf = plan, sf
+                gen_fwd=None, gen_bwd=None, u_fwd=None, u_bwd=None,
+                site=None):
+        ctx.plan, ctx.sf, ctx.site = plan, sf, site
         ctx.bwd = (bwd_bits, stochastic, scale_dtype, backend, gen_bwd, u_bwd)
         qt = qlib.quantize(gather_boundary(h, plan), fwd_bits, gen_fwd,
                            stochastic, scale_dtype, u=u_fwd)
@@ -65,26 +67,29 @@ class FaultyQuantizedHalo(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         if not ctx.needs_input_grad[0]:
-            return (None,) * 13
+            return (None,) * 14
         plan, sf = ctx.plan, ctx.sf
         bits, stochastic, scale_dtype, backend, gen, u = ctx.bwd
-        qt = qlib.quantize(torch.where(plan.recv_mask[..., None], g, 0.0),
-                           bits, gen, stochastic, scale_dtype, u=u)
-        qr, ok = checked_exchange(qt, plan, backend, sf.corrupt_bwd,
-                                  sf.drop_bwd, reverse=True)
-        # a lost returned-gradient row contributes zero — the synchronous
-        # step's grad caches are drained, so zero *is* its stale value
-        back = _blend(ok, plan.send_mask, qlib.dequantize(qr), 0.0)
-        return (scatter_boundary_grad(back, plan),) + (None,) * 12
+        with halo_span(ctx.site, "bwd", "faulty", g.device):
+            qt = qlib.quantize(torch.where(plan.recv_mask[..., None], g, 0.0),
+                               bits, gen, stochastic, scale_dtype, u=u)
+            qr, ok = checked_exchange(qt, plan, backend, sf.corrupt_bwd,
+                                      sf.drop_bwd, reverse=True)
+            # a lost returned-gradient row contributes zero — the synchronous
+            # step's grad caches are drained, so zero *is* its stale value
+            back = _blend(ok, plan.send_mask, qlib.dequantize(qr), 0.0)
+            grad_h = scatter_boundary_grad(back, plan)
+        return (grad_h,) + (None,) * 13
 
 
 def faulty_quantized_halo(h, feat_cache, sf, plan, fwd_bits, bwd_bits,
                           stochastic, scale_dtype, backend, gen_fwd=None,
-                          gen_bwd=None, u_fwd=None, u_bwd=None
+                          gen_bwd=None, u_fwd=None, u_bwd=None, site=None
                           ) -> torch.Tensor:
     return FaultyQuantizedHalo.apply(h, feat_cache, sf, plan, fwd_bits,
                                      bwd_bits, stochastic, scale_dtype,
-                                     backend, gen_fwd, gen_bwd, u_fwd, u_bwd)
+                                     backend, gen_fwd, gen_bwd, u_fwd, u_bwd,
+                                     site)
 
 
 # ---------------------------------------------------------------------------
@@ -114,8 +119,8 @@ class FaultyStaleHalo(torch.autograd.Function):
     @staticmethod
     def forward(ctx, h, feat_cache, grad_in, gslot, sf, plan: PlanArrays,
                 bwd_bits: int, stochastic: bool, scale_dtype, backend,
-                gen_bwd=None, u_bwd=None):
-        ctx.plan, ctx.grad_in, ctx.sf = plan, grad_in, sf
+                gen_bwd=None, u_bwd=None, site=None):
+        ctx.plan, ctx.grad_in, ctx.sf, ctx.site = plan, grad_in, sf, site
         ctx.bwd = (bwd_bits, stochastic, scale_dtype, backend, gen_bwd, u_bwd)
         return feat_cache.clone()
 
@@ -123,23 +128,25 @@ class FaultyStaleHalo(torch.autograd.Function):
     def backward(ctx, g):
         plan, sf = ctx.plan, ctx.sf
         grad_h = fresh = None
-        if ctx.needs_input_grad[3]:
-            bits, stochastic, scale_dtype, backend, gen, u = ctx.bwd
-            qt = qlib.quantize(torch.where(plan.recv_mask[..., None], g, 0.0),
-                               bits, gen, stochastic, scale_dtype, u=u)
-            qr, ok = checked_exchange(qt, plan, backend, sf.corrupt_bwd,
-                                      sf.drop_bwd, reverse=True)
-            # grad_in is zero outside send_mask — one blend suffices
-            fresh = _blend(ok, plan.send_mask, qlib.dequantize(qr),
-                           ctx.grad_in)
-        if ctx.needs_input_grad[0]:
-            grad_h = scatter_boundary_grad(ctx.grad_in, plan)
-        return (grad_h, None, None, fresh) + (None,) * 8
+        with halo_span(ctx.site, "bwd", "faulty", g.device):
+            if ctx.needs_input_grad[3]:
+                bits, stochastic, scale_dtype, backend, gen, u = ctx.bwd
+                qt = qlib.quantize(
+                    torch.where(plan.recv_mask[..., None], g, 0.0), bits,
+                    gen, stochastic, scale_dtype, u=u)
+                qr, ok = checked_exchange(qt, plan, backend, sf.corrupt_bwd,
+                                          sf.drop_bwd, reverse=True)
+                # grad_in is zero outside send_mask — one blend suffices
+                fresh = _blend(ok, plan.send_mask, qlib.dequantize(qr),
+                               ctx.grad_in)
+            if ctx.needs_input_grad[0]:
+                grad_h = scatter_boundary_grad(ctx.grad_in, plan)
+        return (grad_h, None, None, fresh) + (None,) * 9
 
 
 def faulty_stale_halo(h, feat_cache, grad_in, gslot, sf, plan, bwd_bits,
                       stochastic, scale_dtype, backend, gen_bwd=None,
-                      u_bwd=None) -> torch.Tensor:
+                      u_bwd=None, site=None) -> torch.Tensor:
     return FaultyStaleHalo.apply(h, feat_cache, grad_in, gslot, sf, plan,
                                  bwd_bits, stochastic, scale_dtype, backend,
-                                 gen_bwd, u_bwd)
+                                 gen_bwd, u_bwd, site)

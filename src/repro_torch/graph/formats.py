@@ -4,6 +4,8 @@ padding helpers (numpy).
 Messages flow src -> dst; undirected graphs store both directions. The
 partitioner (``partition.py``) turns a :class:`Graph` into static, padded
 per-partition arrays; the device side never sees this container.
+:func:`gcn_normalize` times itself into the gauge ``setup.normalize_s``
+(``repro_torch.obs``).
 """
 from __future__ import annotations
 
@@ -11,6 +13,8 @@ import dataclasses
 from typing import Optional
 
 import numpy as np
+
+from .. import obs
 
 
 @dataclasses.dataclass
@@ -62,6 +66,7 @@ def gcn_edge_weights(edge_index: np.ndarray, n_nodes: int) -> np.ndarray:
     return (inv_sqrt[edge_index[0]] * inv_sqrt[edge_index[1]]).astype(np.float32)
 
 
+@obs.timed("setup.normalize_s")
 def gcn_normalize(g: Graph, *, self_loops: bool = True,
                   gcn_weights: bool = True):
     """Append self-loops (zero attribute rows for graphs with ``edge_attr``)

@@ -32,7 +32,8 @@ computed once per (graph, P) and reused every layer/epoch (as in the paper).
 
 :func:`analytic_partition_spec` sizes the same buffers without a graph
 (``PartitionShapeSpec``, the dense layout), for the cell inventory of
-``launch/cells.py``.
+``launch/cells.py``. :func:`partition_graph` times itself into the gauge
+``setup.partition_s`` (``repro_torch.obs``).
 """
 from __future__ import annotations
 
@@ -42,6 +43,7 @@ from typing import Optional
 
 import numpy as np
 
+from .. import obs
 from .formats import Graph
 
 
@@ -152,6 +154,7 @@ def _align_up(x: np.ndarray, a: int) -> np.ndarray:
     return -(-x // a) * a
 
 
+@obs.timed("setup.partition_s")
 def partition_graph(g: Graph, n_parts: int, method: str = "block",
                     edge_weight: Optional[np.ndarray] = None,
                     seed: int = 0, layout: str = "compact",

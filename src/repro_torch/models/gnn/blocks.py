@@ -41,6 +41,10 @@ The primitives over them:
   softmax (``kernels.gat``) and the per-head SpMM forward; the per-head SpMM
   over ``csr_t`` (alpha read through ``perm_t``, no transposed copy
   gathered), an SDDMM and the softmax's backward in the backward pass.
+
+Tracing (``repro_torch.obs``): :func:`aggregate` and :func:`agg_mean`, and
+their backward, are ``agg`` spans timed on the device (args ``dir``,
+``"fwd"`` | ``"bwd"``, and ``width``, the table's).
 """
 from __future__ import annotations
 
@@ -51,6 +55,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ... import obs
 from ...core.exchange import PlanArrays
 from ...graph.partition import PartitionedGraph
 from ...kernels.gat import ops as gat
@@ -338,17 +343,28 @@ def agg_min(block: GraphBlock, msgs: torch.Tensor) -> torch.Tensor:
     return agg_max_min(block, msgs)[1]
 
 
+def _agg_span(direction: str, x: torch.Tensor):
+    """The ``agg`` span of one SpMM over ``x``'s rows (``obs.NULL_SPAN``,
+    with no args built, when tracing is off)."""
+    if not obs.enabled():
+        return obs.NULL_SPAN
+    return obs.span("agg", {"dir": direction, "width": int(x.shape[-1])},
+                    x.device)
+
+
 class _Aggregate(torch.autograd.Function):
     """``spmm(table, csr)`` forward, ``spmm(grad_out, csr_t)`` backward."""
 
     @staticmethod
     def forward(ctx, table, csr: CSR, csr_t: CSR):
         ctx.csr_t = csr_t
-        return spmm(table, csr)
+        with _agg_span("fwd", table):
+            return spmm(table, csr)
 
     @staticmethod
     def backward(ctx, grad_out):
-        return spmm(grad_out.contiguous(), ctx.csr_t), None, None
+        with _agg_span("bwd", grad_out):
+            return spmm(grad_out.contiguous(), ctx.csr_t), None, None
 
 
 def _spmm_stack(block: GraphBlock, table: torch.Tensor, csr: CSR,

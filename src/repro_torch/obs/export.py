@@ -7,6 +7,9 @@ files (schema ``repro.obs/1``). The port's artifacts default to
 * ``<name>.trace.json`` — Chrome ``trace_event`` format (open in Perfetto or
   ``chrome://tracing``): ``{"traceEvents": [{"name", "ph", "ts", "dur",
   "pid", "tid", "args"}], "displayTimeUnit": "ms"}``, timestamps in µs.
+  A span timed on the device (``dts`` / ``ddur``) is followed by its device
+  interval, ``<name>:device`` on a track of its own (``DEVICE_TID``, named
+  ``device``), so the timeline shows host and device side by side.
 * ``<name>.metrics.json`` — the metrics-registry snapshot plus an optional
   modeled-vs-measured join (each epoch's measured wall time against a
   modeled exposed / overlapped communication time, ``drift_s`` the gap).
@@ -22,6 +25,8 @@ from pathlib import Path
 from typing import Optional, Sequence
 
 SCHEMA = "repro.obs/1"
+# the trace's device track: a thread id no host thread has
+DEVICE_TID = 1
 
 
 def default_obs_dir() -> Path:
@@ -33,18 +38,33 @@ def default_obs_dir() -> Path:
 # ---------------------------------------------------------------------------
 # writers
 # ---------------------------------------------------------------------------
+def _us(seconds: float) -> int:
+    return int(round(seconds * 1e6))
+
+
 def to_trace_events(events: Sequence[dict], pid: int = 0) -> list[dict]:
-    """Tracer events (seconds) -> Chrome ``trace_event`` dicts (µs ints)."""
-    out = []
+    """Tracer events (seconds) -> Chrome ``trace_event`` dicts (µs ints);
+    device intervals on the ``DEVICE_TID`` track."""
+    out, named = [], False
     for ev in events:
-        te = {"name": ev["name"], "ph": ev["ph"],
-              "ts": int(round(ev["ts"] * 1e6)),
+        te = {"name": ev["name"], "ph": ev["ph"], "ts": _us(ev["ts"]),
               "pid": pid, "tid": ev.get("tid", 0)}
         if ev["ph"] == "X":
-            te["dur"] = max(int(round(ev["dur"] * 1e6)), 0)
+            te["dur"] = max(_us(ev["dur"]), 0)
         if ev.get("args"):
             te["args"] = ev["args"]
         out.append(te)
+        if "dts" in ev:
+            if not named:
+                out.insert(0, {"name": "thread_name", "ph": "M", "pid": pid,
+                               "tid": DEVICE_TID, "args": {"name": "device"}})
+                named = True
+            dev = {"name": f"{ev['name']}:device", "ph": "X",
+                   "ts": _us(ev["dts"]), "dur": max(_us(ev["ddur"]), 0),
+                   "pid": pid, "tid": DEVICE_TID}
+            if ev.get("args"):
+                dev["args"] = ev["args"]
+            out.append(dev)
     return out
 
 

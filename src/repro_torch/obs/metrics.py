@@ -6,7 +6,12 @@ A copy of ``repro.obs.metrics``. One process-global :class:`MetricsRegistry`
 * **store** — ``store.hits`` / ``store.miss_bytes`` from the sharded
   embedding store's read path (``store/backend.py``);
 * **serve** — ``serve.rejected.<reason>`` per typed admission rejection
-  (``serve/server.py``).
+  (``serve/server.py``);
+* **set-up** — the gauges ``setup.normalize_s`` (``graph/formats.py``
+  ``gcn_normalize``), ``setup.partition_s`` (``graph/partition.py``
+  ``partition_graph``) and ``setup.trainer_s`` (the ``GNNTrainer``
+  constructor): the seconds each last took, on the obs clock
+  (:func:`timed`).
 
 :class:`TraceLog` is kept as API: a list whose ``append`` also bumps
 ``retrace.<scope>`` and emits a ``retrace`` event. The JAX package appends
@@ -23,6 +28,7 @@ Pure stdlib; imports only :mod:`.spans`.
 """
 from __future__ import annotations
 
+import contextlib
 import threading
 from typing import Optional
 
@@ -155,6 +161,19 @@ def snapshot() -> dict:
 
 def reset_metrics() -> None:
     REGISTRY.reset()
+
+
+@contextlib.contextmanager
+def timed(name: str):
+    """Time a block (or, as a decorator, a function) that runs once per
+    process on the obs clock: its seconds go to the always-on gauge
+    ``name``, and with tracing on it is also a host span of that name."""
+    with _spans.span(name):
+        t0 = _spans.clock()
+        try:
+            yield
+        finally:
+            REGISTRY.gauge(name).set(_spans.clock() - t0)
 
 
 class TraceLog(list):

@@ -31,6 +31,8 @@ every sweep publishes into and queries read through, query-only
 :class:`StoreReader` replicas, and the ``refresh > plan > sweep`` spans of
 ``repro_torch.obs``. The ``sweep`` span covers the sweep's launches; the
 copy of the logits to the host comes after it and waits for the card.
+Inside it each exchange site is a ``halo`` span (kind ``quantized``) on
+either schedule, and each aggregation an ``agg`` span.
 
 **Under a sharded runtime** (``Runtime.sharded(P)``, one partition per
 process, the counterpart of the reference's ``shard_serve_fn`` under
@@ -76,7 +78,7 @@ import torch
 from .. import obs
 from ..core import quantization as qlib
 from ..core.exchange import (exchange_halo, exchange_quantized_halo,
-                             gather_boundary)
+                             gather_boundary, halo_span)
 from ..core.staleness import HaloState
 from ..core.sylvie import SylvieComm, SylvieConfig
 from ..dist import api as dist_api
@@ -130,9 +132,14 @@ class ServeComm(SylvieComm):
         self.layer_inputs: list = []
 
     def halo(self, h: torch.Tensor) -> torch.Tensor:
-        cfg = self.cfg
         i = self._site
         self._site += 1
+        with halo_span(i, "fwd", "quantized", h.device):
+            return self._halo(h, i)
+
+    def _halo(self, h: torch.Tensor, i: int) -> torch.Tensor:
+        """Site ``i``'s forward, on either schedule."""
+        cfg = self.cfg
         sd = self._site_decision(i)
         self.layer_inputs.append(h)
         aff_send = self.send_affected[i][..., None]
@@ -142,9 +149,9 @@ class ServeComm(SylvieComm):
             inflight = olap._issue(h, lambda t: gather_boundary(t, self.plan),
                                    sd.fwd_bits, sd.stochastic,
                                    cfg.scale_dtype, self.backend, self.plan,
-                                   self.generator)
+                                   self.generator, site=i)
             aff = exchange_halo(aff_send, self.plan, self.backend)
-            fresh = olap._land(inflight, self.backend)
+            fresh = olap._land(inflight, self.backend, i)
         else:
             buf = gather_boundary(h, self.plan)
             qt = qlib.quantize(buf, sd.fwd_bits, self.generator,

@@ -24,8 +24,12 @@ the host:
 ``SylvieConfig(bits=...)`` without a policy is the ``Uniform`` policy; the
 paper's Bounded Staleness Adaptor (§3.3) is ``policy=BoundedStaleness(eps_s)``
 (the deprecated ``eps_s=`` keyword builds it and warns).
-Each epoch is traced as ``epoch > decide > step`` spans
-(``repro_torch.obs``; free when tracing is off) and timed on ``obs.clock``.
+Each epoch is traced as ``epoch > decide > step > wait`` spans
+(``repro_torch.obs``; free when tracing is off; ``wait`` is the loss's
+sync, so a step less its ``wait`` is the host's dispatch, and after it the
+idle card anchors the device clock) and timed on ``obs.clock``; inside ``step`` the exchange sites and aggregations trace
+``halo`` and ``agg``. The constructor times itself into the gauge
+``setup.trainer_s``.
 
 **Chaos.** ``fault_plan=`` (or a runtime whose backend is a
 :class:`~repro_torch.faults.FaultyBackend`) arms every epoch: the plan's
@@ -119,6 +123,7 @@ class GNNTrainer:
        stochastic=cfg.stochastic, boundary_sample_p=cfg.boundary_sample_p)``
        and warns; pass that policy instead."""
 
+    @obs.timed("setup.trainer_s")
     def __init__(self, model, pg, cfg: Optional[SylvieConfig] = None,
                  opt: Optional[optlib.Optimizer] = None,
                  policy: Optional[CommPolicy] = None,
@@ -135,7 +140,7 @@ class GNNTrainer:
             warnings.warn(
                 "GNNTrainer(eps_s=...) is deprecated; pass "
                 "policy=repro_torch.policy.BoundedStaleness(eps_s) instead",
-                DeprecationWarning, stacklevel=2)
+                DeprecationWarning, stacklevel=3)   # past obs.timed's frame
             if policy is not None:
                 raise ValueError("pass policy or eps_s, not both")
             policy = BoundedStaleness(
@@ -372,7 +377,9 @@ class GNNTrainer:
                 self.state, loss = fn(self.state, self.block, self.x, self.y,
                                       self.train_mask, self._epoch_key(),
                                       masks)
-                loss = float(loss)           # a device sync
+                with obs.span("wait"):
+                    loss = float(loss)       # a device sync
+                obs.anchor(self.device)      # the card is idle here
             dt = obs.clock() - t0
             self._needs_sync = False
             if escalate:

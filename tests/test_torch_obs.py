@@ -9,15 +9,19 @@
   files written by ``repro.obs`` to the same text as ``python -m repro.obs``,
   and exits 2 on missing or invalid files.
 * The instrumented layers: with the JAX steps compiled first (a trace
-  would add ``retrace`` events the port never emits), the port's trainer and
-  serving path emit, under the same ``FakeClock``, the same events as the
-  JAX package's — ``epoch > decide > step``, ``admit``, ``request >
-  lookup``, ``refresh > plan > sweep`` — with the same timestamps, so the
-  same clock reads; ``EpochMetrics.wall_s`` and ``seconds`` are equal too,
-  and the counters (``serve.rejected.*``, ``store.*``) match.
+  would add ``retrace`` events the port never emits), the port's trainer
+  emits the JAX package's ``epoch > decide > step`` with the same names,
+  args and order, and inside ``step`` its own ``halo``, ``agg`` and
+  ``wait`` spans, which the JAX package has not; its serving path emits,
+  under the same ``FakeClock``, the same events as the JAX package's —
+  ``admit``, ``request > lookup``, ``refresh > plan > sweep`` — with the
+  same timestamps, so the same clock reads, once its own ``halo`` and
+  ``agg`` spans and their two reads each are taken out, and the counters
+  (``serve.rejected.*``, ``store.*``) match.
 
 Tolerances: none; every comparison is exact.
 """
+import bisect
 import os
 import subprocess
 import sys
@@ -200,9 +204,54 @@ def _events_without_tid(events):
     return [{k: v for k, v in e.items() if k != "tid"} for e in events]
 
 
+def _unread(events, names, start, tick):
+    """``events`` as ``FakeClock(start, tick)`` would have stamped them had
+    the spans named in ``names`` never read it: each took two reads, at its
+    start and its end, and the other events' reads move up past them."""
+    clock, seq = obs.FakeClock(start=start, tick=tick), []
+
+    def at(i):
+        while len(seq) <= i:
+            seq.append(clock())
+        return seq[i]
+
+    def index(t):
+        i = round((t - start) / tick)
+        assert abs(at(i) - t) < tick / 4
+        return i
+
+    def starts_ends(e):
+        i = index(e["ts"])
+        j = index(e["ts"] + e["dur"]) if "dur" in e else None
+        assert j is None or at(j) - at(i) == e["dur"]
+        return i, j
+
+    gone = sorted(k for e in events if e["name"] in names
+                  for k in starts_ends(e))
+    out = []
+    for e in events:
+        if e["name"] in names:
+            continue
+        i, j = starts_ends(e)
+        i -= bisect.bisect_left(gone, i)
+        e = dict(e, ts=at(i))
+        if j is not None:
+            e["dur"] = at(j - bisect.bisect_left(gone, j)) - at(i)
+        out.append(e)
+    return out
+
+
+def _site(site, direction, kind, width):
+    return [("halo", {"site": site, "dir": direction, "kind": kind}),
+            ("agg", {"dir": direction, "width": width})]
+
+
 def test_trainer_spans_and_wall_s_match_jax(graphs):
     """Sylvie-A with ``eps_s = 2``: epochs 0 and 1 (sync, async) untraced
-    compile the JAX steps; epochs 2 and 3 (sync, async) are traced."""
+    compile the JAX steps; epochs 2 and 3 (sync, async) are traced. The
+    shared spans match JAX's; the port's own follow the step's dataflow:
+    site 0's backward (its ``h`` is the input) runs only in the async
+    step, whose ``gslot`` asks for its gradient."""
     pg, jpg = graphs
     dims = (pg.x.shape[-1], D_HIDDEN, pg.n_classes)
     cfg = dict(mode="async", bits=1)
@@ -218,15 +267,31 @@ def test_trainer_spans_and_wall_s_match_jax(graphs):
         o.enable(o.FakeClock(start=100.0, tick=0.01))
         t.fit(2)
         events.append(_events_without_tid(o.drain()))
-    assert events[0] == events[1]
-    names = [(e["name"], e.get("args")) for e in events[0]]
-    assert names == [("epoch", {"epoch": 2}), ("decide", None),
-                     ("step", {"mode": "sync"}), ("epoch", {"epoch": 3}),
-                     ("decide", None), ("step", {"mode": "async"})]
+    shared = {"epoch", "decide", "step"}
+    names = [[(e["name"], e.get("args")) for e in evs if e["name"] in shared]
+             for evs in events]
+    assert names[0] == names[1] == [
+        ("epoch", {"epoch": 2}), ("decide", None), ("step", {"mode": "sync"}),
+        ("epoch", {"epoch": 3}), ("decide", None),
+        ("step", {"mode": "async"})]
+    own = [(e["name"], {k: v for k, v in (e.get("args") or {}).items()
+                        if k != "bytes"} or None)
+           for e in events[0] if e["name"] not in shared]
+    d0, d1 = dims[:2]                   # each layer's table width
+    fwd = lambda kind: _site(0, "fwd", kind, d0) + _site(1, "fwd", kind, d1)
+    assert own == (
+        fwd("quantized") + [("agg", {"dir": "bwd", "width": d1}),
+                            ("halo", {"site": 1, "dir": "bwd",
+                                      "kind": "quantized"}),
+                            ("wait", None)]
+        + fwd("fresh") + [("agg", {"dir": "bwd", "width": d1}),
+                          ("halo", {"site": 1, "dir": "bwd", "kind": "stale"}),
+                          ("agg", {"dir": "bwd", "width": d0}),
+                          ("halo", {"site": 0, "dir": "bwd", "kind": "stale"}),
+                          ("wait", None)])
     for m, jm in zip(tr.history, jtr.history):
         assert m.mode == jm.mode
-    for m, jm in zip(tr.history[2:], jtr.history[2:]):
-        assert (m.wall_s, m.seconds) == (jm.wall_s, jm.seconds)
+    for m in tr.history[2:]:
         assert m.wall_s >= m.seconds > 0.0
     # untraced, wall_s is the host clock's and still brackets the step
     assert all(m.wall_s >= m.seconds > 0.0 for m in tr.history[:2])
@@ -266,8 +331,20 @@ def test_serving_spans_and_counters_match_jax(graphs):
         # the port never makes
         counters.append({k: v for k, v in o.snapshot()["counters"].items()
                          if not k.startswith("retrace.")})
-    assert events[0] == events[1]
-    assert [ev["name"] for ev in events[0]] == [
+    # the port's own spans, each exchange site and aggregation inside each
+    # sweep: taken out with their clock reads, the rest is JAX's, stamp for
+    # stamp
+    own = [(e["name"], e.get("args")) for e in events[0]
+           if e["name"] in ("halo", "agg")]
+    assert own == [("halo", {"site": 0, "dir": "fwd", "kind": "quantized",
+                             "bytes": own[0][1]["bytes"]}),
+                   ("agg", {"dir": "fwd", "width": dims[0]}),
+                   ("halo", {"site": 1, "dir": "fwd", "kind": "quantized",
+                             "bytes": own[2][1]["bytes"]}),
+                   ("agg", {"dir": "fwd", "width": dims[1]})] * 2
+    assert own[0][1]["bytes"] > 0 and own[2][1]["bytes"] > 0
+    assert _unread(events[0], ("halo", "agg"), 5.0, 0.001) == events[1]
+    assert [ev["name"] for ev in events[1]] == [
         "admit", "admit", "request", "lookup", "refresh", "plan", "sweep",
         "refresh", "sweep"]
     assert counters[0] == counters[1]
