@@ -487,10 +487,11 @@ TRAIN_KERNELS = ("quantize_pack", "unpack_dequantize", "spmm_csr",
 # kernel launches per training step (2 layers), by (arch, run, step), in
 # TRAIN_KERNELS order. GCN and GraphSAGE (whose mean is the SpMM over the
 # unit-weight CSR): forward 2 SpMM; backward 1 SpMM over the transposed CSR
-# (2 in an async step, whose gslot gradient at site 0 needs layer 0's table
-# gradient) and 1 over the scatter CSR; quantize/dequantize once per
-# exchange: the forward at both sites, the backward at site 1 (sync: site
-# 0's h is the input) or at both sites (async: the gslots), none at 32 bits.
+# and 1 over the scatter CSR; quantize/dequantize once per exchange: the
+# forward at both sites, the backward at site 1 alone, sync or async (site
+# 0's h is the input: it has no gradient exchange, and an async step wires
+# it no gslot, so layer 0's table needs no transposed SpMM), none at 32
+# bits.
 # GAT exchanges hw = h @ w, which has a gradient at site 0 too: both sites
 # exchange both ways and scatter a gradient in either step; per layer 1
 # softmax and 1 per-head SpMM forward, and backward 1 per-head SpMM over the
@@ -507,7 +508,7 @@ GAT_ONE_BIT = (("gat", "sylvie_s"), ("gat", "sylvie_a"))
 _GCN_LAUNCHES = {("vanilla", "sync"): (0, 0, 4, 0, 0, 0, 0),
                  ("sylvie_s", "sync"): (3, 3, 4, 0, 0, 0, 0),
                  ("sylvie_a", "sync"): (3, 3, 4, 0, 0, 0, 0),
-                 ("sylvie_a", "async"): (4, 4, 5, 0, 0, 0, 0)}
+                 ("sylvie_a", "async"): (3, 3, 4, 0, 0, 0, 0)}
 TRAIN_LAUNCHES = {
     **{("gcn",) + k: v for k, v in _GCN_LAUNCHES.items()},
     **{("graphsage",) + k: v for k, v in _GCN_LAUNCHES.items()},

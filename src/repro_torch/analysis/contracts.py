@@ -134,22 +134,24 @@ def buckets(pg, layout: str) -> Optional[tuple[int, ...]]:
     return tuple(int(b) for b in pg.plan.bucket_sizes)
 
 
-def train_exp(model, state, pg, layout: str, bits: int,
-              *, sync: bool) -> ExchangeExpectation:
-    """Declared comm structure of a train step (the reference's
-    ``_train_exp``).
+def train_exp(model, state, pg, layout: str, bits: int
+              ) -> ExchangeExpectation:
+    """Declared comm structure of a train step, sync or async (the
+    reference's ``_train_exp``).
 
-    Forward: one exchange per site. Backward (sync): the site-0 exchange
-    ships raw input features, which need no gradient, so its backward
-    exchange does not run — ``n_sites - 1`` ops. Async steps exchange the
-    *gradient caches* instead, and every cache (site 0 included) is a
-    differentiated output, so nothing is left out. psums: one per
-    weight-grad leaf (Alg. 2 line 16) + 2 for the masked loss (sum, count) +
-    1 for the site telemetry."""
+    Forward: one exchange per site. Backward: the site-0 exchange ships raw
+    input features (GCN and GraphSAGE, the models of these contracts), which
+    need no gradient, so its backward exchange does not run — ``n_sites -
+    1`` ops. A sync step's backward has nothing to send there; an async
+    step, which exchanges the *gradient caches*, wires no gradient slot for
+    a site whose ``h`` needs no gradient. (The reference's async
+    expectation is ``n_sites``: it differentiates every cache.) psums: one
+    per weight-grad leaf (Alg. 2 line 16) + 2 for the masked loss (sum,
+    count) + 1 for the site telemetry."""
     n_sites = len(model.comm_dims())
     n_leaves = len(optlib.tree_leaves(state.params))
     return ExchangeExpectation(
-        fwd_ops=n_sites, bwd_ops=n_sites - 1 if sync else n_sites,
+        fwd_ops=n_sites, bwd_ops=n_sites - 1,
         bits=bits, buckets=buckets(pg, layout), psums=n_leaves + 3)
 
 
@@ -207,8 +209,7 @@ def train_census(arch: str, layout: str, mode: str, device,
     """This rank's census of one sharded train step and its expectation."""
     w = workload(arch, layout, _sharded(device))
     c = step_census(w, mode, schedule)
-    return c, train_exp(w.model, w.state, w.pg, layout, bits=1,
-                        sync=mode == "sync"), w.runtime
+    return c, train_exp(w.model, w.state, w.pg, layout, bits=1), w.runtime
 
 
 def contract_train_census(arch: str, layout: str, device) -> list[Finding]:
@@ -220,8 +221,8 @@ def contract_train_census(arch: str, layout: str, device) -> list[Finding]:
 
 def contract_train_async_census(device) -> list[Finding]:
     """The async (Sylvie-A) step: cached-halo consumption still moves one
-    quantized exchange per site per direction, inverted rings in
-    backward."""
+    quantized exchange per site forward and, on inverted rings, one per
+    site whose ``h`` needs a gradient backward (all but site 0)."""
     c, exp, rt = train_census("gcn", "compact", "async", device)
     return _census_findings(c, exp, "contract:train_async/gcn/compact/"
                             "sharded", rt)
@@ -289,7 +290,7 @@ def contract_overlap_census(device) -> list[Finding]:
     w = workload("gcn", "compact", _sharded(device))
     blocking = step_census(w, "sync")
     overlap = step_census(w, "sync", "overlap")
-    exp = train_exp(w.model, w.state, w.pg, "compact", bits=1, sync=True)
+    exp = train_exp(w.model, w.state, w.pg, "compact", bits=1)
     return (_census_findings(overlap, exp, where, w.runtime)
             + check_overlap(blocking, overlap, where))
 
@@ -517,7 +518,7 @@ def contract_trainer_epoch(model, pg, runtime: Runtime, where: str
     with census(cb, device=rt.device) as c:
         tr.train_epoch()
     layout = getattr(pg.plan, "layout", "dense")
-    exp = train_exp(model, tr.state, pg, layout, 1, sync=True)
+    exp = train_exp(model, tr.state, pg, layout, 1)
     found = (check_exchange_census(c, exp, where, rt.rank, pg.plan.n_parts)
              + check_wire_dtypes(c, exp, where))
     if rt.rank is None:

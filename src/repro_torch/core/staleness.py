@@ -25,12 +25,6 @@ class HaloState:
     feats: tuple
     grads: tuple = ()
 
-    def gslots(self) -> tuple:
-        """Zero-valued tensors that require grad: their gradients carry the
-        fresh outgoing boundary gradients out of the backward pass (see
-        ``core/sylvie.py::StaleHalo``)."""
-        return tuple(torch.zeros_like(f).requires_grad_() for f in self.feats)
-
     @staticmethod
     def zeros(plan: PlanArrays, dims: Sequence[int], dtype=torch.float32,
               stacked_parts: Optional[int] = None, device=None) -> "HaloState":

@@ -13,7 +13,13 @@ Three communication modes (paper §3):
   cache (:func:`fresh_halo`). The backward mirrors it (:class:`StaleHalo`):
   the cotangent on the stale halo is exchanged and surfaces as the gradient
   of a zero-valued ``gslot`` input, the next step's ``grad_in``; this step's
-  ``grad_in`` (one step stale) is scattered onto the boundary nodes.
+  ``grad_in`` (one step stale) is scattered onto the boundary nodes. A site
+  gets a ``gslot`` only where the ``h`` it exchanges requires a gradient:
+  where it needs none (site 0 of GCN and GraphSAGE, whose ``h`` is the
+  input) the next ``grad_in`` would never be scattered, so the stale halo
+  is a constant and neither the backward into its table nor its gradient
+  exchange runs (``halo.gslot_wired`` / ``halo.gslot_skipped`` count the
+  two cases).
 
 These are the three ``jax.custom_vjp``s of ``repro.core.sylvie`` as
 ``torch.autograd.Function``s. What each site does in a given epoch —
@@ -60,6 +66,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import obs
 from ..dist import overlap as olap
 from ..dist.backend import Inflight, as_backend
 from ..faults import comm as fcomm
@@ -227,8 +234,10 @@ class SylvieComm:
     one global ``SylvieConfig`` choice. ``key`` (a training step's tuple of
     integers) gives each site its own forward and backward noise streams;
     without it every site draws from ``generator``. Collects the halos it
-    produced (``new_feat_caches``: the Sylvie-A caches of the next step) and,
-    when ``collect_stats``, per-site boundary range statistics.
+    produced (``new_feat_caches``: the Sylvie-A caches of the next step),
+    an async pass's gradient slots (``gslots``: per site a zero tensor that
+    requires grad where its ``h`` does, else ``None``) and, when
+    ``collect_stats``, per-site boundary range statistics.
     ``bns_masks`` (one (P, halo_rows) 0/1 keep-mask per site, the whole
     stack's also under a sharded backend) replaces the BNS draws of a
     synchronous pass where sampling is on. ``fault_sites``
@@ -243,8 +252,7 @@ class SylvieComm:
                  generator: Optional[torch.Generator] = None, backend=None,
                  decision=None, *, key: Optional[tuple] = None,
                  collect_stats: bool = False, feat_caches=None,
-                 grad_ins=None, gslots=None, fault_sites=None,
-                 bns_masks=None):
+                 grad_ins=None, fault_sites=None, bns_masks=None):
         self.cfg = cfg
         self.plan = plan
         self.generator = generator
@@ -254,7 +262,7 @@ class SylvieComm:
         self.collect_stats = collect_stats
         self.feat_caches = feat_caches
         self.grad_ins = grad_ins
-        self.gslots = gslots
+        self.gslots: list = []
         self.bns_masks = bns_masks
         self.fault_sites = fault_sites
         self.new_feat_caches: list = []
@@ -360,7 +368,7 @@ class SylvieComm:
             self.new_feat_caches.append(halo.detach())
             return halo
         # async: consume stale, emit fresh
-        stale = (h, self.feat_caches[i], self.grad_ins[i], self.gslots[i])
+        stale = (h, self.feat_caches[i], self.grad_ins[i], self._gslot(i, h))
         if sf is not None:
             halo = fcomm.faulty_stale_halo(*stale, sf, self.plan, sd.bwd_bits,
                                            *args, gen_b, site=i)
@@ -383,6 +391,17 @@ class SylvieComm:
             fresh = fresh_halo(h, self.plan, sd.fwd_bits, *args, gen_f)
         self.new_feat_caches.append(fresh)
         return halo
+
+    def _gslot(self, i: int, h: torch.Tensor) -> Optional[torch.Tensor]:
+        """Site ``i``'s gradient slot in an async pass, kept in ``gslots``:
+        wired only where ``h`` requires a gradient. Elsewhere the grad_in the
+        slot would carry is never scattered, so the site gets none."""
+        slot = (torch.zeros_like(self.feat_caches[i]).requires_grad_()
+                if h.requires_grad else None)
+        obs.count("halo.gslot_skipped" if slot is None
+                  else "halo.gslot_wired")
+        self.gslots.append(slot)
+        return slot
 
     def issue_pending(self) -> None:
         """Issue the deferred fresh exchanges (the overlap schedule's async

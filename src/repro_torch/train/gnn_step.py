@@ -9,7 +9,10 @@ Three step flavors over one :class:`GNNTrainState`, as
 * ``train_step_async`` — Sylvie-A: consumes the cached halo features and
   gradients and emits fresh caches for the next step. The new
   ``HaloState.grads`` are the gradients of the zero-valued ``gslots`` at
-  every site — site 0 included, whose ``h`` is the input;
+  the sites whose ``h`` requires a gradient. The cache of a site whose
+  ``h`` needs none (site 0 of GCN and GraphSAGE, whose ``h`` is the input)
+  is never read, and the step leaves it as it was: zero from ``create`` and
+  from every synchronous step's drain;
 * ``eval_step`` — full-precision synchronous exchange (accuracy).
 
 What each exchange site does comes from an
@@ -161,18 +164,21 @@ def make_gnn_steps(model, cfg: SylvieConfig, opt: optlib.Optimizer,
     def train_step_async(state: GNNTrainState, block, x, y, mask, key,
                          bns_masks=None):
         params = _leaves_requiring_grad(state.params)
-        gslots = state.halo.gslots()
         comm = SylvieComm(async_cfg, block.plan, backend=backend,
                           decision=decision, key=key, collect_stats=True,
                           feat_caches=state.halo.feats,
-                          grad_ins=state.halo.grads, gslots=gslots,
+                          grad_ins=state.halo.grads,
                           fault_sites=(state.faults.sites
                                        if state.faults is not None else None))
         loss = _masked_loss(model.apply(params, block, x, comm), y, mask,
                             backend)
-        comm.issue_pending()        # under the overlap schedule: beside the
-        grads, ggrads = _grads(loss, params, gslots)      # backward
-        return _finish(state, grads, loss, comm, ggrads)
+        comm.issue_pending()    # the overlap schedule: beside the backward
+        grads, ggrads = _grads(loss, params,
+                               [s for s in comm.gslots if s is not None])
+        it = iter(ggrads)
+        halo_grads = [old if s is None else next(it)
+                      for s, old in zip(comm.gslots, state.halo.grads)]
+        return _finish(state, grads, loss, comm, halo_grads)
 
     def eval_step(params, block, x, y, mask, key):
         comm = SylvieComm(sync_cfg.replace(mode="vanilla", stochastic=False),

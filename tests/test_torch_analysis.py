@@ -5,7 +5,8 @@ CLI's exit codes.
 * For every census contract the port's expectation (``train_exp``,
   ``eval_exp``, ``serve_exp``, ``expected_shift_census``) equals the
   reference's on the same 96-node skewed workload (``repro.analysis.contracts``,
-  ``jaxpr_checks``).
+  ``jaxpr_checks``), but for one deliberate difference (``FEWER_BWD``): the
+  async step runs no backward exchange at site 0, whose ``h`` is the input.
 * The census each sharded entry point makes, in four ``gloo`` processes
   (one spawn for every sharded case), equals that expectation on every
   rank: the ``(shift, rows)`` multiset of its ``all_to_all_single`` splits,
@@ -103,6 +104,21 @@ def _ref_exp(name):
     return _ref_train_exp(*TRAIN_CASES[name])
 
 
+# the one deliberate difference from the reference: the port's async step
+# wires no gradient slot at site 0, whose h is the raw input (nothing reads
+# that gradient), so it runs one backward exchange fewer than the
+# reference's, which differentiates every cache
+FEWER_BWD = {"train_async/gcn/compact": 1}
+
+
+def _held_to(name):
+    """The reference's expectation of ``name`` less the port's one
+    deliberate difference."""
+    ref = _ref_exp(name)
+    return dataclasses.replace(ref,
+                               bwd_ops=ref.bwd_ops - FEWER_BWD.get(name, 0))
+
+
 def _port_exp(name):
     rt = Runtime.simulated(P, device="cpu")
     if name == "eval/gcn/compact":
@@ -111,10 +127,9 @@ def _port_exp(name):
     if name == "serve_sweep/gcn/compact":
         _, pg = C.graph_and_partition("compact")
         return C.serve_exp(2, pg)
-    arch, layout, mode = TRAIN_CASES.get(name, ("gcn", "compact", "sync"))
+    arch, layout, _ = TRAIN_CASES.get(name, ("gcn", "compact", "sync"))
     w = C.workload(arch, layout, rt)
-    return C.train_exp(w.model, w.state, w.pg, layout, bits=1,
-                       sync=mode == "sync")
+    return C.train_exp(w.model, w.state, w.pg, layout, bits=1)
 
 
 CENSUS_CASES = (*TRAIN_CASES, "eval/gcn/compact", "serve_sweep/gcn/compact",
@@ -124,7 +139,8 @@ CENSUS_CASES = (*TRAIN_CASES, "eval/gcn/compact", "serve_sweep/gcn/compact",
 @pytest.mark.parametrize("name", CENSUS_CASES)
 def test_expectation_equals_the_references(name):
     from repro.analysis import jaxpr_checks as rj
-    ref, port = _ref_exp(name), _port_exp(name)
+    ref, port = _held_to(name), _port_exp(name)
+    assert _ref_exp(name).bwd_ops - ref.bwd_ops == FEWER_BWD.get(name, 0)
     assert dataclasses.asdict(port) == dataclasses.asdict(ref)
     assert port.comps == ref.comps
     if port.buckets is not None:
@@ -199,7 +215,7 @@ def test_the_sharded_contracts_are_clean_on_every_rank(ranks):
 
 @pytest.mark.parametrize("name", CENSUS_CASES)
 def test_the_observed_census_is_the_references_expectation(ranks, name):
-    exp = _ref_exp(name)
+    exp = _held_to(name)
     for r in ranks:
         c = r["census"][name]
         a2a = c.calls("all_to_all_single")

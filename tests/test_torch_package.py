@@ -258,6 +258,10 @@ NO_COUNTERPART = {
     "core/staleness.py::HaloState.zeros_spec": "ShapeDtypeStructs for "
                                                "lowering",
     "models/gnn/blocks.py::block_spec": "ShapeDtypeStructs for lowering",
+    # every site's gradient slot at once
+    "core/staleness.py::HaloState.gslots": "SylvieComm builds a site's slot "
+                                           "as the site runs, only where its "
+                                           "h requires a gradient",
     "launch/cells.py::Cell.lower": "jax.jit(step).lower for the TPU "
                                    "compiler",
     # meshes and shard_map

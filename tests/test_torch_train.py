@@ -182,11 +182,14 @@ def test_one_sync_and_one_async_step_match_jax(graphs, tmp_path):
         rows = [_differing_rows(a, b, 2.0 ** -7)
                 for a, b in zip(s1.halo.feats, j1.halo.feats)]
         assert rows[0] == 0 and rows[1] <= 8, rows       # site 0 is x
+        # site 0's h is x: no step differentiates its cache, so the port
+        # leaves it zero where JAX's async step fills one nothing reads
+        assert not s1.halo.grads[0].any()
         rows = [_differing_rows(a, b, 1e-3, noise=True)
-                for a, b in zip(s1.halo.grads, j1.halo.grads)]
+                for a, b in zip(s1.halo.grads[1:], j1.halo.grads[1:])]
         assert max(rows) <= 0.1 * s1.halo.grads[0].shape[1] * 4, rows
         if i == 1:          # the async step's new grads are the gslot grads
-            assert all(float(g.abs().sum()) > 0 for g in s1.halo.grads)
+            assert all(float(g.abs().sum()) > 0 for g in s1.halo.grads[1:])
         j0 = j1
 
 
@@ -306,10 +309,11 @@ def test_training_runs_each_kernel_as_documented(graphs, monkeypatch):
     """Per step, on the CPU, the kernels' plain versions run as often as the
     kernels launch on the card (``chip_smoke.py`` holds the card to the same
     figures): sync 3 quantize / 3 dequantize / 4 SpMM (2 forward, 1
-    transposed, 1 scatter; site 0 exchanges no gradient), async 4 / 4 / 5
-    (the fresh exchanges, and the gslot gradients at both sites, so layer 0's
-    table needs the transposed SpMM too; one scatter). Nothing on the path
-    adds with ``index_add_``, ``scatter_add_`` or ``torch.sparse.mm``."""
+    transposed, 1 scatter; site 0 exchanges no gradient), and async the same
+    (the fresh exchanges, and the gslot gradient at site 1 alone: site 0's h
+    is the input, so it gets no slot and layer 0's table no transposed
+    SpMM; one scatter). Nothing on the path adds with ``index_add_``,
+    ``scatter_add_`` or ``torch.sparse.mm``."""
     tr, _ = _trainers(graphs, "sylvie_a")
     counts = {}
     for mod, name in ((qref, "quantize_pack_ref"),
@@ -334,8 +338,8 @@ def test_training_runs_each_kernel_as_documented(graphs, monkeypatch):
         m = tr.train_epoch()
         seen.append((m.mode, counts["quantize_pack_ref"],
                      counts["unpack_dequantize_ref"], counts["spmm_ref"]))
-    assert seen == [("sync", 3, 3, 4), ("async", 4, 4, 5),
-                    ("async", 4, 4, 5)]
+    assert seen == [("sync", 3, 3, 4), ("async", 3, 3, 4),
+                    ("async", 3, 3, 4)]
 
 
 def test_overlap_schedule_is_not_ported(graphs):

@@ -105,15 +105,17 @@ CONFIGS = {
 # plain-version calls per training step: (quantize, dequantize, SpMM,
 # per-head SpMM, softmax, SDDMM, softmax backward + transposed row sums),
 # by (arch, mode, bits). GraphSAGE runs as GCN does: forward 2 SpMM over the
-# unit CSR, backward 1 over its transpose (2 async: the gslot gradient at
-# site 0) and 1 scatter. GAT's site 0 exchanges hw, which has a gradient:
+# unit CSR, backward 1 over its transpose and 1 scatter, sync or async (site
+# 0's h is the input: no gradient exchange, and no gslot in an async step,
+# so layer 0's table needs no transposed SpMM). GAT's site 0 exchanges hw,
+# which has a gradient:
 # both sites quantize both ways in either step and scatter 2 gradients; per
 # layer 1 softmax and 1 per-head SpMM forward, 1 per-head SpMM over the
 # transposed CSR, 1 SDDMM and 2 softmax-backward calls backward.
 TRAIN_CALLS = {
     ("graphsage", "sync", 32): (0, 0, 4, 0, 0, 0, 0),
     ("graphsage", "sync", 1): (3, 3, 4, 0, 0, 0, 0),
-    ("graphsage", "async", 1): (4, 4, 5, 0, 0, 0, 0),
+    ("graphsage", "async", 1): (3, 3, 4, 0, 0, 0, 0),
     ("gat", "sync", 32): (0, 0, 2, 4, 2, 2, 4),
     ("gat", "sync", 1): (4, 4, 2, 4, 2, 2, 4),
     ("gat", "async", 1): (4, 4, 2, 4, 2, 2, 4),
@@ -202,11 +204,17 @@ def test_one_sync_and_one_async_step_match_jax(graphs, arch, bits):
             assert diff.sum() <= 8
             assert (np.abs(a - b).max(-1)[diff]
                     <= 2.0 ** -7 * row_range[diff]).all()
-        for a, b in zip(s1.halo.grads, j1.halo.grads):
+        # GraphSAGE's site 0 ships x: no step differentiates its cache, so
+        # the port leaves it zero where JAX's async step fills one nothing
+        # reads. GAT's site 0 ships hw, and every site is compared.
+        unread = 1 if arch == "graphsage" else 0
+        assert not any(g.any() for g in s1.halo.grads[:unread])
+        for a, b in zip(s1.halo.grads[unread:], j1.halo.grads[unread:]):
             b = np.asarray(b)
             assert np.abs(a.numpy() - b).max() <= 5e-3 * np.abs(b).max()
         if i == 1:          # the async step's new grads are the gslot grads
-            assert all(float(g.abs().sum()) > 0 for g in s1.halo.grads)
+            assert all(float(g.abs().sum()) > 0
+                       for g in s1.halo.grads[unread:])
         j0 = j1
 
 

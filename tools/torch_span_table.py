@@ -18,7 +18,9 @@ direction and width):
 
 and per mode the step's host ms and its dispatch (the step less its
 ``wait``); then the set-up gauges against ``setup_marks``' ``graph`` to
-``program`` interval, the run's metrics, and how the SpMM and Low-bit
+``program`` interval, the run's metrics, the process's ``halo.*``
+counters (``halo.gslot_wired`` / ``halo.gslot_skipped``: the async steps'
+gradient slots, warm-up included), and how the SpMM and Low-bit
 kernels of the profiler's trace lie in the spans that should hold them
 (:func:`containment`: the two clocks' agreement). The profiler's trace is
 put on the host clock once per window, the spans at every step, so the
@@ -223,9 +225,12 @@ def main(argv=None) -> int:
     marks = dict(res["setup_marks"])
     gauges = {k: obs.snapshot()["gauges"].get(k) for k in SETUP}
     program = marks["program"] - marks["graph"]
+    counters = {k: v for k, v in obs.snapshot()["counters"].items()
+                if k.startswith("halo.")}
     out = {"workload": args.workload, "seed": args.seed,
            "correct": res["correct"], "trace_notes": res["trace_notes"],
            "metrics": {k: v["value"] for k, v in res["metrics"].items()},
+           "counters": counters,
            "setup_marks": res["setup_marks"], "setup_gauges": gauges,
            "setup_covered": sum(v or 0.0 for v in gauges.values()) / program,
            "table": table(ops, spans),
@@ -244,6 +249,7 @@ def main(argv=None) -> int:
               f"{k} {v:.2f}" for k, v in gauges.items() if v is not None)
           + f"; covered {out['setup_covered']:.3f}")
     print("metrics: " + json.dumps(out["metrics"]))
+    print("counters: " + json.dumps(counters))
     print("containment: " + json.dumps(out["containment"]))
     if args.raw:
         import gzip
